@@ -1,0 +1,37 @@
+"""Channel LayerNorm for NHWC feature maps.
+
+Port of ``bayer_low_light_image_enhancement_tpu/ops/norm.py``: a last-axis
+LayerNorm with torch semantics (biased variance, eps 1e-5), statistics in
+fp32 whatever the compute dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def channel_layernorm(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+    bias_free: bool = False,
+) -> torch.Tensor:
+    """LayerNorm over the last (channel) axis.
+
+    ``bias_free=True`` is Restormer's BiasFree LayerNorm: divide by
+    sqrt(var + eps) without mean-centering.
+    """
+    xf = x.float()
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    if bias_free:
+        y = xf * torch.rsqrt(var + eps)
+    else:
+        y = (xf - xf.mean(dim=-1, keepdim=True)) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None and not bias_free:
+        y = y + bias.float()
+    return y.to(x.dtype)
