@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes`` (seconds per build,
-where ``torch.utils.cpp_extension.load`` takes minutes because it compiles
+Each ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into one shared library
+with a plain C interface, loaded with ``ctypes`` (seconds per build, where
+``torch.utils.cpp_extension.load`` takes minutes because it compiles
 PyTorch's headers). The library lands in ``_build/`` inside the package,
 named by a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the file. The build happens at the first kernel
@@ -32,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers / shared memory / spills into the build log
 ]
 
@@ -46,6 +47,20 @@ _SIGNATURES = {
     # x, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2, bp2,
     # out, B, H, W, C, stream
     "blle_apply_pass": [_P] * 14 + [_I] * 4 + [_P],
+    # x, dy, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2t, wp1t,
+    # workspace, dx2, dapply, dw, B, H, W, C, stream
+    "blle_bwd1": [_P] * 18 + [_I] * 4 + [_P],
+    # x, dx2, applyt, dgramt, dgram, dss, wqk, bqk, dwqk, bdwqk, wv, bv, dwv,
+    # bdwv, wqkvt, workspace, dx, dw, B, H, W, C, stream
+    "blle_bwd2": [_P] * 18 + [_I] * 4 + [_P],
+}
+# name -> argument types of the size queries (each returns a long long).
+_SIZES = {
+    "blle_gram_workspace_floats": [_I] * 4,  # B, H, W, C
+    "blle_bwd1_workspace_floats": [_I] * 4,
+    "blle_bwd2_workspace_floats": [_I] * 4,
+    "blle_bwd1_grad_floats": [_I],  # C
+    "blle_bwd2_grad_floats": [_I],
 }
 
 
@@ -87,16 +102,30 @@ def build() -> Path:
     if not cus:
         raise RuntimeError(f"no CUDA sources in {CSRC}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    tmp = so.with_name(f"{tag}.so.tmp")
+    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)] for o, cu in zip(objs, cus)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    log += f"\nreturncode {proc.returncode}, {time.perf_counter() - t0:.1f} s\n"
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log, failed = "", False
+    for c, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log += f"$ {' '.join(c)}\n{out}returncode {proc.returncode}\n"
+        failed |= proc.returncode != 0
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log += f"$ {' '.join(link)}\n{proc.stdout}returncode {proc.returncode}\n"
+        failed = proc.returncode != 0
+    log += f"{time.perf_counter() - t0:.1f} s\n"
     Path(f"{so}.log").write_text(log)
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, so)
     return so
 
@@ -109,8 +138,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.blle_gram_workspace_floats.argtypes = [_I] * 4
-    lib.blle_gram_workspace_floats.restype = ctypes.c_longlong
+    for name, argtypes in _SIZES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.blle_error_string.argtypes = [_I]
     lib.blle_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,8 +13,10 @@ One block runs as
 
 Each pass has a plain PyTorch twin (``*_plain``) computing the same function
 in fp32. The wrappers run the twin on a CPU tensor; on a CUDA tensor they
-launch the kernel (``csrc/fused_block.cu``) or raise. Inference only: on
-CUDA, a call with grad enabled on an input that requires grad raises.
+launch the kernel (``csrc/fused_block.cu``) or raise. The pass wrappers are
+not differentiable themselves: ``fused_transformer_block`` with grad
+enabled goes through ``fused_block_bwd.FusedTransformerBlockFn``, whose
+backward runs the kernels B1/B2 (``csrc/fused_block_bwd.cu``).
 
 ``params`` is the state dict of ``models.common.TransformerBlock`` (the
 reference's names: ``norm1.body.weight``, ``attn.qkv.weight``, ...).
@@ -128,14 +130,23 @@ def gram_pass_plain(
     return gram, (q * q).sum((1, 2)), (k * k).sum((1, 2))
 
 
-def apply_pass_plain(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
-    """x [B,H,W,C], apply [B,C,C] -> block output [B,H,W,C] in x's dtype."""
+def attention_out_plain(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
+    """The first residual's output y = x + v @ apply + b_proj (fp32)."""
     xf = x.float()
     v = _dw3x3(_ln_hat(xf) @ w.wv + w.bv, w.dwv, w.bdwv)
-    y = xf + torch.einsum("bhwc,bcd->bhwd", v, apply.float()) + w.bproj
+    return xf + torch.einsum("bhwc,bcd->bhwd", v, apply.float()) + w.bproj
+
+
+def ffn_out_plain(y: torch.Tensor, w: BlockWeights) -> torch.Tensor:
+    """The second residual's output y + FFN(LN2(y)) (fp32)."""
     t = _ln_hat(y) @ w.wp1 + w.bp1
     f = F.gelu(_dw3x3(t, w.dwf, w.bdwf))
-    return (y + f @ w.wp2 + w.bp2).to(x.dtype)
+    return y + f @ w.wp2 + w.bp2
+
+
+def apply_pass_plain(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
+    """x [B,H,W,C], apply [B,C,C] -> block output [B,H,W,C] in x's dtype."""
+    return ffn_out_plain(attention_out_plain(x, apply, w), w).to(x.dtype)
 
 
 def finalize_attention(
@@ -168,7 +179,7 @@ def finalize_attention(
 # ----------------------------------------------------------------------------
 
 
-def _require(t: torch.Tensor, name: str, shape, device) -> None:
+def require(t: torch.Tensor, name: str, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):
@@ -177,7 +188,11 @@ def _require(t: torch.Tensor, name: str, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_block_input(x: torch.Tensor, w: BlockWeights) -> None:
+def check_block_input(x: torch.Tensor, w: BlockWeights, *grad_inputs: torch.Tensor) -> None:
+    """What every fused-block kernel takes: x [B,H,W,C] bf16, contiguous, C
+    in KERNEL_WIDTHS, FFN hidden 2C. A kernel wrapper is not differentiable:
+    it raises when grad is enabled on an input (x, ``grad_inputs`` or a
+    weight) that requires grad."""
     if x.dim() != 4 or not 0 < x.shape[0] <= 65535 or x.shape[1] * x.shape[2] == 0:
         raise ValueError(f"x must be [B, H, W, C] with 1 <= B <= 65535, H, W > 0; "
                          f"got {tuple(x.shape)}")
@@ -186,21 +201,24 @@ def _check_block_input(x: torch.Tensor, w: BlockWeights) -> None:
         raise ValueError(f"no kernel for C={c}; widths: {KERNEL_WIDTHS}")
     if w.wp1.shape[1] != 2 * c:
         raise ValueError(f"kernel needs FFN hidden width 2C, got {w.wp1.shape[1]}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w.tensors())):
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *grad_inputs, *w.tensors())
+    ):
         raise RuntimeError(
-            "the fused-block kernels are inference-only: call under torch.no_grad() "
-            "or torch.inference_mode()"
+            "a fused-block kernel wrapper is not differentiable: train through "
+            "fused_transformer_block (FusedTransformerBlockFn) or call under "
+            "torch.no_grad()"
         )
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x is {x.dtype}; the kernels take bfloat16")
-    _require(x, "x", x.shape, x.device)
+    require(x, "x", x.shape, x.device)
 
 
-def _bf16(t: torch.Tensor) -> torch.Tensor:
+def bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).contiguous()
 
 
-def _f32(t: torch.Tensor) -> torch.Tensor:
+def f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
@@ -214,13 +232,13 @@ def gram_pass(x: torch.Tensor, w: BlockWeights):
 
 
 def _gram_pass_kernel(x: torch.Tensor, w: BlockWeights):
-    _check_block_input(x, w)
+    check_block_input(x, w)
     b, h, wd, c = x.shape
     lib = _build.library()
-    args = [_bf16(w.wqk), _f32(w.bqk), _f32(w.dwqk), _f32(w.bdwqk)]
+    args = [bf16(w.wqk), f32(w.bqk), f32(w.dwqk), f32(w.bdwqk)]
     for t, n, s in zip(args, ("wqk", "bqk", "dwqk", "bdwqk"),
                        ((c, 2 * c), (2 * c,), (9, 2 * c), (2 * c,))):
-        _require(t, n, s, x.device)
+        require(t, n, s, x.device)
     ws = torch.empty(lib.blle_gram_workspace_floats(b, h, wd, c), dtype=torch.float32,
                      device=x.device)
     out = torch.empty((b, c * c + 2 * c), dtype=torch.float32, device=x.device)
@@ -247,17 +265,17 @@ def apply_pass(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.T
 
 
 def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
-    _check_block_input(x, w)
+    check_block_input(x, w, apply)
     b, h, wd, c = x.shape
     ch = 2 * c
     args = [
-        _bf16(apply), _bf16(w.wv), _f32(w.bv), _f32(w.dwv), _f32(w.bdwv), _f32(w.bproj),
-        _bf16(w.wp1), _f32(w.bp1), _f32(w.dwf), _f32(w.bdwf), _bf16(w.wp2), _f32(w.bp2),
+        bf16(apply), bf16(w.wv), f32(w.bv), f32(w.dwv), f32(w.bdwv), f32(w.bproj),
+        bf16(w.wp1), f32(w.bp1), f32(w.dwf), f32(w.bdwf), bf16(w.wp2), f32(w.bp2),
     ]
     shapes = [(b, c, c), (c, c), (c,), (9, c), (c,), (c,),
               (c, ch), (ch,), (9, ch), (ch,), (ch, c), (c,)]
     for i, (t, s) in enumerate(zip(args, shapes)):
-        _require(t, f"apply-pass argument {i}", s, x.device)
+        require(t, f"apply-pass argument {i}", s, x.device)
     out = torch.empty_like(x)
     err = _build.library().blle_apply_pass(
         x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
@@ -277,8 +295,17 @@ def fused_transformer_block(
     """One TransformerBlock on x [B, H, W, C] -> [B, H, W, C] (x's dtype).
 
     On CUDA the kernels compute in bf16 whatever x's dtype (as the TPU
-    kernel does); on the CPU the fp32 twins run."""
+    kernel does); on the CPU the fp32 twins run. With grad enabled on x or
+    a parameter the block runs through ``FusedTransformerBlockFn`` (the same
+    forward, B1/B2 backward); otherwise K2 and K3 are called directly."""
     w = fold_block_params(params)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w.tensors())):
+        # Imported here: fused_block_bwd imports this module.
+        from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block_bwd import (
+            FusedTransformerBlockFn,
+        )
+
+        return FusedTransformerBlockFn.apply(x, num_heads, *w.tensors())
     xk = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
     gram, qss, kss = gram_pass(xk, w)
     apply = finalize_attention(gram, qss, kss, w.temperature, w.wproj, num_heads)

@@ -122,7 +122,9 @@ class TransformerBlock(nn.Module):
     """Pre-LN residual block: ``x + attn(norm1(x))`` then ``+ ffn(norm2(.))``.
 
     Blocks with C <= FUSE_CMAX call the fused-block wrapper (kernels K2/K3
-    on CUDA, their fp32 twins on the CPU); wider ones run the module path.
+    on CUDA, their fp32 twins on the CPU; with grad enabled its
+    autograd.Function, whose backward runs B1/B2); wider ones, and every
+    block with ``fused`` False (``set_fused_blocks``), run the module path.
     """
 
     def __init__(self, dim: int, num_heads: int = 8, ffn_expansion: int = 2,
@@ -135,9 +137,10 @@ class TransformerBlock(nn.Module):
         self.attn = ChannelAttention(dim, num_heads, **kw)
         self.norm2 = LayerNorm2d(dim, device=device, dtype=dtype)
         self.ffn = ConvFFN(dim, dim * ffn_expansion, **kw)
+        self.fused = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape[1] <= FUSE_CMAX:
+        if self.fused and x.shape[1] <= FUSE_CMAX:
             y = fused_transformer_block(
                 x.permute(0, 2, 3, 1), dict(self.named_parameters()), self.num_heads
             )
@@ -145,6 +148,14 @@ class TransformerBlock(nn.Module):
         cd = self.compute_dtype
         x = x + self.attn(self.norm1(x).to(cd))
         return x + self.ffn(self.norm2(x).to(cd))
+
+
+def set_fused_blocks(module: nn.Module, fused: bool) -> None:
+    """Route every TransformerBlock in ``module`` through the fused kernels
+    (True, the default) or the module path (False)."""
+    for m in module.modules():
+        if isinstance(m, TransformerBlock):
+            m.fused = fused
 
 
 class ConvTransformer(nn.Module):

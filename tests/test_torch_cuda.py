@@ -13,6 +13,7 @@ import torch
 
 from bayer_low_light_image_enhancement_tpu_torch.kernels import bayer_pack as bp
 from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
 from bayer_low_light_image_enhancement_tpu_torch.models import RawFormer, RawFormerConfig, common
 from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
 
@@ -71,13 +72,74 @@ def test_block_kernels_match_twins(cuda, c):
 
 
 def test_block_kernels_refuse_grad_and_unsupported_widths(cuda):
+    """The pass wrappers are not differentiable (training goes through
+    FusedTransformerBlockFn); widths without a kernel raise."""
     blk = common.TransformerBlock(32, 8, 2, device=cuda)
     x = torch.randn(1, 8, 8, 32, device=cuda).to(torch.bfloat16)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        fb.fused_transformer_block(x, dict(blk.named_parameters()), 8)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        fb.gram_pass(x, fb.fold_block_params(dict(blk.named_parameters())))
     blk16 = common.TransformerBlock(16, 8, 2, device=cuda)
     with torch.inference_mode(), pytest.raises(ValueError, match="no kernel"):
         fb.fused_transformer_block(x[..., :16].contiguous(), dict(blk16.named_parameters()), 8)
+
+
+def yardstick_errors(kernel, fp32, bf16):
+    """Per-leaf max error of the kernel and of the bf16 twin, both relative to
+    the fp32 twin's leaf max (the method of tests/test_fused_bwd.py)."""
+    out = {}
+    for name, ref in fp32.items():
+        s = ref.float().abs().max().item() + 1e-8
+        out[name] = ((kernel[name].float() - ref.float()).abs().max().item() / s,
+                     (bf16[name].float() - ref.float()).abs().max().item() / s)
+    return out
+
+
+def backward_leaves(x, dy, wts, heads, run):
+    """dx2, d_apply, dx and every folded-weight grad of B1 -> finalize ->
+    B2, with ``run(pass, *args)`` choosing kernel or twin for each pass."""
+    gram, qss, kss = fb.gram_pass_plain(x, wts)
+    apply = fb.finalize_attention(gram, qss, kss, wts.temperature, wts.wproj, heads)
+    dx2, d_apply, g1 = run(1, x, dy, apply, wts)
+    dgr, dqs, dks, _, _ = fbb.finalize_backward(gram, qss, kss, wts.temperature, wts.wproj,
+                                                d_apply, heads)
+    dx, g2 = run(2, x, dx2.to(torch.bfloat16), apply, dgr, dqs, dks, wts)
+    return {"dx2": dx2, "d_apply": d_apply, "dx": dx, **g1, **g2}
+
+
+def kernel_run(k, *args):
+    return (fbb.bwd1 if k == 1 else fbb.bwd2)(*args)
+
+
+def twin_run(k, *args):
+    return (fbb.bwd1_plain if k == 1 else fbb.bwd2_plain)(*args)
+
+
+def bf16_twin_run(k, *args):
+    with torch.autocast("cuda", torch.bfloat16):
+        return twin_run(k, *args)
+
+
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_backward_kernels_match_twins(cuda, c):
+    """B1 and B2 against their fp32 twins on ragged tiles, each leaf within
+    max(3 x the bf16 twin's error, 2e-2) of the fp32 twin."""
+    gen = torch.Generator().manual_seed(c + 1)
+    blk = common.TransformerBlock(c, 8, 2, device=cuda)
+    common.reset_parameters_(blk, gen)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if "norm" in name or "temperature" in name:
+                p.add_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen).to(cuda))
+    wts = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
+    x = torch.randn(2, 19, 13, c, generator=gen).to(cuda, torch.bfloat16)
+    dy = (0.1 * torch.randn(2, 19, 13, c, generator=gen)).to(cuda, torch.bfloat16)
+    before = (fbb.bwd1.launches, fbb.bwd2.launches)
+    got = backward_leaves(x, dy, wts, 8, kernel_run)
+    assert (fbb.bwd1.launches, fbb.bwd2.launches) == (before[0] + 1, before[1] + 1)
+    errs = yardstick_errors(got, backward_leaves(x, dy, wts, 8, twin_run),
+                            backward_leaves(x, dy, wts, 8, bf16_twin_run))
+    bad = {n: e for n, e in errs.items() if not e[0] <= max(3 * e[1], 2e-2)}
+    assert not bad, bad
 
 
 def test_raw_u16_serving_matches_cpu_twin_path(cuda):
@@ -94,3 +156,32 @@ def test_raw_u16_serving_matches_cpu_twin_path(cuda):
     want = Predictor(cpu).raw_u16(m, [60.0, 200.0])
     assert got.shape == (2, 70, 90, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
+
+
+def test_train_step_kernel_path_matches_twin_path(cuda, monkeypatch):
+    """Two bf16 train steps (the first at the warmup's lr 0) of a dim-32
+    RawFormer through K2/K3 + B1/B2 against the same steps with the blocks
+    on their fp32 twins: loss within 2e-2 relative, params within 5e-4 (the
+    bar of tests/test_fused_bwd.py's trainer test)."""
+    from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig, Trainer
+
+    g = np.random.default_rng(4)
+    batch = (torch.from_numpy(g.uniform(0, 2, (2, 64, 64, 1)).astype(np.float32)).to(cuda),
+             torch.from_numpy(g.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(cuda))
+    cfg = TrainConfig(warmup_epochs=1, steps_per_epoch=1)
+    runs = []
+    for twin in (False, True):
+        if twin:
+            monkeypatch.setattr(common, "fused_transformer_block", fb.fused_transformer_block_plain)
+        model = RawFormer(RawFormerConfig(dim=32, dtype=torch.bfloat16), device=cuda,
+                          generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, cfg)
+        before = [f.launches for f in (fb.gram_pass, fb.apply_pass, fbb.bwd1, fbb.bwd2)]
+        losses = [float(trainer.train_step(batch)) for _ in range(2)]
+        launched = [f.launches - b for f, b in
+                    zip((fb.gram_pass, fb.apply_pass, fbb.bwd1, fbb.bwd2), before)]
+        assert launched == ([0] * 4 if twin else [14] * 4)
+        runs.append((losses, torch.cat([p.detach().flatten() for p in model.parameters()])))
+    (lk, pk), (lt, pt) = runs
+    np.testing.assert_allclose(lk, lt, rtol=2e-2)
+    torch.testing.assert_close(pk, pt, rtol=0, atol=5e-4)

@@ -171,6 +171,11 @@ def test_port_imports_no_jax():
         "import bayer_low_light_image_enhancement_tpu_torch.serving\n"
         "import bayer_low_light_image_enhancement_tpu_torch.compat\n"
         "import bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block_bwd\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.train\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.data\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.utils.logging\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.cli.train_cli\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'bayer_low_light_image_enhancement_tpu']\n"
         "assert not bad, bad\n"
