@@ -2,6 +2,8 @@
 
     python -m bayer_low_light_image_enhancement_tpu_torch.cli.train_cli \\
         --dataset synthetic --model_size S --patch_size 512 --batch_size 16
+    ... --model rawformer_wfb --batch_size 8          # RawFormer-WFB
+    ... --device cpu                                  # no card
 
 The argparse surface of ``bayer_low_light_image_enhancement_tpu/cli/
 train_cli.py``, with its training semantics: epoch loop, per-epoch
@@ -9,7 +11,8 @@ validation PSNR on the uint8 grid, best and every-``save_every``-epochs
 checkpoints, ``--resume``, text log + TensorBoard scalars under
 ``<save_dir>/<dataset>/``. What this slice does not have yet exits with a
 message: the SID / MCR loaders, the C++ batch engine (``--loader native``)
-and more than one device.
+and more than one device. It trains on the card unless ``--device cpu``
+asks for the CPU, and exits with a message when no card is present.
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", default="SID", choices=["SID", "MCR", "synthetic"])
     p.add_argument("--model_size", default="S", choices=["S", "B", "L"])
     p.add_argument("--model", default=None,
-                   help="registry model name (e.g. rawformer_b); overrides --model_size")
+                   help="registry model name (e.g. rawformer_b, rawformer_wfb); overrides "
+                   "--model_size")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="train on the card (default) or on the CPU")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--patch_size", type=int, default=512)
     p.add_argument("--epochs", type=int, default=3000)
@@ -55,8 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--remat", action="store_true", help="rematerialise forward in backward")
     p.add_argument("--no_fused_train", action="store_true",
-                   help="run TransformerBlocks through the module path instead of the fused "
-                   "kernels (K2/K3 forward, B1/B2 backward)")
+                   help="run TransformerBlocks through the module path and Mamba scans "
+                   "through the twin instead of the kernels (K2/K3 + B1/B2, S1 + S2)")
     p.add_argument("--val_every", type=int, default=1)
     p.add_argument("--save_every", type=int, default=50)
     p.add_argument("--loader", default="auto", choices=["auto", "python", "native"],
@@ -79,6 +85,9 @@ def check_supported(args) -> None:
     if args.num_chips not in (-1, 1) or args.tensor_chips != 1:
         raise SystemExit("the port trains on one device: --num_chips and --tensor_chips "
                          "other than 1 come with multi-GPU training (a later slice)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available; pass --device cpu to "
+                         "train on the CPU")
 
 
 def build_datasets(args):
@@ -105,7 +114,7 @@ def build_model(args, device):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_supported(args)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
 
     train_ds, val_ds = build_datasets(args)
     train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.seed)

@@ -53,6 +53,12 @@ _SIGNATURES = {
     # x, dx2, applyt, dgramt, dgram, dss, wqk, bqk, dwqk, bdwqk, wv, bv, dwv,
     # bdwv, wqkvt, workspace, dx, dw, B, H, W, C, stream
     "blle_bwd2": [_P] * 18 + [_I] * 4 + [_P],
+    # u, dt, A, B, C, D, y, states (or NULL), hbuf, sbuf, B, L, D, N, chunk,
+    # in_bf16, stream
+    "blle_ssm_fwd": [_P] * 10 + [_I] * 6 + [_P],
+    # u, dt, A, B, C, D, dy, states, du, ddt, dA, dB, dC, dD, workspace, B, L,
+    # D, N, chunk, dgroup, in_bf16, stream
+    "blle_ssm_bwd": [_P] * 15 + [_I] * 7 + [_P],
 }
 # name -> argument types of the size queries (each returns a long long).
 _SIZES = {
@@ -61,6 +67,7 @@ _SIZES = {
     "blle_bwd2_workspace_floats": [_I] * 4,
     "blle_bwd1_grad_floats": [_I],  # C
     "blle_bwd2_grad_floats": [_I],
+    "blle_ssm_bwd_workspace_floats": [_I] * 6,  # B, L, D, N, chunk, dgroup
 }
 
 

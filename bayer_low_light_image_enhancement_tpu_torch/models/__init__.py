@@ -8,6 +8,10 @@ from bayer_low_light_image_enhancement_tpu_torch.models.rawformer import (
     RawFormer,
     RawFormerConfig,
 )
+from bayer_low_light_image_enhancement_tpu_torch.models.wfb import (
+    RawFormerWFB,
+    RawFormerWFBConfig,
+)
 
 __all__ = [
     "get_model",
@@ -15,5 +19,7 @@ __all__ = [
     "register_model",
     "RawFormer",
     "RawFormerConfig",
+    "RawFormerWFB",
+    "RawFormerWFBConfig",
     "SIZE_DIMS",
 ]

@@ -25,6 +25,7 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
 from bayer_low_light_image_enhancement_tpu_torch.ops.attention import channel_attention
 from bayer_low_light_image_enhancement_tpu_torch.ops.conv import leaky_relu
 from bayer_low_light_image_enhancement_tpu_torch.ops.norm import channel_layernorm
+from bayer_low_light_image_enhancement_tpu_torch.ops.ssm import MambaBlock
 
 # TransformerBlocks with C <= FUSE_CMAX run the fused kernels: the gate of
 # the JAX package's inference routing (models/fused_apply._fusable at its
@@ -33,13 +34,14 @@ FUSE_CMAX = 256
 
 
 def reset_parameters_(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-initialise every conv in ``module`` from ``generator``:
-    U(+-1/sqrt(fan_in)) for weight and bias (torch's default conv init).
-    Values are drawn on the CPU, so a seed gives the same weights on every
-    device. LayerNorms and temperatures keep their ones/zeros."""
+    """Re-initialise every conv and linear layer in ``module`` from
+    ``generator``: U(+-1/sqrt(fan_in)) for weight and bias (torch's default
+    conv init). Values are drawn on the CPU, so a seed gives the same
+    weights on every device. Norms, temperatures and the Mamba ``A_log`` /
+    ``D`` keep their initial values."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 fan_in = nn.init._calculate_fan_in_and_fan_out(m.weight)[0]
                 bound = fan_in ** -0.5
                 for p in (m.weight, m.bias):
@@ -151,10 +153,11 @@ class TransformerBlock(nn.Module):
 
 
 def set_fused_blocks(module: nn.Module, fused: bool) -> None:
-    """Route every TransformerBlock in ``module`` through the fused kernels
-    (True, the default) or the module path (False)."""
+    """Route every TransformerBlock and every Mamba scan in ``module``
+    through the kernels (True, the default) or the module path and the scan
+    twin (False)."""
     for m in module.modules():
-        if isinstance(m, TransformerBlock):
+        if isinstance(m, (TransformerBlock, MambaBlock)):
             m.fused = fused
 
 

@@ -78,27 +78,35 @@ class RawFormer(nn.Module):
         reset_parameters_(self, generator)
 
     def forward(self, x: torch.Tensor, prepacked: bool = False) -> torch.Tensor:
-        cfg = self.config
         if prepacked:
-            x = x.to(cfg.dtype)
-        else:
-            if cfg.clamp_io:
-                x = x.clamp(0.0, 1.0)
-            x = F.pixel_unshuffle(x.to(cfg.dtype), 2)
-        x = self.embedding(x.contiguous(memory_format=torch.channels_last))
+            return unet_forward(self, x.to(self.config.dtype))
+        return unet_forward(self, pack_input(x, self.config))
 
-        c1 = self.conv_tran1(x)
-        c2 = self.conv_tran2(self.down1(c1))
-        c3 = self.conv_tran3(self.down2(c2))
-        c4 = self.conv_tran4(self.down3(c3))
-        c5 = self.conv_tran5(self.channel_reduce1(torch.cat([self.up1(c4), c3], dim=1)))
-        c6 = self.conv_tran6(self.channel_reduce2(torch.cat([self.up2(c5), c2], dim=1)))
-        c7 = self.conv_tran7(self.channel_reduce3(torch.cat([self.up3(c6), c1], dim=1)))
 
-        out = F.pixel_shuffle(leaky_relu(self.conv_out(c7), 0.2), 2).float()
-        if cfg.clamp_io:
-            out = out.clamp(0.0, 1.0)
-        return out
+def pack_input(x: torch.Tensor, cfg) -> torch.Tensor:
+    """[B, 1, H, W] mosaic -> clamped (``cfg.clamp_io``) [B, 4, H/2, W/2]
+    planes in ``cfg.dtype``."""
+    if cfg.clamp_io:
+        x = x.clamp(0.0, 1.0)
+    return F.pixel_unshuffle(x.to(cfg.dtype), 2)
+
+
+def unet_forward(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The RawFormer U-Net on packed planes: embedding, seven stages
+    ``conv_tran1..7`` with three downsamples, three upsamples and skip
+    reduces, output head and pixel_shuffle -> [B, 3, H, W] fp32 (clamped
+    with ``m.config.clamp_io``). Shared by RawFormer and RawFormer-WFB,
+    which differ in their stages."""
+    x = m.embedding(x.contiguous(memory_format=torch.channels_last))
+    c1 = m.conv_tran1(x)
+    c2 = m.conv_tran2(m.down1(c1))
+    c3 = m.conv_tran3(m.down2(c2))
+    c4 = m.conv_tran4(m.down3(c3))
+    c5 = m.conv_tran5(m.channel_reduce1(torch.cat([m.up1(c4), c3], dim=1)))
+    c6 = m.conv_tran6(m.channel_reduce2(torch.cat([m.up2(c5), c2], dim=1)))
+    c7 = m.conv_tran7(m.channel_reduce3(torch.cat([m.up3(c6), c1], dim=1)))
+    out = F.pixel_shuffle(leaky_relu(m.conv_out(c7), 0.2), 2).float()
+    return out.clamp(0.0, 1.0) if m.config.clamp_io else out
 
 
 def _make_rawformer(size: str):

@@ -1,7 +1,7 @@
 """Model registry: each model family registers a named builder.
 
 Port of ``bayer_low_light_image_enhancement_tpu/models/registry.py``; the
-port registers ``rawformer_s|b|l`` so far.
+port registers ``rawformer_s|b|l`` and ``rawformer_wfb`` so far.
 """
 
 from __future__ import annotations

@@ -3,21 +3,24 @@
 Port of ``bayer_low_light_image_enhancement_tpu/serving/predictor.py``:
 
 * ``__call__`` takes frames of any size ([H,W], [H,W,1] or [B,H,W,1], RAW in
-  [0,1]*ratio), pads to the model's /16 grid, crops the output back and
-  clips it to [0, 1];
+  [0,1]*ratio), pads to a multiple of ``pad_to`` (16 for RawFormer, 32 for
+  RawFormer-WFB), crops the output back and clips it to [0, 1];
 * ``raw_u16`` takes the production input, a uint16 RGGB mosaic ([H,W] or
   [B,H,W]) and its exposure ratio, through the fused pack kernel and the
-  prepacked model entry;
+  prepacked model entry (RawFormer; a model without one raises TypeError);
 * weights come from a ``state_dict``, another module, a reference ``.pth``
-  (``from_torch``) or the JAX package's params tree (``from_jax_params``).
+  (``from_torch``) or the JAX package's RawFormer params tree
+  (``from_jax_params``).
 
+The model runs on ``device``, the card unless the caller asks for the CPU.
 Inputs and outputs are numpy arrays (outputs NHWC fp32). On CUDA every
 TransformerBlock with C <= 256 runs the fused kernels
-(``models/common.TransformerBlock``).
+(``models/common.TransformerBlock``) and every Mamba scan the kernel S1.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Mapping, Union
 
 import numpy as np
@@ -29,23 +32,23 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.bayer_pack import (
     make_raw_u16_forward,
 )
 
-PAD_TO = 16  # one space_to_depth + three downsamples
-
 
 class Predictor:
     def __init__(
         self,
         model: nn.Module,
         weights: Union[Mapping[str, torch.Tensor], nn.Module, None] = None,
-        device: Union[str, torch.device, None] = None,
+        device: Union[str, torch.device] = "cuda",
+        pad_to: int = 16,
     ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError('Predictor: no CUDA device; pass device="cpu" to serve on the CPU')
         if isinstance(weights, nn.Module):
             weights = weights.state_dict()
         if weights is not None:
             model.load_state_dict(weights)
-        if device is None:
-            device = next(model.parameters()).device
-        self.device = torch.device(device)
+        self.pad_to = pad_to
         self.model = model.to(self.device).eval()
         self._u16_forward = make_raw_u16_forward(self.model, dtype=model.config.dtype)
 
@@ -69,9 +72,8 @@ class Predictor:
         return cls(model, state_dict_from_jax(params_np), **kw)
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _pads(h: int, w: int):
-        return (-h) % PAD_TO, (-w) % PAD_TO
+    def _pads(self, h: int, w: int):
+        return (-h) % self.pad_to, (-w) % self.pad_to
 
     @staticmethod
     def _finish(y: torch.Tensor, h: int, w: int, squeeze: bool) -> np.ndarray:
@@ -100,8 +102,12 @@ class Predictor:
         """uint16 RGGB mosaic [H,W] or [B,H,W] + exposure ratio (scalar or
         [B]) -> RGB [.., H, W, 3] in [0,1].
 
-        The mosaic is zero-padded to the /16 grid (code 0 decodes to black)
-        and the output cropped back."""
+        The mosaic is zero-padded to a multiple of ``pad_to`` (code 0
+        decodes to black) and the output cropped back. Raises TypeError for
+        a model without a prepacked entry (RawFormer-WFB)."""
+        if "prepacked" not in inspect.signature(self.model.forward).parameters:
+            raise TypeError(f"{type(self.model).__name__} has no prepacked entry: raw_u16 serves "
+                            "RawFormer; serve this model through __call__")
         m = np.asarray(mosaic)
         if m.dtype != np.uint16:
             raise TypeError(f"mosaic must be uint16, got {m.dtype}")

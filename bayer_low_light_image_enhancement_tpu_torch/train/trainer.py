@@ -1,11 +1,15 @@
-"""Single-GPU training of the RawFormer family.
+"""Single-GPU training of the RawFormer family (RawFormer, RawFormer-WFB).
 
 Port of ``bayer_low_light_image_enhancement_tpu/train/trainer.py`` without
 the device mesh (one card). One train step: decode the batch, forward with
-fp32 parameters and bf16 compute (the model's ``RawFormerConfig.dtype``),
-clamp the prediction to [0, 1], loss in fp32, backward, optional global-norm
-clip, Adam. TransformerBlocks run the fused kernels forward (K2/K3) and
-backward (B1/B2) on the card (``fused_blocks``).
+fp32 parameters and bf16 compute (the model config's ``dtype``), clamp the
+prediction to [0, 1], loss in fp32, backward, optional global-norm clip,
+Adam. On the card TransformerBlocks run the fused kernels forward (K2/K3)
+and backward (B1/B2), and Mamba scans the scan kernels (S1 with states
+forward, S2 backward); ``fused_blocks=False`` sends both to their module /
+twin paths. BatchNorm (WFB) runs in train mode in ``train_step`` and
+updates its running stats also on a NaN-skipped batch, as in the JAX
+trainer; ``eval_step`` uses the running stats.
 
 Batches are channels-last like the JAX package's: input [B, H, W, 1]
 mosaic, target [B, H, W, 3]; the model itself is NCHW.
@@ -43,10 +47,13 @@ class TrainConfig:
     # skip): params, Adam moments and the applied-update count stay as they
     # were; only the reported loss comes from the bad batch.
     nan_guard: bool = True
-    # Recompute the forward during backward (torch.utils.checkpoint).
+    # Recompute the forward during backward (torch.utils.checkpoint). Ignored
+    # for models with BatchNorm, as in the JAX trainer: a recomputed forward
+    # would update the running stats twice.
     remat: bool = False
-    # TransformerBlocks through the fused kernels (K2/K3 forward, B1/B2
-    # backward on the card; their twins on the CPU). False: the module path.
+    # TransformerBlocks and Mamba scans through the kernels (K2/K3 + B1/B2,
+    # S1 + S2 on the card; their twins on the CPU). False: the module path
+    # and the scan twin.
     fused_blocks: bool = True
 
 
@@ -103,6 +110,8 @@ class Trainer:
         self.schedule = warmup_cosine_schedule(cfg.base_lr, cfg.warmup_epochs, cfg.total_epochs,
                                                cfg.eta_min, cfg.steps_per_epoch)
         set_fused_blocks(model, cfg.fused_blocks)
+        self.has_batchnorm = any(isinstance(m, nn.modules.batchnorm._BatchNorm)
+                                 for m in model.modules())
         self.optimizer = make_optimizer(model.parameters(), cfg)
         self.step = 0
         self.applied = 0
@@ -122,7 +131,7 @@ class Trainer:
 
     def _forward(self, inp: torch.Tensor) -> torch.Tensor:
         x = inp.permute(0, 3, 1, 2)
-        if self.cfg.remat:
+        if self.cfg.remat and not self.has_batchnorm:
             pred = torch.utils.checkpoint.checkpoint(self.model, x, use_reentrant=False)
         else:
             pred = self.model(x)
@@ -156,7 +165,8 @@ class Trainer:
     @torch.inference_mode()
     def eval_step(self, batch: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(inp, gt, ...) -> (pred clamped to [0, 1], per-image PSNR on the
-        uint8 grid [B]). Runs under inference mode (the K2/K3 path)."""
+        uint8 grid [B]). Runs under inference mode (the K2/K3 and S1 path),
+        BatchNorm on its running stats."""
         inp, gt = batch[0].float(), batch[1].float()
         self.model.eval()
         pred = self._forward(inp).float().clamp(0.0, 1.0)

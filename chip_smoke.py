@@ -25,15 +25,32 @@ Phases (any failed check raises and the script exits non-zero):
    ``eval_step`` must give finite PSNRs;
 5. timing with CUDA events after warmup: each kernel against its twin, the
    batch-8 forward, the full-resolution frame, and the train step at batch
-   8 and 16 @ 512x512 on the kernel and the twin path (with peak memory).
+   8 and 16 @ 512x512 on the kernel and the twin path (with peak memory);
+6. RawFormer-WFB: the selective-scan kernels S1 (with and without saved
+   states) and S2 against their twins at the four distinct scan shapes of
+   WFB-48 at batch 2 @ 512x512 (b = 3 high bands x 2 images); WFB-48
+   (seeded random weights, bf16 compute) serves 3 batch-2 @ 512x512 float
+   requests through ``Predictor.__call__`` (pad_to 32) against the twin
+   path, and one 2832x4240 frame; it trains through ``Trainer`` on
+   synthetic crops (``Loader`` + ``prefetch_to_device``), kernel path
+   against twin path at batch 2 @ 256x256, 20 steps on one batch, and the
+   step timed at batch 8 @ 512x512; the counters must show S1 7 times per
+   forward (S2 never) when serving and S1 with states and S2 7 times per
+   train step; S1 / S2 and the WFB forward and step are timed.
 
-The line before the last is the JSON kernel table; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Every kernel row carries its bound: the larger of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over the peak rate of their unit (bf16 tensor cores 989
+TFLOP/s, fp32 67 TFLOP/s, exp on the SFU 16 per SM per clock at 132 SMs x
+1.98 GHz), computed from this run's shapes. The line before the last is the
+JSON kernel table; the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -62,12 +79,81 @@ BWD_FLOOR = 2e-2
 # Training, kernel path vs twin path from the same init on the same batch:
 # loss relative, params after two Adam steps (the first at lr 0) absolute.
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 2e-2, 5e-4
+# S1 on bf16 inputs vs the fp32 twin on the same inputs: y within its bf16
+# output rounding, |err| <= SCAN_RTOL |ref| + SCAN_ATOL_REL max|ref|; the
+# saved fp32 states within STATE_TOL of their max.
+SCAN_RTOL, SCAN_ATOL_REL, STATE_TOL = 8e-3, 1e-3, 1e-4
+# S2 vs the explicit backward twin: each leaf within SCAN_BWD_TOL of its max
+# (fp32 sums over up to 6 x 16384 terms, taken in another order).
+SCAN_BWD_TOL = 1e-3
+# WFB training, kernel path vs twin path (bf16 activations; only the scan
+# differs): the first-step grad of every parameter outside the FEB
+# frequency islands within max(3 x the twin path's own change when its
+# input is nudged by half a bf16 ulp, WFB_GRAD_FLOOR) of the twin's leaf
+# max; the median over all leaves within WFB_GRAD_MEDIAN_TOL. The FEB
+# leaves are only logged: their phase (an atan2 with a branch cut) turns
+# rounding-level input changes into large grad changes (the log shows the
+# nudged twin's own change, FEB vs other leaves), so no single nudge bounds
+# them. BN running stats within WFB_BN_TOL of their max; loss and params as
+# TRAIN_*.
+WFB_GRAD_FLOOR, WFB_GRAD_MEDIAN_TOL, WFB_BN_TOL = 2e-2, 2e-2, 1e-2
+# WFB-48 at batch 2 @ 512^2: the scan's (b, L, d_inner) at stages 1-4
+# (stages 5-7 repeat 3-1); b = 3 high bands x 2 images, N = 32.
+SCAN_SHAPES = [(6, 16384, 96), (6, 4096, 192), (6, 1024, 384), (6, 256, 768)]
 
 BATCH_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (8, 32, 32, 256)]
 FULLRES_SHAPES = [(1, 1416, 2120, 32), (1, 177, 265, 256)]
 PACK_SHAPES = [(8, 512, 512), (1, 2832, 4240)]
 TPU = "bayer_low_light_image_enhancement_tpu/kernels/"
 PKG = "bayer_low_light_image_enhancement_tpu_torch/"
+
+# Peak rates of one H100 SXM (NVIDIA data sheet; exp: MUFU.EX2 throughput of
+# compute capability 9.0 in the CUDA C++ Programming Guide, 16 per SM per
+# clock, 132 SMs at the 1980 MHz boost clock).
+HBM_BYTES_PER_S, TC_BF16, FP32, SFU = 3.35e12, 989e12, 67e12, 16 * 132 * 1.98e9
+
+
+def bound(nbytes: float, tc: float = 0.0, fp32: float = 0.0, sfu: float = 0.0):
+    """(least ms, "bytes" or "operations"): bytes over the memory rate
+    against the slowest unit's operations over its peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(tc / TC_BF16, fp32 / FP32, sfu / SFU)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def block_counts(kind: str, b: int, h: int, w: int, c: int) -> dict:
+    """Bytes and operations K2 / K3 / B1 / B2 need at [b, h, w, c] bf16: x
+    (and dy / dx2) read once, outputs written once, the [C, C] tensors; the
+    1x1 and gram products on the tensor cores (B1 / B2: only the backward
+    products, twice the forward's, no recompute), the depthwise convs,
+    LayerNorms and GELU in fp32."""
+    p = b * h * w
+    if kind == "gram":
+        return dict(nbytes=p * c * 2 + b * c * c * 4 + 8 * b * c + 4 * c * c,
+                    tc=2.0 * p * c * 2 * c + 2.0 * p * c * c, fp32=48.0 * p * c)
+    if kind == "apply":
+        return dict(nbytes=2 * p * c * 2 + b * c * c * 2 + 10 * c * c,
+                    tc=12.0 * p * c * c, fp32=110.0 * p * c)
+    if kind == "bwd1":
+        return dict(nbytes=3 * p * c * 2 + b * c * c * 6 + 10 * c * c, tc=20.0 * p * c * c,
+                    fp32=72.0 * p * c)
+    return dict(nbytes=3 * p * c * 2 + b * c * c * 8 + 6 * c * c, tc=16.0 * p * c * c,
+                fp32=108.0 * p * c)
+
+
+def scan_counts(b: int, L: int, d: int, n: int, in_bytes: int, backward: bool) -> dict:
+    """Bytes and operations of the scan: u, dt (dy) [b, L, d] and B, C
+    [b, L, n] in, y (or du, ddt, dB, dC, dA, dD fp32) out, the backward's
+    saved states [b, ceil(L/32), d, n] fp32 in; per (b, t, d, n) one exp and
+    the fp32 arithmetic of the recurrence (forward 6 flops: dt A, a h + .,
+    (dt u) B, C h + .; backward 18: h again, lam, its products and sums)."""
+    bld, bln = b * L * d, b * L * n
+    if backward:
+        nbytes = ((3 * bld + 2 * bln) * in_bytes + 4 * b * -(-L // 32) * d * n
+                  + 4 * (2 * bld + 2 * bln + 2 * d * n + 2 * d))
+        return dict(nbytes=nbytes, fp32=18.0 * bld * n, sfu=float(bld * n))
+    return dict(nbytes=(3 * bld + 2 * bln) * in_bytes + 4 * (d * n + d),
+                fp32=6.0 * bld * n, sfu=float(bld * n))
 
 
 def log(*a):
@@ -106,10 +192,13 @@ def ptxas_summary(build_log: str):
             for k in re.finditer(r"(?<=\d)(?=([a-z]\w*?_kernel))", mangled):
                 ident = k.group(1)
                 if re.search(r"\d+$", mangled[: k.start()]).group().endswith(str(len(ident))):
-                    t = re.match(r"ILi(\d+)E|I(f)E|I13__nv_(bfloat16)E",
+                    t = re.match(r"I(?:Li(\d+)|(f)|13__nv_(bfloat16))(?:Lb(\d))?E",
                                  mangled[k.start() + len(ident):])
-                    arg = next(filter(None, t.groups()), None) if t else None
-                    name = ident + (f"<{'float' if arg == 'f' else arg}>" if arg else "")
+                    args = [a for a in t.groups() if a] if t else []
+                    args = ["float" if a == "f" else a for a in args]
+                    if len(args) == 2:
+                        args[1] = "true" if args[1] == "1" else "false"
+                    name = ident + (f"<{','.join(args)}>" if args else "")
                     break
             spill = ""
         elif "spill" in line:
@@ -145,7 +234,9 @@ def main() -> int:
     )
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
     from bayer_low_light_image_enhancement_tpu_torch.models import common, get_model
+    from bayer_low_light_image_enhancement_tpu_torch.ops import ssm
     from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
     from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig, Trainer
 
@@ -297,7 +388,8 @@ def main() -> int:
     for hw in ((2832, 4240), (1000, 1500)):
         raw = mosaics(rng, hw).astype(np.float32)
         frames.append(np.clip((raw - 512.0) / (16383.0 - 512.0), 0.0, None) * 100.0)
-    counters = (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fbb.bwd1, fbb.bwd2)
+    counters = (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fbb.bwd1, fbb.bwd2,
+                ssk.selective_scan_fwd, ssk.selective_scan_bwd)
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
@@ -311,6 +403,7 @@ def main() -> int:
     check(launches["gram_pass"] == 7 * forwards, "K2 did not run 7 times per forward")
     check(launches["apply_pass"] == 7 * forwards, "K3 did not run 7 times per forward")
     check(launches["bwd1"] == launches["bwd2"] == 0, "a backward kernel ran while serving")
+    check(launches["selective_scan_fwd"] == 0, "a scan kernel ran in RawFormer-S")
     for (m, _), y in zip(requests, outs):
         check(y.shape == m.shape + (3,), f"bad output shape {y.shape}")
     for f, y in zip(frames, outs[len(requests):]):
@@ -417,7 +510,9 @@ def main() -> int:
             k = cuda_time_ms(lambda: bp.bayer_pack_normalize(m, r, torch.bfloat16, True), 20)
             p = cuda_time_ms(lambda: bp.bayer_pack_normalize_plain(m, r, torch.bfloat16, True), 20)
             gbs = m.numel() * 4 / (k * 1e-3) / 1e9
-            log(f"time K1 {shape}: kernel {k:.4f} ms ({gbs:.0f} GB/s), twin {p:.4f} ms")
+            bk1, by1 = bound(nbytes=m.numel() * 4 + 4 * shape[0], fp32=4.0 * m.numel())
+            log(f"time K1 {shape}: kernel {k:.4f} ms ({gbs:.0f} GB/s), twin {p:.4f} ms, "
+                f"bound {bk1:.4f} ms by {by1}")
             times.setdefault("bayer_pack", (k, p))
         for shape in BATCH_SHAPES + FULLRES_SHAPES:
             c = shape[-1]
@@ -433,8 +528,10 @@ def main() -> int:
             pb = cuda_time_ms(lambda: fb.apply_pass_plain(x, apply, wts), n)
             kf = cuda_time_ms(lambda: fb.fused_transformer_block(x, params, 8), n)
             pf = cuda_time_ms(lambda: fb.fused_transformer_block_plain(x, params, 8), n)
-            log(f"time block {shape}: K2 {ka:.3f} ms (twin {pa:.3f}), K3 {kb:.3f} ms "
-                f"(twin {pb:.3f}), whole block {kf:.3f} ms (twin {pf:.3f})")
+            (b2, y2), (b3, y3) = (bound(**block_counts(kind, *shape)) for kind in ("gram", "apply"))
+            log(f"time block {shape}: K2 {ka:.3f} ms (twin {pa:.3f}, bound {b2:.4f} by {y2}), K3 "
+                f"{kb:.3f} ms (twin {pb:.3f}, bound {b3:.4f} by {y3}), whole block {kf:.3f} ms "
+                f"(twin {pf:.3f})")
             times.setdefault("fused_block_gram", (ka, pa))
             times.setdefault("fused_block_apply", (kb, pb))
             del x, g0
@@ -462,8 +559,10 @@ def main() -> int:
             p1 = cuda_time_ms(lambda: fbb.bwd1_plain(x, dy, apply, wts), 5)
             k2 = cuda_time_ms(lambda: fbb.bwd2(x, dx2, apply, *d[:3], wts), 10)
             p2 = cuda_time_ms(lambda: fbb.bwd2_plain(x, dx2, apply, *d[:3], wts), 5)
-            log(f"time backward {shape}: B1 {k1:.3f} ms (twin {p1:.3f}), B2 {k2:.3f} ms "
-                f"(twin {p2:.3f})")
+            (bb1, yb1), (bb2, yb2) = (bound(**block_counts(kind, *shape))
+                                      for kind in ("bwd1", "bwd2"))
+            log(f"time backward {shape}: B1 {k1:.3f} ms (twin {p1:.3f}, bound {bb1:.4f} by {yb1}), "
+                f"B2 {k2:.3f} ms (twin {p2:.3f}, bound {bb2:.4f} by {yb2})")
             times.setdefault("fused_block_bwd1", (k1, p1))
             times.setdefault("fused_block_bwd2", (k2, p2))
         del bwd_inputs
@@ -485,6 +584,233 @@ def main() -> int:
             del tr
             torch.cuda.empty_cache()
 
+    # 6. RawFormer-WFB ----------------------------------------------------------
+    # 6a. S1 / S2 against their twins at the WFB-48 batch-2 @ 512^2 scan shapes.
+    def scan_inputs(b, L, d, seed):
+        """bf16 u, dt, B, C, dy and fp32 A, D as a random Mamba block makes
+        them: dt softplus of N(-2.5, 1), A near -(1..32)."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        r = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
+        u, B, C, dy = r(b, L, d), r(b, L, 32), r(b, L, 32), 0.1 * r(b, L, d)
+        dt = torch.nn.functional.softplus(r(b, L, d) - 2.5)
+        A = -torch.arange(1, 33, device=dev, dtype=torch.float32).repeat(d, 1) * torch.exp(
+            0.1 * r(d, 32))
+        D = 1.0 + 0.1 * r(d)
+        u, dt, B, C, dy = (t.to(torch.bfloat16) for t in (u, dt, B, C, dy))
+        return (u, dt, A, B, C, D), dy
+
+    def max_rel(got, ref):
+        return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    errs.update({"ssm_scan_fwd": 0.0, "ssm_scan_bwd": 0.0})
+    scan_args = {}
+    with torch.no_grad():
+        for b, L, d in SCAN_SHAPES:
+            args, dy = scan_inputs(b, L, d, seed=L)
+            scan_args[(b, L, d)] = (args, dy)
+            y = ssk.selective_scan_fwd(*args)
+            y_s, states = ssk.selective_scan_fwd(*args, save_states=True)
+            y_ref, st_ref = ssm.selective_scan(*args, chunk_size=ssk.FWD_CHUNK,
+                                               state_every=ssk.STATE_EVERY)
+            y_ref = ssm.selective_scan(*(t.float() for t in args), chunk_size=ssk.FWD_CHUNK)
+            err = (y.float() - y_ref).abs()
+            scale = y_ref.abs().max().item()
+            bad = (err > SCAN_RTOL * y_ref.abs() + SCAN_ATOL_REL * scale).sum().item()
+            e_st = max_rel(states, st_ref)
+            log(f"S1 scan [{b},{L},{d},32] bf16: y max abs err {err.max().item():.3e} (max|y| "
+                f"{scale:.3e}), {bad} elements outside {SCAN_RTOL}|ref| + {SCAN_ATOL_REL} "
+                f"max|ref|; "
+                f"with states: y identical {torch.equal(y, y_s)}, states err {e_st:.3e} of their "
+                f"max (tol {STATE_TOL})")
+            check(bad == 0 and torch.equal(y, y_s) and e_st <= STATE_TOL,
+                  f"S1 disagrees with its twin at {(b, L, d)}")
+            errs["ssm_scan_fwd"] = max(errs["ssm_scan_fwd"], err.max().item())
+            got = ssk.selective_scan_bwd(*args, dy, states)
+            want = ssm.selective_scan_bwd_ref(*args, dy)
+            rel = {n: max_rel(g_, w_) for n, g_, w_ in
+                   zip(("du", "ddt", "dA", "dB", "dC", "dD"), got, want)}
+            e_du = (got[0] - want[0]).abs().max().item()
+            log(f"S2 scan backward [{b},{L},{d},32]: per leaf error of its max "
+                + ", ".join(f"{n} {e:.2e}" for n, e in rel.items())
+                + f" (tol {SCAN_BWD_TOL}); du max abs err {e_du:.3e}")
+            check(max(rel.values()) <= SCAN_BWD_TOL, f"S2 disagrees with its twin at {(b, L, d)}")
+            errs["ssm_scan_bwd"] = max(errs["ssm_scan_bwd"], e_du)
+            del y, y_s, states, y_ref, st_ref, got, want
+        torch.cuda.synchronize()
+
+    # 6b. serving: WFB-48 through Predictor.__call__ (pad_to 32).
+    def rawformer_wfb():
+        return get_model("rawformer_wfb", device=dev, generator=torch.Generator().manual_seed(0),
+                         dtype=torch.bfloat16)
+
+    wfb = rawformer_wfb()
+    wpred = Predictor(wfb, device=dev, pad_to=32)
+    wreqs = []
+    for _ in range(3):
+        raw = mosaics(rng, (2, 512, 512, 1)).astype(np.float32)
+        wreqs.append(np.clip((raw - 512.0) / (16383.0 - 512.0), 0.0, None)
+                     * rng.uniform(50.0, 300.0, (2, 1, 1, 1)).astype(np.float32))
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    wouts = [wpred(x) for x in wreqs] + [wpred(frames[0])]
+    wserve_s = time.perf_counter() - t0
+    wfb_launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"RawFormer-WFB-48 served 3 x 2 x 512^2 float requests + one 2832x4240 frame in "
+        f"{wserve_s:.2f} s; launches {wfb_launches}")
+    check(wfb_launches["selective_scan_fwd"] == 7 * len(wouts),
+          "S1 did not run 7 times per forward")
+    check(sum(wfb_launches.values()) == wfb_launches["selective_scan_fwd"],
+          "another kernel ran while serving RawFormer-WFB")
+    for y, shape in zip(wouts, [x.shape[:3] for x in wreqs] + [frames[0].shape]):
+        check(y.shape == shape + (3,) and bool(np.isfinite(y).all()),
+              f"WFB output not finite of shape {shape + (3,)}")
+    common.set_fused_blocks(wfb, False)
+    wtwin = wpred(wreqs[0])
+    common.set_fused_blocks(wfb, True)
+    d = np.abs(wouts[0] - wtwin)
+    log(f"WFB kernel path vs twin path, 2 x 512^2: max abs err {d.max():.3e} (tol {E2E_MAX_TOL}), "
+        f"mean {d.mean():.3e} (tol {E2E_MEAN_TOL})")
+    check(d.max() <= E2E_MAX_TOL and d.mean() <= E2E_MEAN_TOL,
+          "WFB kernel path disagrees with the twin path")
+
+    # 6c. training: Trainer on synthetic crops, kernel path vs twin path.
+    small_ds = SyntheticBayerDataset(num_images=2, full_size=(320, 320), patch_size=256,
+                                     training=True)
+    small = list(prefetch_to_device(((i, g) for i, g, _ in Loader(small_ds, 2, seed=0)), dev))[0]
+    kern = Trainer(rawformer_wfb(), train_cfg)
+    twin = Trainer(rawformer_wfb(), dataclasses.replace(train_cfg, fused_blocks=False))
+    runs = []
+    for tr in (kern, twin):
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        losses = [float(tr.train_step(small))]
+        grads = {n: p.grad.float().clone() for n, p in tr.model.named_parameters()
+                 if p.grad is not None}
+        losses.append(float(tr.train_step(small)))
+        torch.cuda.synchronize()
+        runs.append((losses, grads, {fn.__name__: fn.launches for fn in counters}))
+    (kern_losses, kern_grads, wfb_train_launches), (twin_losses, twin_grads, twin_launches) = runs
+    log(f"WFB train steps at batch 2 @ 256^2: launches kernel path {wfb_train_launches}, "
+        f"twin path {twin_launches}")
+    check(wfb_train_launches["selective_scan_fwd"] == wfb_train_launches["selective_scan_bwd"]
+          == 7 * 2, "S1 with states and S2 did not run 7 times per train step")
+    check(sum(twin_launches.values()) == 0, "a kernel ran on the twin path")
+    nudged = Trainer(rawformer_wfb(), dataclasses.replace(train_cfg, fused_blocks=False))
+    nudged.train_step((small[0] * (1.0 + 2.0 ** -9), small[1]))
+    yard = {n: ((p.grad.float() - twin_grads[n]).abs().max()
+                / (twin_grads[n].abs().max() + 1e-12)).item()
+            for n, p in nudged.model.named_parameters() if p.grad is not None}
+    del nudged
+    grad_err = {n: ((kern_grads[n] - g).abs().max() / (g.abs().max() + 1e-12)).item()
+                for n, g in twin_grads.items()}
+    held = [n for n in grad_err if "frequency_process" not in n]
+    worst = max(held, key=lambda n: grad_err[n] / max(3 * yard[n], WFB_GRAD_FLOOR))
+    bad = [n for n in held if grad_err[n] > max(3 * yard[n], WFB_GRAD_FLOOR)]
+    feb_worst = max((n for n in grad_err if n not in held), key=grad_err.get)
+    log("WFB nudged twin vs twin, first-step grads: largest change of a FEB leaf "
+        f"{max(yard[n] for n in yard if n not in held):.3e}, of another leaf "
+        f"{max(yard[n] for n in held):.3e} (of the twin's leaf max)")
+    median = float(np.median(list(grad_err.values())))
+    sk, st = kern.model.state_dict(), twin.model.state_dict()
+    dp = max((sk[n].float() - st[n].float()).abs().max().item() for n, _ in
+             kern.model.named_parameters())
+    dbn = max(((sk[n] - st[n]).abs().max() / st[n].abs().max()).item() for n in sk
+              if "running" in n)
+    dl = abs(kern_losses[0] - twin_losses[0]) / abs(twin_losses[0])
+    log(f"WFB train step kernel path vs twin path: losses {kern_losses} vs {twin_losses} (first "
+        f"rel err {dl:.3e}, tol {TRAIN_LOSS_RTOL}); first-step grads of the twin's leaf max, "
+        f"outside the FEB islands worst against its yardstick {worst} {grad_err[worst]:.3e} "
+        f"(nudged twin {yard[worst]:.3e}, floor {WFB_GRAD_FLOOR}); FEB worst {feb_worst} "
+        f"{grad_err[feb_worst]:.3e} (nudged twin {yard[feb_worst]:.3e}, not held); median "
+        f"{median:.3e} (tol {WFB_GRAD_MEDIAN_TOL}), nudged "
+        f"twin median {float(np.median(list(yard.values()))):.3e}; params after 2 Adam steps "
+        f"max abs diff {dp:.3e} (tol "
+        f"{TRAIN_PARAM_ATOL}); BN running stats {dbn:.3e} of their max (tol {WFB_BN_TOL})")
+    check(dl <= TRAIN_LOSS_RTOL, "WFB train loss disagrees with the twin path")
+    check(not bad and median <= WFB_GRAD_MEDIAN_TOL,
+          f"WFB grads disagree with the twin path: {bad}")
+    check(dp <= TRAIN_PARAM_ATOL, "WFB params after Adam steps disagree with the twin path")
+    check(dbn <= WFB_BN_TOL, "WFB BatchNorm running stats disagree with the twin path")
+    twin_ms = cuda_time_ms(lambda: twin.train_step(small), 3, warmup=1)
+    del twin
+    small_ms = cuda_time_ms(lambda: kern.train_step(small), 3, warmup=1)  # steps 3-6
+    for _ in range(20 - 6):
+        kern_losses.append(float(kern.train_step(small)))
+    log(f"WFB 20 steps on one batch: loss {kern_losses[0]:.5f} -> {kern_losses[-1]:.5f}")
+    check(kern_losses[-1] < kern_losses[0], "20 WFB steps on one batch did not lower its loss")
+    log(f"time WFB-48 train step batch 2 @ 256^2: kernel path {small_ms:.3f} ms, twin path "
+        f"{twin_ms:.3f} ms")
+    del kern
+    torch.cuda.empty_cache()
+
+    # 6d. timing: S1 / S2 vs twins with their bounds, the WFB forward and step.
+    bounds = {}
+    with torch.no_grad():
+        for (b, L, d), (args, dy) in scan_args.items():
+            _, states = ssk.selective_scan_fwd(*args, save_states=True)
+            n_it = 20 if L >= 4096 else 50
+            k = cuda_time_ms(lambda: ssk.selective_scan_fwd(*args), n_it)
+            kst = cuda_time_ms(lambda: ssk.selective_scan_fwd(*args, save_states=True), n_it)
+            p = cuda_time_ms(lambda: ssm.selective_scan(*args, chunk_size=ssk.FWD_CHUNK), 3, 1)
+            kb = cuda_time_ms(lambda: ssk.selective_scan_bwd(*args, dy, states), n_it)
+            pb = cuda_time_ms(lambda: ssm.selective_scan_bwd_ref(*args, dy), 2, 1)
+            bf, byf = bound(**scan_counts(b, L, d, 32, 2, backward=False))
+            bb, byb = bound(**scan_counts(b, L, d, 32, 2, backward=True))
+            log(f"time scan [{b},{L},{d},32] bf16: S1 {k:.4f} ms (with states {kst:.4f}; twin "
+                f"{p:.3f}; bound {bf:.4f} by {byf}), S2 {kb:.4f} ms (twin {pb:.3f}; bound "
+                f"{bb:.4f} by {byb})")
+            times.setdefault("ssm_scan_fwd", (k, p))
+            times.setdefault("ssm_scan_bwd", (kb, pb))
+            bounds.setdefault("ssm_scan_fwd", (bf, byf))
+            bounds.setdefault("ssm_scan_bwd", (bb, byb))
+            del states
+    del scan_args
+    xw = torch.from_numpy(wreqs[0]).to(dev).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        fwd = cuda_time_ms(lambda: wfb(xw), 10, warmup=3)
+        common.set_fused_blocks(wfb, False)
+        fwd_twin = cuda_time_ms(lambda: wfb(xw), 3, warmup=1)
+        common.set_fused_blocks(wfb, True)
+        xf = torch.nn.functional.pad(torch.from_numpy(frames[0]).to(dev)[None, None],
+                                     (0, 16, 0, 16))
+        torch.cuda.reset_peak_memory_stats()
+        full = cuda_time_ms(lambda: wfb(xf), 3, warmup=1)
+        full_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"time RawFormer-WFB-48 forward, batch 2 @ 512^2: {fwd:.3f} ms, "
+        f"{2 * 512 * 512 / 1e6 / fwd * 1e3:.1f} MP/s (twin scan: {fwd_twin:.3f} ms); one "
+        f"2832x4240 frame (padded to 2848x4256): {full:.3f} ms, peak {full_peak:.2f} GiB")
+    del wfb, wpred
+    torch.cuda.empty_cache()
+    for bs in (8, 4, 2):
+        try:
+            batch = device_batches(1)[0]
+            batch = tuple(t[:bs] for t in batch)
+            tr = Trainer(rawformer_wfb(), train_cfg)
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_time_ms(lambda: tr.train_step(batch), 3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        except torch.cuda.OutOfMemoryError:
+            log(f"WFB-48 train step at batch {bs} @ 512^2: out of device memory")
+            tr = batch = None
+            torch.cuda.empty_cache()
+            continue
+        log(f"time train step RawFormer-WFB-48 batch {bs} @ 512^2, kernel path: {ms:.3f} ms "
+            f"({bs * 512 * 512 / 1e6 / ms * 1e3:.1f} MP/s), peak device memory {peak:.2f} GiB")
+        break
+    del tr
+    torch.cuda.empty_cache()
+
+    for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
+                       ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2")):
+        bounds[name] = bound(**block_counts(kind, *BATCH_SHAPES[0]))
+    b, h, w = PACK_SHAPES[0]
+    bounds["bayer_pack"] = bound(nbytes=b * h * w * 4 + 4 * b, fp32=4.0 * b * h * w)
+
     rows = [
         ("bayer_pack", PKG + "csrc/bayer_pack.cu", TPU + "bayer_pack.py:34",
          launches["bayer_pack_normalize"]),
@@ -496,14 +822,22 @@ def main() -> int:
          train_launches["bwd1"]),
         ("fused_block_bwd2", PKG + "csrc/fused_block_bwd.cu", TPU + "fused_block_bwd.py:318",
          train_launches["bwd2"]),
+        ("ssm_scan_fwd", PKG + "csrc/ssm_scan.cu",
+         TPU + "ssm_scan.py:92, " + TPU + "ssm_scan.py:272", wfb_launches["selective_scan_fwd"]),
+        ("ssm_scan_bwd", PKG + "csrc/ssm_scan.cu", TPU + "ssm_scan.py:299",
+         wfb_train_launches["selective_scan_bwd"]),
     ]
-    log("kernel table: times of bayer_pack at [8,512,512] u16, fused_block_* at "
-        "[8,256,256,32] bf16; launches of K1-K3 from serving, of B1/B2 from training; "
-        "max_abs_err of B1/B2 on dx2 / dx")
+    log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_* at "
+        "[8,256,256,32] bf16, ssm_scan_* at [6,16384,96,32] bf16 (ssm_scan_fwd without "
+        "states); launches of K1-K3 from RawFormer-S serving, of B1/B2 from its training, of "
+        "ssm_scan_fwd from WFB serving, of ssm_scan_bwd from WFB training; max_abs_err of "
+        "B1/B2 on dx2 / dx, of ssm_scan_fwd on y, of ssm_scan_bwd on du; no single PyTorch "
+        "call computes any of these functions (library_ms null)")
     log(card)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": l,
-         "max_abs_err": errs[n], "ms": times[n][0], "plain_ms": times[n][1]}
+         "max_abs_err": errs[n], "ms": times[n][0], "plain_ms": times[n][1],
+         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": None}
         for n, s, r, l in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

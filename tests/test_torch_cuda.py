@@ -142,6 +142,60 @@ def test_backward_kernels_match_twins(cuda, c):
     assert not bad, bad
 
 
+def scan_inputs(b, L, d, n, dtype, seed):
+    g = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(g.standard_normal(s).astype(np.float32))  # noqa: E731
+    u, B, C = 0.5 * f(b, L, d), 0.5 * f(b, L, n), 0.5 * f(b, L, n)
+    dt = torch.from_numpy(g.uniform(0.02, 0.6, (b, L, d)).astype(np.float32))
+    A = -torch.from_numpy(g.uniform(0.2, 2.0, (d, n)).astype(np.float32))
+    D, dy = 0.3 * f(d), f(b, L, d)
+    return [t.to(dtype) for t in (u, dt)] + [A] + [t.to(dtype) for t in (B, C)] + [D, dy.to(dtype)]
+
+
+# Ragged shapes: L not a multiple of the 128-step chunk or the 32-step
+# sub-chunk, D not a multiple of the 8-channel block, N below 32; the forced
+# d-groups make a warp walk two channels and leave some warps without one.
+SCAN_CASES = [((2, 300, 20, 32), None), ((1, 77, 13, 8), None), ((3, 1000, 40, 32), 16),
+              ((2, 515, 96, 32), 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dgroup", SCAN_CASES)
+def test_scan_kernels_match_twins(cuda, monkeypatch, shape, dgroup, dtype):
+    """S1 (with and without states) against the chunked twin, S2 against the
+    explicit backward twin on the same (rounded) inputs. fp32: y and states
+    within 1e-4 of their max; bf16: y within its output rounding
+    (8e-3 |ref| + 1e-3 max|ref|). S2: each leaf within 1e-3 of its max (fp32
+    sums in another order)."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ks
+    from bayer_low_light_image_enhancement_tpu_torch.ops import ssm
+
+    if dgroup is not None:
+        monkeypatch.setattr(ks, "bwd_dgroup", lambda *a: dgroup)
+    *args, dy = [t.to(cuda) for t in scan_inputs(*shape, dtype, seed=sum(shape))]
+    before = (ks.selective_scan_fwd.launches, ks.selective_scan_bwd.launches)
+    y = ks.selective_scan_fwd(*args)
+    y2, states = ks.selective_scan_fwd(*args, save_states=True)
+    grads = ks.selective_scan_bwd(*args, dy, states)
+    torch.cuda.synchronize()
+    assert (ks.selective_scan_fwd.launches, ks.selective_scan_bwd.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(y, y2) and y.dtype == dtype
+    y_ref, st_ref = ssm.selective_scan(*args, chunk_size=ks.FWD_CHUNK, state_every=ks.STATE_EVERY)
+    y_ref = ssm.selective_scan(*[t.float() for t in args])
+    scale = y_ref.abs().max().item()
+    if dtype == torch.float32:
+        assert (y - y_ref).abs().max().item() <= 1e-4 * scale
+    else:
+        assert bool(((y.float() - y_ref).abs() <= 8e-3 * y_ref.abs() + 1e-3 * scale).all())
+    assert (states - st_ref).abs().max().item() <= 1e-4 * st_ref.abs().max().item()
+    want = ssm.selective_scan_bwd_ref(*args, dy)
+    for name, got, ref in zip(("du", "ddt", "dA", "dB", "dC", "dD"), grads, want):
+        assert got.dtype == torch.float32 and got.shape == ref.shape, name
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        assert err <= 1e-3, (name, err)
+
+
 def test_raw_u16_serving_matches_cpu_twin_path(cuda):
     """RawFormer-S on the card (kernels, bf16) against the same weights on
     the CPU (twins, fp32), through Predictor.raw_u16 on a ragged frame."""
@@ -153,7 +207,7 @@ def test_raw_u16_serving_matches_cpu_twin_path(cuda):
     before = (fb.gram_pass.launches, fb.apply_pass.launches)
     got = Predictor(gpu).raw_u16(m, [60.0, 200.0])
     assert (fb.gram_pass.launches, fb.apply_pass.launches) == (before[0] + 7, before[1] + 7)
-    want = Predictor(cpu).raw_u16(m, [60.0, 200.0])
+    want = Predictor(cpu, device="cpu").raw_u16(m, [60.0, 200.0])
     assert got.shape == (2, 70, 90, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
 
@@ -185,3 +239,60 @@ def test_train_step_kernel_path_matches_twin_path(cuda, monkeypatch):
     (lk, pk), (lt, pt) = runs
     np.testing.assert_allclose(lk, lt, rtol=2e-2)
     torch.testing.assert_close(pk, pt, rtol=0, atol=5e-4)
+
+
+def test_wfb_serving_matches_cpu_twin_path(cuda):
+    """RawFormer-WFB (dim 8) on the card (S1, bf16) against the same weights
+    on the CPU (scan twin, fp32), through Predictor(pad_to=32) on a ragged
+    frame; S1 runs 7 times per forward, S2 never."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ks
+    from bayer_low_light_image_enhancement_tpu_torch.models import RawFormerWFB, RawFormerWFBConfig
+
+    gen = torch.Generator().manual_seed(5)
+    gpu = RawFormerWFB(RawFormerWFBConfig(dim=8, dtype=torch.bfloat16), device=cuda, generator=gen)
+    cpu = RawFormerWFB(RawFormerWFBConfig(dim=8))
+    cpu.load_state_dict(gpu.state_dict())
+    x = np.random.default_rng(6).uniform(0, 2, (2, 70, 90, 1)).astype(np.float32)
+    before = (ks.selective_scan_fwd.launches, ks.selective_scan_bwd.launches)
+    got = Predictor(gpu, pad_to=32)(x)
+    assert (ks.selective_scan_fwd.launches, ks.selective_scan_bwd.launches) == (
+        before[0] + 7, before[1])
+    want = Predictor(cpu, device="cpu", pad_to=32)(x)
+    assert got.shape == (2, 70, 90, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
+
+
+def test_wfb_train_step_kernel_path_matches_twin_path(cuda):
+    """Two bf16 train steps (the first at the warmup's lr 0) of a dim-16
+    RawFormer-WFB through S1 with states + S2 against the same steps with
+    the scan on its twin (fused_blocks=False): S1 and S2 run 7 times per
+    step; loss within 2e-2 relative, params within 5e-4, BN running stats
+    within 1e-2 of their max."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ks
+    from bayer_low_light_image_enhancement_tpu_torch.models import RawFormerWFB, RawFormerWFBConfig
+    from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig, Trainer
+
+    g = np.random.default_rng(7)
+    batch = (torch.from_numpy(g.uniform(0, 2, (2, 64, 64, 1)).astype(np.float32)).to(cuda),
+             torch.from_numpy(g.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(cuda))
+    runs = []
+    for fused in (True, False):
+        model = RawFormerWFB(RawFormerWFBConfig(dim=16, dtype=torch.bfloat16), device=cuda,
+                             generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, TrainConfig(warmup_epochs=1, steps_per_epoch=1,
+                                             fused_blocks=fused))
+        before = (ks.selective_scan_fwd.launches, ks.selective_scan_bwd.launches)
+        losses = [float(trainer.train_step(batch)) for _ in range(2)]
+        launched = (ks.selective_scan_fwd.launches - before[0],
+                    ks.selective_scan_bwd.launches - before[1])
+        assert launched == ((14, 14) if fused else (0, 0))
+        runs.append((losses, model.state_dict()))
+    (lk, sk), (lt, st) = runs
+    np.testing.assert_allclose(lk, lt, rtol=2e-2)
+    for name, v in sk.items():
+        if name.endswith("num_batches_tracked"):
+            assert torch.equal(v, st[name])
+        elif "running" in name:
+            assert (v - st[name]).abs().max() <= 1e-2 * st[name].abs().max(), name
+        else:
+            torch.testing.assert_close(v, st[name], rtol=0, atol=5e-4, msg=name)

@@ -104,7 +104,7 @@ def test_full_model_matches_jax_fp32(fp32_pair, scale):
 def test_predictor_odd_frame_matches_jax_predictor():
     jmodel, params = jax_model_and_params(8, 2, seed=1)
     port = RawFormer(RawFormerConfig(dim=8, num_heads=(2, 2, 2, 2)))
-    pred = Predictor.from_jax_params(port, params)
+    pred = Predictor.from_jax_params(port, params, device="cpu")
     jpred = JaxPredictor(jmodel, jax.tree.map(jnp.asarray, params), use_fused=False)
     x = RNG.uniform(0, 2, (37, 45)).astype(np.float32)
     got = pred(x)
@@ -120,7 +120,7 @@ def test_predictor_raw_u16_matches_jax_fused_bf16():
     bf16 model, against the JAX fused forward (Pallas in interpret mode)."""
     jmodel, params = jax_model_and_params(8, 2, dtype=jnp.bfloat16, seed=2)
     port = RawFormer(RawFormerConfig(dim=8, num_heads=(2, 2, 2, 2), dtype=torch.bfloat16))
-    pred = Predictor.from_jax_params(port, params)
+    pred = Predictor.from_jax_params(port, params, device="cpu")
     mosaic = RNG.integers(0, 17000, (2, 32, 32), dtype=np.uint16)
     ratio = np.array([100.0, 300.0], np.float32)
     fwd = jax.jit(jax_make_raw_u16_forward(make_fused_forward(jmodel), dtype=jnp.bfloat16))
@@ -133,7 +133,7 @@ def test_predictor_raw_u16_matches_jax_fused_bf16():
 
 def test_predictor_raw_u16_pads_and_crops():
     port = RawFormer(RawFormerConfig(dim=8, num_heads=(2, 2, 2, 2)))
-    pred = Predictor(port)
+    pred = Predictor(port, device="cpu")
     mosaic = RNG.integers(0, 17000, (20, 34), dtype=np.uint16)
     got = pred.raw_u16(mosaic, 50.0)
     assert got.shape == (20, 34, 3)
@@ -151,13 +151,14 @@ def test_from_torch_pth_round_trip(tmp_path):
     path = tmp_path / "model_best.pth"
     torch.save({"epoch": 1, "state_dict": {"module." + k: v for k, v in src.state_dict().items()}},
                path)
-    pred = Predictor.from_torch(RawFormer(RawFormerConfig(dim=8, num_heads=(2, 2, 2, 2))), str(path))
+    pred = Predictor.from_torch(RawFormer(RawFormerConfig(dim=8, num_heads=(2, 2, 2, 2))), str(path),
+                                device="cpu")
     x = RNG.uniform(0, 1, (1, 32, 32, 1)).astype(np.float32)
-    np.testing.assert_array_equal(pred(x), Predictor(src)(x))
+    np.testing.assert_array_equal(pred(x), Predictor(src, device="cpu")(x))
 
 
 def test_registry_and_seeded_init():
-    assert list_models() == ["rawformer_b", "rawformer_l", "rawformer_s"]
+    assert list_models() == ["rawformer_b", "rawformer_l", "rawformer_s", "rawformer_wfb"]
     a = get_model("rawformer_s", generator=torch.Generator().manual_seed(0))
     b = get_model("rawformer_s", generator=torch.Generator().manual_seed(0))
     assert a.config.dim == 32 and get_model("rawformer_l").config.dim == 64
@@ -172,6 +173,9 @@ def test_port_imports_no_jax():
         "import bayer_low_light_image_enhancement_tpu_torch.compat\n"
         "import bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block\n"
         "import bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block_bwd\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.kernels.ssm_scan\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.models.wfb\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.utils.profiling\n"
         "import bayer_low_light_image_enhancement_tpu_torch.train\n"
         "import bayer_low_light_image_enhancement_tpu_torch.data\n"
         "import bayer_low_light_image_enhancement_tpu_torch.utils.logging\n"

@@ -1,0 +1,192 @@
+"""The port's selective scan and Mamba block against the JAX package (CPU):
+the chunked forward twin against the JAX sequential and chunked scans and
+the Pallas kernel (interpret mode), its saved states, causality, the
+explicit backward twin against ``jax.grad`` and torch autograd,
+``SelectiveScanFn`` under ``gradcheck``, and ``MambaBlock`` forward and
+grads on carried params. fp32 tolerances: 2e-5 on y (as
+tests/test_ssm_pallas.py), 1e-4 of each grad leaf's max."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from bayer_low_light_image_enhancement_tpu.kernels.ssm_scan import selective_scan_pallas
+from bayer_low_light_image_enhancement_tpu.ops import ssm as jssm
+from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ks
+from bayer_low_light_image_enhancement_tpu_torch.ops import ssm
+
+torch.set_num_threads(2)
+
+RNG = np.random.default_rng(31)
+
+
+def case(b, L, d, n, seed=0):
+    """u, dt, A, B, C, D, dy as float32 numpy (softplus-like dt, negative A)."""
+    g = np.random.default_rng(seed)
+    u = g.standard_normal((b, L, d)) * 0.5
+    dt = g.uniform(0.05, 0.6, (b, L, d))
+    A = -np.exp(g.standard_normal((d, n)) * 0.3)
+    B, C = g.standard_normal((b, L, n)) * 0.5, g.standard_normal((b, L, n)) * 0.5
+    D, dy = g.standard_normal(d) * 0.3, g.standard_normal((b, L, d))
+    return [a.astype(np.float32) for a in (u, dt, A, B, C, D, dy)]
+
+
+def to_t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def to_j(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+# tests/test_ssm_pallas.py's shapes: multi-chunk carry, ragged L (200 in
+# chunks of 128), D > 128 (130).
+@pytest.mark.parametrize("b,L,d,n,chunk", [(2, 64, 24, 8, 16), (1, 200, 96, 32, 128),
+                                           (2, 96, 130, 32, 64)])
+def test_forward_twin_matches_jax_scans(b, L, d, n, chunk):
+    *args, _ = case(b, L, d, n, seed=L)
+    want = np.asarray(jssm.selective_scan_ref(*to_j(args)))
+    chunked = jax.jit(functools.partial(jssm.selective_scan, chunk_size=chunk))
+    for name, jy in (("chunked", chunked(*to_j(args))),
+                     ("pallas", selective_scan_pallas(*to_j(args), chunk=chunk))):
+        np.testing.assert_allclose(np.asarray(jy), want, rtol=2e-5, atol=2e-5, err_msg=name)
+    for name, y in (("twin", ssm.selective_scan(*to_t(args), chunk_size=chunk)),
+                    ("wrapper", ks.selective_scan_fwd(*to_t(args))),
+                    ("sequential", ssm.selective_scan_ref(*to_t(args)))):
+        np.testing.assert_allclose(y.numpy(), want, rtol=2e-5, atol=2e-5, err_msg=name)
+
+
+def test_saved_states_are_the_prefix_states():
+    """The state saved for sub-chunk k is the recurrence's state after the
+    first k * STATE_EVERY steps (a float64 numpy loop)."""
+    u, dt, A, B, C, D, _ = args = case(2, 100, 6, 5, seed=4)
+    y, states = ks.selective_scan_fwd(*to_t(args[:6]), save_states=True)
+    assert states.shape == (2, 4, 6, 5)
+    h = np.zeros((2, 6, 5))
+    for t in range(100):
+        if t % ks.STATE_EVERY == 0:
+            np.testing.assert_allclose(states[:, t // ks.STATE_EVERY].numpy(), h, rtol=2e-5,
+                                       atol=2e-5)
+        h = np.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * u[:, t])[..., None] * B[:, t, None]
+    np.testing.assert_allclose(y.numpy(), ks.selective_scan_fwd(*to_t(args[:6])).numpy())
+
+
+def test_causality():
+    u, dt, A, B, C, D, _ = to_t(case(1, 64, 16, 8, seed=5))
+    u2 = u.clone()
+    u2[:, 40:] += 100.0
+    y1, y2 = (ssm.selective_scan(x, dt, A, B, C, D, chunk_size=16) for x in (u, u2))
+    torch.testing.assert_close(y1[:, :40], y2[:, :40], rtol=1e-5, atol=1e-5)
+    assert (y1[:, 40:] - y2[:, 40:]).abs().max() > 1e-3
+
+
+def leaf_errors(got, want):
+    return {name: float(np.abs(np.asarray(g) - np.asarray(w)).max() / np.abs(np.asarray(w)).max())
+            for name, g, w in zip(("du", "ddt", "dA", "dB", "dC", "dD"), got, want)}
+
+
+# tests/test_ssm_train.py's shapes: one chunk, a 4-chunk carry, ragged L,
+# several D blocks; chunk 16 in the backward twin.
+@pytest.mark.parametrize("b,L,d,n", [(2, 16, 8, 4), (2, 64, 8, 4), (1, 37, 10, 4), (1, 32, 24, 4)])
+def test_backward_twin_matches_jax_grad_and_autograd(b, L, d, n):
+    *args, dy = case(b, L, d, n, seed=b * L + d)
+    got = ssm.selective_scan_bwd_ref(*to_t(args), torch.from_numpy(dy), chunk_size=16)
+
+    def loss(*a):
+        return jnp.sum(jssm.selective_scan_ref(*a) * jnp.asarray(dy))
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(*to_j(args))
+    errs = leaf_errors([g.numpy() for g in got], want)
+    assert max(errs.values()) < 1e-4, errs
+    leaves = [t.requires_grad_() for t in to_t(args)]
+    auto = torch.autograd.grad(ssm.selective_scan(*leaves, chunk_size=16), leaves,
+                               torch.from_numpy(dy))
+    errs = leaf_errors([g.numpy() for g in got], [a.numpy() for a in auto])
+    assert max(errs.values()) < 1e-4, errs
+
+
+def test_selective_scan_fn_gradcheck():
+    """SelectiveScanFn on CPU tensors (forward twin with states, explicit
+    backward twin) in float64; 70 steps span two backward-twin chunks."""
+    leaves = [torch.from_numpy(a.astype(np.float64)).requires_grad_()
+              for a in case(1, 70, 2, 3, seed=9)[:6]]
+    assert torch.autograd.gradcheck(ks.SelectiveScanFn.apply, leaves)
+
+
+def mamba_state_dict(p):
+    """JAX MambaBlock params -> the port's MambaBlock state_dict."""
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    sd = {f"{k}.weight": t(np.asarray(p[k]["kernel"]).T)
+          for k in ("in_proj", "x_proj", "dt_proj", "out_proj")}
+    sd.update({"dt_proj.bias": t(p["dt_proj"]["bias"]), "A_log": t(p["A_log"]), "D": t(p["D"]),
+               "conv1d.weight": t(np.transpose(np.asarray(p["conv1d_kernel"]), (2, 1, 0))),
+               "conv1d.bias": t(p["conv1d_bias"])})
+    return sd
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_mamba_block_matches_jax(fused):
+    """Forward and the grads of every parameter and of x, against the JAX
+    MambaBlock (XLA scan) on carried params; ``fused`` routes the scan
+    through SelectiveScanFn (twins on the CPU), else the twin's autograd."""
+    d_model, L = 24, 50
+    x = RNG.standard_normal((2, L, d_model)).astype(np.float32)
+    dy = RNG.standard_normal((2, L, d_model)).astype(np.float32)
+    jm = jssm.MambaBlock(d_model=d_model)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    g = np.random.default_rng(1)
+
+    def fill(path, s):  # fan-in-scaled kernels, A_log near log(1..N), D near 1
+        name = jax.tree_util.keystr(path)
+        v = g.uniform(-1.0, 1.0, s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        if "A_log" in name:
+            v = np.log(np.arange(1, s.shape[1] + 1)) + 0.2 * v
+        elif "D" in name:
+            v = 1.0 + 0.5 * v
+        return v.astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(fill, shapes)
+
+    def loss(p, xx):
+        return jnp.sum(jm.apply({"params": p}, xx) * jnp.asarray(dy))
+
+    want_y = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x)))
+    want_gp, want_gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, jnp.asarray(x))
+
+    port = ssm.MambaBlock(d_model)
+    port.load_state_dict(mamba_state_dict(params))
+    port.fused = fused
+    xt = torch.from_numpy(x).requires_grad_()
+    before = ks.selective_scan_fwd.launches
+    y = port(xt)
+    np.testing.assert_allclose(y.detach().numpy(), want_y, rtol=1e-4, atol=1e-5)
+    (y * torch.from_numpy(dy)).sum().backward()
+    assert ks.selective_scan_fwd.launches == before  # CPU tensors: the twins, no kernel
+    want = mamba_state_dict(want_gp)
+    want["dt_proj.bias"] = torch.from_numpy(np.array(want_gp["dt_proj"]["bias"]))
+    for name, p in port.named_parameters():
+        w = want[name].numpy()
+        err = np.abs(p.grad.numpy() - w).max() / np.abs(w).max()
+        assert err < 1e-4, (name, err)
+    err = np.abs(xt.grad.numpy() - np.asarray(want_gx)).max() / np.abs(np.asarray(want_gx)).max()
+    assert err < 1e-4, err
+
+
+def test_kernel_wrappers_refuse_bad_inputs():
+    """The checks that guard the CUDA entry points, reachable without a card."""
+    u, dt, A, B, C, D, _ = to_t(case(1, 8, 4, 40))
+    with pytest.raises(ValueError, match="N <= 32"):
+        ks._check(u, dt, A, B, C, D)
+    u, dt, A, B, C, D, _ = to_t(case(1, 8, 4, 8))
+    with pytest.raises(ValueError, match="shape"):
+        ks._check(u, dt[:, :4], A, B, C, D)
+    with pytest.raises(TypeError):
+        ks._check(u.double(), dt, A, B, C, D)
+    # d-groups: all channels when the grid fills the card, else fewer
+    assert ks.bwd_dgroup(6, 16384, 96) == 96
+    assert ks.bwd_dgroup(6, 256, 768) % 8 == 0 and ks.bwd_dgroup(6, 256, 768) < 768
+    assert ks.bwd_dgroup(1, 77, 13) == 8

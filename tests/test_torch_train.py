@@ -247,7 +247,7 @@ def test_eval_step_psnr_matches_metric():
 
 def test_train_cli_synthetic_and_resume(tmp_path, capsys):
     argv = ["--dataset", "synthetic", "--model_size", "S", "--patch_size", "32",
-            "--batch_size", "2", "--save_dir", str(tmp_path)]
+            "--batch_size", "2", "--save_dir", str(tmp_path), "--device", "cpu"]
     train_cli.main(argv + ["--epochs", "1"])
     log = (tmp_path / "synthetic" / "log.txt").read_text()
     line = r"Epoch {}/1 \| Time: \d+\.\d\ds \| Loss: \d+\.\d{{4}} \| Avg PSNR: \d+\.\d{{4}} \| " \
