@@ -37,6 +37,28 @@ def _conv(p: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> No
         out[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def channel_attention_state_dict(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """One ChannelAttention's JAX params -> ``models.common.ChannelAttention``
+    state_dict (names relative to the module), the params of
+    ``kernels.fused_attention.fused_channel_attention``."""
+    out = {"temperature": _t(np.asarray(p["temperature"]).reshape(-1, 1, 1))}
+    for name in ("qkv", "qkv_dwconv", "project_out"):
+        _conv(p[name], name, out)
+    return out
+
+
+def stage_tail_state_dict(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ConvTransformer's JAX ``conv`` / ``channel_reduce`` / ``conv_out``
+    params -> the port's ``conv.*`` / ``channel_reduce.*`` / ``Conv_out.*``
+    (names relative to the stage), the params of
+    ``kernels.fused_stage.fused_stage_tail``."""
+    out: Dict[str, torch.Tensor] = {}
+    for jax_name, name in (("conv", "conv"), ("channel_reduce", "channel_reduce"),
+                           ("conv_out", "Conv_out")):
+        _conv(p[jax_name], name, out)
+    return out
+
+
 def transformer_block_state_dict(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """One TransformerBlock's JAX params -> ``models.common.TransformerBlock``
     state_dict (names relative to the block)."""
@@ -44,10 +66,8 @@ def transformer_block_state_dict(p: Mapping[str, Any]) -> Dict[str, torch.Tensor
     for norm in ("norm1", "norm2"):
         out[f"{norm}.body.weight"] = _t(p[norm]["weight"])
         out[f"{norm}.body.bias"] = _t(p[norm]["bias"])
-    attn = p["attn"]
-    out["attn.temperature"] = _t(np.asarray(attn["temperature"]).reshape(-1, 1, 1))
-    for name in ("qkv", "qkv_dwconv", "project_out"):
-        _conv(attn[name], f"attn.{name}", out)
+    for name, v in channel_attention_state_dict(p["attn"]).items():
+        out[f"attn.{name}"] = v
     for name in ("pointwise1", "depthwise", "pointwise2"):
         _conv(p["ffn"][name], f"ffn.{name}", out)
     return out
@@ -71,9 +91,8 @@ def _unet(p: Mapping[str, Any], out: Dict[str, torch.Tensor]) -> None:
     _conv(p["embedding"], "embedding", out)
     for k in range(1, 8):
         base = f"conv_tran{k}"
-        _conv(p[base]["conv"], f"{base}.conv", out)
-        _conv(p[base]["channel_reduce"], f"{base}.channel_reduce", out)
-        _conv(p[base]["conv_out"], f"{base}.Conv_out", out)
+        for name, v in stage_tail_state_dict(p[base]).items():
+            out[f"{base}.{name}"] = v
     for j in range(1, 4):
         _conv(p[f"down{j}"]["conv"], f"down{j}.body.0", out)
         up = np.asarray(p[f"up{j}"]["kernel"])  # (1, 1, I, 4O)

@@ -75,11 +75,12 @@ __device__ void load_window(bf16* dst, int ld, int rows, const bf16* __restrict_
 
 // LayerNorm without affine (biased variance, eps 1e-5, fp32 statistics) of
 // n rows of C values, one thread per row; src and dst may alias. A zero row
-// stays zero. With `rstd`, row p's 1/sigma goes to rstd[p].
+// stays zero. With `rstd`, row p's 1/sigma goes to rstd[p]. Threads tid of
+// nthreads share the rows (the whole block by default).
 template <int C, typename SrcT>
-__device__ void layernorm_rows(const SrcT* src, int lds, bf16* dst, int ldd, int n,
-                               float* rstd = nullptr) {
-  for (int p = threadIdx.x; p < n; p += kThreads) {
+__device__ void layernorm_rows_t(int tid, int nthreads, const SrcT* src, int lds, bf16* dst,
+                                 int ldd, int n, float* rstd = nullptr) {
+  for (int p = tid; p < n; p += nthreads) {
     const SrcT* s = src + p * lds;
     float mu = 0.f;
     for (int c = 0; c < C; ++c) mu += to_f(s[c]);
@@ -96,16 +97,21 @@ __device__ void layernorm_rows(const SrcT* src, int lds, bf16* dst, int ldd, int
   }
 }
 
+template <int C, typename SrcT>
+__device__ void layernorm_rows(const SrcT* src, int lds, bf16* dst, int ldd, int n,
+                               float* rstd = nullptr) {
+  layernorm_rows_t<C>(threadIdx.x, kThreads, src, lds, dst, ldd, n, rstd);
+}
+
 // out[M][N] (fp32, shared, stride ldo) = a[M][K] (bf16, shared, stride lda)
 // @ b[K][N] (bf16, global, row-major, stride ldb), 16x16 output tiles dealt
-// round-robin to the warps.
+// round-robin to warps warp, warp + nwarps, ... (the whole block by default).
 template <int M, int N, int K>
-__device__ void gemm_bf16(const bf16* a, int lda, const bf16* __restrict__ b, int ldb,
-                          float* out, int ldo) {
+__device__ void gemm_bf16_w(int warp, int nwarps, const bf16* a, int lda,
+                            const bf16* __restrict__ b, int ldb, float* out, int ldo) {
   using namespace nvcuda;
   constexpr int NT = N / 16;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * NT; t += kWarps) {
+  for (int t = warp; t < (M / 16) * NT; t += nwarps) {
     const int mi = t / NT, ni = t % NT;
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
     wmma::fill_fragment(acc, 0.0f);
@@ -117,6 +123,57 @@ __device__ void gemm_bf16(const bf16* a, int lda, const bf16* __restrict__ b, in
       wmma::mma_sync(acc, fa, fb, acc);
     }
     wmma::store_matrix_sync(out + mi * 16 * ldo + ni * 16, acc, ldo, wmma::mem_row_major);
+  }
+}
+
+template <int M, int N, int K>
+__device__ void gemm_bf16(const bf16* a, int lda, const bf16* __restrict__ b, int ldb,
+                          float* out, int ldo) {
+  gemm_bf16_w<M, N, K>(threadIdx.x / 32, kWarps, a, lda, b, ldb, out, ldo);
+}
+
+// Named barriers (ids 1..15; 0 is __syncthreads) for warp-specialised
+// kernels: bar_sync waits until n threads have arrived at barrier id,
+// bar_arrive counts this thread's arrival without waiting. Both order this
+// thread's earlier shared-memory accesses before the barrier completes.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Asynchronous 16-byte global -> shared copy (cp.async, bypassing L1); with
+// valid false it writes 16 zero bytes and reads nothing (src must still be a
+// valid address). Copies are grouped by cp_async_commit; cp_async_wait<N>
+// waits until at most N of this thread's groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// load_window by cp.async, issued by threads tid of nthreads (commit and wait
+// are the caller's).
+template <int C>
+__device__ void load_window_async(bf16* dst, int ld, int rows, const bf16* __restrict__ img,
+                                  int H, int W, int r0, int c0, int WR, int WC, int tid,
+                                  int nthreads) {
+  constexpr int U = C / 8;
+  for (int e = tid; e < rows * U; e += nthreads) {
+    const int p = e / U, part = e % U;
+    const int gr = r0 + p / WC, gc = c0 + p % WC;
+    const bool valid = p < WR * WC && gr >= 0 && gr < H && gc >= 0 && gc < W;
+    const bf16* src = valid ? img + ((size_t)gr * W + gc) * C + part * 8 : img;
+    cp_async16(dst + p * ld + part * 8, src, valid);
   }
 }
 

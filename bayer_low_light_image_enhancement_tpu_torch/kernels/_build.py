@@ -59,10 +59,23 @@ _SIGNATURES = {
     # u, dt, A, B, C, D, dy, states, du, ddt, dA, dB, dC, dD, workspace, B, L,
     # D, N, chunk, dgroup, in_bf16, stream
     "blle_ssm_bwd": [_P] * 15 + [_I] * 7 + [_P],
+    # the arguments of blle_apply_pass
+    "blle_apply_pipelined": [_P] * 14 + [_I] * 4 + [_P],
+    # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, stream
+    "blle_attn_gram": [_P] * 7 + [_I] * 4 + [_P],
+    # x, apply, wv, bv, dwv, bdwv, bproj, out, B, H, W, C, stream
+    "blle_attn_apply": [_P] * 8 + [_I] * 4 + [_P],
+    # x, t, wc, bc, wr1, wr2, br, wo, bo, out, B, H, W, C, stream
+    "blle_stage_tail": [_P] * 10 + [_I] * 4 + [_P],
+    # the arguments of blle_apply_pass but the stream, stage, pipelined, stream
+    "blle_probe_apply_cut": [_P] * 14 + [_I] * 6 + [_P],
+    # x, w, dw, out, B, H, W, C, strategy, level, th, stream
+    "blle_probe_floor": [_P] * 4 + [_I] * 7 + [_P],
 }
 # name -> argument types of the size queries (each returns a long long).
 _SIZES = {
     "blle_gram_workspace_floats": [_I] * 4,  # B, H, W, C
+    "blle_attn_gram_workspace_floats": [_I] * 4,
     "blle_bwd1_workspace_floats": [_I] * 4,
     "blle_bwd2_workspace_floats": [_I] * 4,
     "blle_bwd1_grad_floats": [_I],  # C

@@ -9,7 +9,11 @@ One block runs as
   2. ``finalize_attention``: plain torch on [C, C] (XLA on the TPU too):
      F.normalize, temperature, per-head softmax, folded into the projection;
   3. ``apply_pass`` (K3): LN1 -> v -> ``y = x + v @ apply + b_proj`` -> LN2
-     -> 1x1 -> dw3x3 -> exact GELU -> 1x1 -> + y.
+     -> 1x1 -> dw3x3 -> exact GELU -> 1x1 -> + y; or, with
+     ``apply_kernel="pipelined"``, ``apply_pass_pipelined`` (K3P, the port of
+     the JAX package's v6 kernel): the same function, software-pipelined
+     (``csrc/apply_pipelined.cuh``). K3P takes the power-of-two widths; the
+     others keep K3, as the JAX package keeps its tiled kernel there.
 
 Each pass has a plain PyTorch twin (``*_plain``) computing the same function
 in fp32. The wrappers run the twin on a CPU tensor; on a CUDA tensor they
@@ -36,6 +40,13 @@ from bayer_low_light_image_enhancement_tpu_torch.ops.conv import conv2d
 # Channel widths the CUDA kernels are instantiated for: every RawFormer
 # level with C <= 256 (S: 32..256, B: 48..192, L: 64..256).
 KERNEL_WIDTHS = (32, 48, 64, 96, 128, 192, 256)
+
+# The apply-pass kernels a block can select, and the widths K3P takes: the
+# JAX package's v5/v6 gate as far as it means anything off the TPU (a
+# power-of-two C, so 1/C folds exactly into the bf16 mean); its lane-packing
+# and DMA conditions are TPU layout.
+APPLY_KERNELS = ("tiled", "pipelined")
+PIPELINED_WIDTHS = (32, 64, 128, 256)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,27 +199,30 @@ def require(t: torch.Tensor, name: str, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def check_block_input(x: torch.Tensor, w: BlockWeights, *grad_inputs: torch.Tensor) -> None:
-    """What every fused-block kernel takes: x [B,H,W,C] bf16, contiguous, C
-    in KERNEL_WIDTHS, FFN hidden 2C. A kernel wrapper is not differentiable:
-    it raises when grad is enabled on an input (x, ``grad_inputs`` or a
-    weight) that requires grad."""
+def check_kernel_input(x: torch.Tensor, *grad_inputs: torch.Tensor) -> None:
+    """What every kernel of the fused blocks (and A1, T1) takes: x [B,H,W,C]
+    with C in KERNEL_WIDTHS. A kernel wrapper is not differentiable: it
+    raises when grad is enabled on x or ``grad_inputs`` and one requires
+    grad."""
     if x.dim() != 4 or not 0 < x.shape[0] <= 65535 or x.shape[1] * x.shape[2] == 0:
         raise ValueError(f"x must be [B, H, W, C] with 1 <= B <= 65535, H, W > 0; "
                          f"got {tuple(x.shape)}")
-    c = x.shape[-1]
-    if c not in KERNEL_WIDTHS:
-        raise ValueError(f"no kernel for C={c}; widths: {KERNEL_WIDTHS}")
-    if w.wp1.shape[1] != 2 * c:
-        raise ValueError(f"kernel needs FFN hidden width 2C, got {w.wp1.shape[1]}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, *grad_inputs, *w.tensors())
-    ):
+    if x.shape[-1] not in KERNEL_WIDTHS:
+        raise ValueError(f"no kernel for C={x.shape[-1]}; widths: {KERNEL_WIDTHS}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *grad_inputs)):
         raise RuntimeError(
             "a fused-block kernel wrapper is not differentiable: train through "
             "fused_transformer_block (FusedTransformerBlockFn) or call under "
             "torch.no_grad()"
         )
+
+
+def check_block_input(x: torch.Tensor, w: BlockWeights, *grad_inputs: torch.Tensor) -> None:
+    """``check_kernel_input`` (the weights included), and x bf16, contiguous,
+    FFN hidden width 2C."""
+    check_kernel_input(x, *grad_inputs, *w.tensors())
+    if w.wp1.shape[1] != 2 * x.shape[-1]:
+        raise ValueError(f"kernel needs FFN hidden width 2C, got {w.wp1.shape[1]}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x is {x.dtype}; the kernels take bfloat16")
     require(x, "x", x.shape, x.device)
@@ -264,7 +278,8 @@ def apply_pass(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.T
     return _apply_pass_kernel(x, apply, w)
 
 
-def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
+def _apply_pass_args(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights):
+    """The checked device arguments of K3 / K3P after x."""
     check_block_input(x, w, apply)
     b, h, wd, c = x.shape
     ch = 2 * c
@@ -276,10 +291,15 @@ def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) ->
               (c, ch), (ch,), (9, ch), (ch,), (ch, c), (c,)]
     for i, (t, s) in enumerate(zip(args, shapes)):
         require(t, f"apply-pass argument {i}", s, x.device)
+    return args
+
+
+def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
+    args = _apply_pass_args(x, apply, w)
     out = torch.empty_like(x)
     err = _build.library().blle_apply_pass(
         x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
-        b, h, wd, c, _build.stream_of(x),
+        *x.shape, _build.stream_of(x),
     )
     _build.check(err, "fused_block apply pass")
     apply_pass.launches += 1
@@ -289,15 +309,62 @@ def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) ->
 apply_pass.launches = 0
 
 
+def apply_pass_pipelined(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
+    """Pass B, software-pipelined: the function of ``apply_pass``.
+
+    CPU: the plain twin (``apply_pass_plain``). CUDA: kernel K3P on bf16 x
+    (apply rounded to bf16; y carried between its phases in bf16) for C in
+    PIPELINED_WIDTHS, or raise."""
+    if not x.is_cuda:
+        return apply_pass_plain(x, apply, w)
+    return _apply_pass_pipelined_kernel(x, apply, w)
+
+
+def _apply_pass_pipelined_kernel(x: torch.Tensor, apply: torch.Tensor,
+                                 w: BlockWeights) -> torch.Tensor:
+    if x.dim() == 4 and x.shape[-1] not in PIPELINED_WIDTHS:
+        raise ValueError(f"K3P takes C in {PIPELINED_WIDTHS}, got {x.shape[-1]}")
+    args = _apply_pass_args(x, apply, w)
+    out = torch.empty_like(x)
+    err = _build.library().blle_apply_pipelined(
+        x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
+        *x.shape, _build.stream_of(x),
+    )
+    _build.check(err, "fused_block pipelined apply pass")
+    apply_pass_pipelined.launches += 1
+    return out
+
+
+apply_pass_pipelined.launches = 0
+
+
+def check_apply_kernel(apply_kernel: str) -> None:
+    if apply_kernel not in APPLY_KERNELS:
+        raise ValueError(f"apply_kernel must be one of {APPLY_KERNELS}, got {apply_kernel!r}")
+
+
+def select_apply_pass(c: int, apply_kernel: str):
+    """The apply-pass wrapper a block of width c runs: K3P for "pipelined"
+    at a width in PIPELINED_WIDTHS, K3 otherwise (the JAX package's gate)."""
+    check_apply_kernel(apply_kernel)
+    if apply_kernel == "pipelined" and c in PIPELINED_WIDTHS:
+        return apply_pass_pipelined
+    return apply_pass
+
+
 def fused_transformer_block(
-    x: torch.Tensor, params: Mapping[str, torch.Tensor], num_heads: int
+    x: torch.Tensor, params: Mapping[str, torch.Tensor], num_heads: int,
+    apply_kernel: str = "tiled",
 ) -> torch.Tensor:
     """One TransformerBlock on x [B, H, W, C] -> [B, H, W, C] (x's dtype).
 
     On CUDA the kernels compute in bf16 whatever x's dtype (as the TPU
-    kernel does); on the CPU the fp32 twins run. With grad enabled on x or
-    a parameter the block runs through ``FusedTransformerBlockFn`` (the same
-    forward, B1/B2 backward); otherwise K2 and K3 are called directly."""
+    kernel does); on the CPU the fp32 twins run. ``apply_kernel`` picks the
+    apply pass (``select_apply_pass``): "tiled" (K3) or "pipelined" (K3P).
+    With grad enabled on x or a parameter the block runs through
+    ``FusedTransformerBlockFn`` (the same forward, B1/B2 backward);
+    otherwise K2 and the apply pass are called directly."""
+    apply_fn = select_apply_pass(x.shape[-1], apply_kernel)
     w = fold_block_params(params)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w.tensors())):
         # Imported here: fused_block_bwd imports this module.
@@ -305,17 +372,20 @@ def fused_transformer_block(
             FusedTransformerBlockFn,
         )
 
-        return FusedTransformerBlockFn.apply(x, num_heads, *w.tensors())
+        return FusedTransformerBlockFn.apply(x, num_heads, apply_kernel, *w.tensors())
     xk = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
     gram, qss, kss = gram_pass(xk, w)
     apply = finalize_attention(gram, qss, kss, w.temperature, w.wproj, num_heads)
-    return apply_pass(xk, apply, w).to(x.dtype)
+    return apply_fn(xk, apply, w).to(x.dtype)
 
 
 def fused_transformer_block_plain(
-    x: torch.Tensor, params: Mapping[str, torch.Tensor], num_heads: int
+    x: torch.Tensor, params: Mapping[str, torch.Tensor], num_heads: int,
+    apply_kernel: str = "tiled",
 ) -> torch.Tensor:
-    """The whole block through the twins, on any device (fp32 inside)."""
+    """The whole block through the twins, on any device (fp32 inside); every
+    ``apply_kernel`` computes this same function."""
+    check_apply_kernel(apply_kernel)
     w = fold_block_params(params)
     gram, qss, kss = gram_pass_plain(x, w)
     apply = finalize_attention(gram, qss, kss, w.temperature, w.wproj, num_heads)

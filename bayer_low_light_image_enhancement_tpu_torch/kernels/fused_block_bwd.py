@@ -3,8 +3,8 @@
 Port of ``bayer_low_light_image_enhancement_tpu/kernels/fused_block_bwd.py``.
 Training runs each TransformerBlock as ``FusedTransformerBlockFn``:
 
-* forward: K2 (gram pass) -> ``finalize_attention`` -> K3 (apply pass), as
-  inference does; it saves x, the folded weights and the [C, C]-sized
+* forward: K2 (gram pass) -> ``finalize_attention`` -> K3 or K3P (the apply
+  pass ``select_apply_pass`` picks), as inference does; it saves x, the folded weights and the [C, C]-sized
   ``gram, qss, kss, apply`` (remat-grade memory: nothing pixel-sized beyond
   x itself);
 * backward:
@@ -36,7 +36,6 @@ import torch
 from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
 from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
     BlockWeights,
-    apply_pass,
     attention_out_plain,
     bf16,
     check_block_input,
@@ -46,6 +45,7 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
     gram_pass,
     gram_pass_plain,
     require,
+    select_apply_pass,
 )
 
 # BlockWeights fields whose grads each pass emits (the rest, temperature
@@ -271,18 +271,20 @@ def fused_block_backward(
 
 
 class FusedTransformerBlockFn(torch.autograd.Function):
-    """One TransformerBlock, forward K2 -> finalize -> K3, backward B1 ->
-    finalize backward -> B2. Inputs: x [B,H,W,C], num_heads, then the
+    """One TransformerBlock, forward K2 -> finalize -> K3 or K3P, backward B1
+    -> finalize backward -> B2. Inputs: x [B,H,W,C], num_heads, apply_kernel
+    ("tiled" or "pipelined", see ``select_apply_pass``), then the
     ``BlockWeights`` tensors in field order. On CUDA the kernels compute in
     bf16 whatever x's dtype; on the CPU the fp32 twins run."""
 
     @staticmethod
-    def forward(ctx, x, num_heads, *tensors):
+    def forward(ctx, x, num_heads, apply_kernel, *tensors):
+        apply_fn = select_apply_pass(x.shape[-1], apply_kernel)
         w = BlockWeights(*tensors)
         xk = x.to(torch.bfloat16).contiguous() if x.is_cuda else x
         gram, qss, kss = gram_pass(xk, w)
         apply = finalize_attention(gram, qss, kss, w.temperature, w.wproj, num_heads)
-        y = apply_pass(xk, apply, w)
+        y = apply_fn(xk, apply, w)
         ctx.save_for_backward(xk, gram, qss, kss, apply, *tensors)
         ctx.num_heads, ctx.x_dtype = num_heads, x.dtype
         return y.to(x.dtype)
@@ -292,5 +294,5 @@ class FusedTransformerBlockFn(torch.autograd.Function):
         xk, gram, qss, kss, apply, *tensors = ctx.saved_tensors
         w = BlockWeights(*tensors)
         dx, g = fused_block_backward(xk, dy, w, (gram, qss, kss, apply), ctx.num_heads)
-        return (dx.to(ctx.x_dtype), None,
+        return (dx.to(ctx.x_dtype), None, None,
                 *(g[f.name].to(t.dtype) for f, t in zip(dataclasses.fields(w), tensors)))

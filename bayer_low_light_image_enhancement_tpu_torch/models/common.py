@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
+    check_apply_kernel,
     fused_transformer_block,
 )
 from bayer_low_light_image_enhancement_tpu_torch.ops.attention import channel_attention
@@ -127,6 +128,8 @@ class TransformerBlock(nn.Module):
     on CUDA, their fp32 twins on the CPU; with grad enabled its
     autograd.Function, whose backward runs B1/B2); wider ones, and every
     block with ``fused`` False (``set_fused_blocks``), run the module path.
+    ``apply_kernel`` ("tiled", or "pipelined" for K3P; ``set_apply_kernel``)
+    picks the fused block's apply pass.
     """
 
     def __init__(self, dim: int, num_heads: int = 8, ffn_expansion: int = 2,
@@ -140,11 +143,13 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm2d(dim, device=device, dtype=dtype)
         self.ffn = ConvFFN(dim, dim * ffn_expansion, **kw)
         self.fused = True
+        self.apply_kernel = "tiled"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and x.shape[1] <= FUSE_CMAX:
             y = fused_transformer_block(
-                x.permute(0, 2, 3, 1), dict(self.named_parameters()), self.num_heads
+                x.permute(0, 2, 3, 1), dict(self.named_parameters()), self.num_heads,
+                apply_kernel=self.apply_kernel,
             )
             return y.permute(0, 3, 1, 2)
         cd = self.compute_dtype
@@ -159,6 +164,16 @@ def set_fused_blocks(module: nn.Module, fused: bool) -> None:
     for m in module.modules():
         if isinstance(m, (TransformerBlock, MambaBlock)):
             m.fused = fused
+
+
+def set_apply_kernel(module: nn.Module, apply_kernel: str) -> None:
+    """Select the apply pass of every fused TransformerBlock in ``module``:
+    "tiled" (K3, the default) or "pipelined" (K3P at C in {32, 64, 128,
+    256}, K3 at the other widths). Raises ValueError for another value."""
+    check_apply_kernel(apply_kernel)
+    for m in module.modules():
+        if isinstance(m, TransformerBlock):
+            m.apply_kernel = apply_kernel
 
 
 class ConvTransformer(nn.Module):

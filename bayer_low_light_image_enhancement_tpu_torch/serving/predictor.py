@@ -15,7 +15,9 @@ Port of ``bayer_low_light_image_enhancement_tpu/serving/predictor.py``:
 The model runs on ``device``, the card unless the caller asks for the CPU.
 Inputs and outputs are numpy arrays (outputs NHWC fp32). On CUDA every
 TransformerBlock with C <= 256 runs the fused kernels
-(``models/common.TransformerBlock``) and every Mamba scan the kernel S1.
+(``models/common.TransformerBlock``), with the apply pass ``apply_kernel``
+selects ("tiled": K3; "pipelined": K3P at the power-of-two widths), and
+every Mamba scan the kernel S1.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from bayer_low_light_image_enhancement_tpu_torch.kernels.bayer_pack import (
     make_raw_u16_forward,
 )
+from bayer_low_light_image_enhancement_tpu_torch.models.common import set_apply_kernel
 
 
 class Predictor:
@@ -40,6 +43,7 @@ class Predictor:
         weights: Union[Mapping[str, torch.Tensor], nn.Module, None] = None,
         device: Union[str, torch.device] = "cuda",
         pad_to: int = 16,
+        apply_kernel: str = "tiled",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -49,6 +53,7 @@ class Predictor:
         if weights is not None:
             model.load_state_dict(weights)
         self.pad_to = pad_to
+        set_apply_kernel(model, apply_kernel)
         self.model = model.to(self.device).eval()
         self._u16_forward = make_raw_u16_forward(self.model, dtype=model.config.dtype)
 

@@ -5,8 +5,9 @@ The counterpart of ``bayer_low_light_image_enhancement_tpu/utils/profiling.py``
 for the port. ``profile`` runs a callable after warmup under
 ``torch.profiler`` and returns the host-clock time per call, the device
 time per call (the sum of every kernel's self time), the device's busy
-share and the kernels by device time; the CLI prints them for a registry
-model at random weights:
+share and the kernels by device time (``cuda_time_ms`` times a callable
+with CUDA events); the CLI prints them for a registry model at random
+weights:
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.profiling \\
         --model rawformer_wfb --batch 2 --size 512 --mode forward
@@ -23,6 +24,20 @@ import time
 from typing import Callable, Dict, List, Tuple
 
 import torch
+
+
+def cuda_time_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
+    """Mean device time of fn() over iters calls, CUDA events, after warmup."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def profile(fn: Callable[[], object], steps: int = 5, warmup: int = 3) -> Dict[str, object]:

@@ -37,6 +37,21 @@ Phases (any failed check raises and the script exits non-zero):
    step timed at batch 8 @ 512x512; the counters must show S1 7 times per
    forward (S2 never) when serving and S1 with states and S2 7 times per
    train step; S1 / S2 and the WFB forward and step are timed.
+7. the pipelined apply pass K3P and the retired kernels A1 (standalone
+   channel attention) and T1 (stage tail, on the stage's own t from
+   ``fused_transformer_block``) against their twins at the block shapes of
+   phase 3 (inside phase 3); RawFormer-S serves 3 batch-8 @ 512x512 uint16
+   requests and one 2832x4240 uint16 frame through
+   ``Predictor(model, apply_kernel="pipelined").raw_u16`` (K3P 7 times and
+   K3 never per forward, against the twin path) and takes one train step at
+   batch 8 @ 512x512 with ``set_apply_kernel(model, "pipelined")`` (K3P in
+   the forward, B1/B2 in the backward, first loss against the tiled path's);
+   K3P is timed beside K3, A1 beside the ChannelAttention module, T1 beside
+   the module tail (cuDNN convs, LeakyReLUs, concat, reduce);
+8. the probe ladders: the floor ladder (load strategies x levels x tile
+   heights) at [8,256,256,32] and the bisect ladder (K3 and K3P cut after
+   each stage) at the four RawFormer-S block shapes, every rung that
+   computes a result against its twin, ms and effective GB/s per rung.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -97,6 +112,11 @@ SCAN_BWD_TOL = 1e-3
 # them. BN running stats within WFB_BN_TOL of their max; loss and params as
 # TRAIN_*.
 WFB_GRAD_FLOOR, WFB_GRAD_MEDIAN_TOL, WFB_BN_TOL = 2e-2, 2e-2, 1e-2
+# A1 and T1 (bf16 kernels vs fp32 twins on the same bf16 inputs) are held to
+# the block rule. The probe rungs: level "c" copies exactly; every other rung
+# that computes a result (all but "center" at level "v") within PROBE_TOL of
+# its twin's max (bf16 rounding between chained products).
+PROBE_TOL = 3e-2
 # WFB-48 at batch 2 @ 512^2: the scan's (b, L, d_inner) at stages 1-4
 # (stages 5-7 repeat 3-1); b = 3 high bands x 2 images, N = 32.
 SCAN_SHAPES = [(6, 16384, 96), (6, 4096, 192), (6, 1024, 384), (6, 256, 768)]
@@ -141,6 +161,42 @@ def block_counts(kind: str, b: int, h: int, w: int, c: int) -> dict:
                 fp32=108.0 * p * c)
 
 
+def tail_counts(b: int, h: int, w: int, c: int) -> dict:
+    """T1 at [b, h, w, c] bf16: x and t read once, the output written once,
+    the weights; two 3x3 convs (9 C^2 MACs a pixel each) and the split
+    reduce (2 C^2) on the tensor cores, bias and LeakyReLU in fp32."""
+    p = b * h * w
+    return dict(nbytes=3 * p * c * 2 + 22 * c * c * 2 + 12 * c, tc=40.0 * p * c * c,
+                fp32=6.0 * p * c)
+
+
+def attention_counts(b: int, h: int, w: int, c: int) -> dict:
+    """A1 at [b, h, w, c] bf16: x read once, the output written once; the
+    qkv 1x1, the gram and the apply on the tensor cores, the depthwise conv
+    of 3C channels in fp32."""
+    p = b * h * w
+    return dict(nbytes=2 * p * c * 2 + b * c * c * 4 + 8 * c * c,
+                tc=10.0 * p * c * c, fp32=60.0 * p * c)
+
+
+def stage_counts(stage: int, b: int, h: int, w: int, c: int) -> dict:
+    """The bisect rung cut after ``stage`` at [b, h, w, c]: x read once, the
+    stage's tensor written once; the products and fp32 work of the stages up
+    to it (stage 5 is the apply pass, block_counts("apply"))."""
+    p = b * h * w
+    tc = (0.0, 2.0, 4.0, 4.0, 8.0, 12.0)[stage] * p * c * c
+    fp32 = (0.0, 10.0, 30.0, 32.0, 42.0, 110.0)[stage] * p * c
+    return dict(nbytes=2 * p * c * 2 + b * c * c * 2 + 10 * c * c, tc=tc, fp32=fp32)
+
+
+def floor_counts(level: str, b: int, h: int, w: int, c: int) -> dict:
+    """The floor rung at ``level``: x read once, the output written once; 6
+    products at "m" and "v", the two depthwise convs and GELU at "v"."""
+    p = b * h * w
+    return dict(nbytes=2 * p * c * 2, tc=0.0 if level == "c" else 12.0 * p * c * c,
+                fp32=60.0 * p * c if level == "v" else 0.0)
+
+
 def scan_counts(b: int, L: int, d: int, n: int, in_bytes: int, backward: bool) -> dict:
     """Bytes and operations of the scan: u, dt (dy) [b, L, d] and B, C
     [b, L, n] in, y (or du, ddt, dB, dC, dA, dD fp32) out, the backward's
@@ -165,20 +221,6 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over iters calls, CUDA events, after warmup."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def ptxas_summary(build_log: str):
     """One line per compiled kernel: registers, barriers, stack and spills,
     from nvcc's -Xptxas -v output."""
@@ -192,12 +234,13 @@ def ptxas_summary(build_log: str):
             for k in re.finditer(r"(?<=\d)(?=([a-z]\w*?_kernel))", mangled):
                 ident = k.group(1)
                 if re.search(r"\d+$", mangled[: k.start()]).group().endswith(str(len(ident))):
-                    t = re.match(r"I(?:Li(\d+)|(f)|13__nv_(bfloat16))(?:Lb(\d))?E",
-                                 mangled[k.start() + len(ident):])
-                    args = [a for a in t.groups() if a] if t else []
-                    args = ["float" if a == "f" else a for a in args]
-                    if len(args) == 2:
-                        args[1] = "true" if args[1] == "1" else "false"
+                    rest, args = mangled[k.start() + len(ident):], []
+                    pos = 1 if rest.startswith("I") else len(rest)
+                    while t := re.match(r"Li(\d+)E|Lb(\d)E|(f)|13__nv_(bfloat16)", rest[pos:]):
+                        i, b_, f_, h_ = t.groups()
+                        args.append(i or h_ or ("float" if f_ else
+                                                "true" if b_ == "1" else "false"))
+                        pos += t.end()
                     name = ident + (f"<{','.join(args)}>" if args else "")
                     break
             spill = ""
@@ -232,13 +275,17 @@ def main() -> int:
         SyntheticBayerDataset,
         prefetch_to_device,
     )
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_attention as fa
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_stage as fs
     from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
     from bayer_low_light_image_enhancement_tpu_torch.models import common, get_model
     from bayer_low_light_image_enhancement_tpu_torch.ops import ssm
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as probes
     from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
     from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig, Trainer
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -264,7 +311,27 @@ def main() -> int:
 
     # 3. kernels against twins ------------------------------------------------
     errs = {"bayer_pack": 0.0, "fused_block_gram": 0.0, "fused_block_apply": 0.0,
-            "fused_block_bwd1": 0.0, "fused_block_bwd2": 0.0}
+            "fused_block_bwd1": 0.0, "fused_block_bwd2": 0.0,
+            "fused_block_apply_pipelined": 0.0, "fused_attention": 0.0, "fused_stage_tail": 0.0}
+
+    def held_to_block_rule(name, what, got, ref):
+        """Log and check got against ref under atol = rtol = BLOCK_*; keep the
+        max abs err as errs[name] (name None: not a kernel row)."""
+        d = (got.float() - ref.float()).abs()
+        bad = (d > BLOCK_ATOL + BLOCK_RTOL * ref.float().abs()).sum().item()
+        log(f"{what}: max abs err {d.max().item():.3e}, mean {d.mean().item():.3e}, "
+            f"{bad} elements outside atol=rtol={BLOCK_ATOL}")
+        check(bad == 0, f"{what}: kernel disagrees with its twin")
+        if name:
+            errs[name] = max(errs[name], d.max().item())
+
+    def attn_params(c):
+        return {k.removeprefix("attn."): v for k, v in blocks[c].named_parameters()
+                if k.startswith("attn.")}
+
+    def tail_params(c):
+        return {k: v.detach() for k, v in tails[c].state_dict().items()
+                if not k.startswith("Transformer.")}
     with torch.inference_mode():
         for shape in PACK_SHAPES:
             m = u16_to_device(mosaics(rng, shape))
@@ -281,9 +348,16 @@ def main() -> int:
             errs["bayer_pack"] = max(errs["bayer_pack"], e)
 
         gen = torch.Generator().manual_seed(1)
-        blocks = {}
+        tail_gen = torch.Generator().manual_seed(2)
+        blocks, tails = {}, {}
+        for fn in (fa.fused_channel_attention, fs.fused_stage_tail):
+            fn.launches = 0
         for shape in BATCH_SHAPES + FULLRES_SHAPES:
             b, h, w, c = shape
+            if c not in tails:
+                tails[c] = common.ConvTransformer(c, 8, 2, device=dev,
+                                                  compute_dtype=torch.bfloat16)
+                common.reset_parameters_(tails[c], tail_gen)
             if c not in blocks:
                 blk = common.TransformerBlock(c, 8, 2, device=dev)
                 common.reset_parameters_(blk, gen)
@@ -308,24 +382,27 @@ def main() -> int:
             errs["fused_block_gram"] = max(errs["fused_block_gram"], e_cos)
 
             apply = fb.finalize_attention(g0, qs0, ks0, wts.temperature, wts.wproj, 8)
-            out = fb.apply_pass(x, apply, wts).float()
-            ref = fb.apply_pass_plain(x, apply, wts).float()
-            d = (out - ref).abs()
-            bad = (d > BLOCK_ATOL + BLOCK_RTOL * ref.abs()).sum().item()
-            log(f"K3 apply {shape}: max abs err {d.max().item():.3e}, mean {d.mean().item():.3e}, "
-                f"{bad} elements outside atol=rtol={BLOCK_ATOL}")
-            check(bad == 0, f"K3 disagrees with its twin at {shape}")
-            errs["fused_block_apply"] = max(errs["fused_block_apply"], d.max().item())
-
-            full = fb.fused_transformer_block(x, params, 8).float()
-            full0 = fb.fused_transformer_block_plain(x, params, 8).float()
-            d = (full - full0).abs()
-            bad = (d > BLOCK_ATOL + BLOCK_RTOL * full0.abs()).sum().item()
-            log(f"K2+K3 block {shape}: max abs err {d.max().item():.3e}, mean {d.mean().item():.3e}, "
-                f"{bad} elements outside atol=rtol={BLOCK_ATOL}")
-            check(bad == 0, f"fused block disagrees with its twin at {shape}")
-            del x, g, g0, out, ref, full, full0, d
+            ref = fb.apply_pass_plain(x, apply, wts)
+            held_to_block_rule("fused_block_apply", f"K3 apply {shape}",
+                               fb.apply_pass(x, apply, wts), ref)
+            full = fb.fused_transformer_block(x, params, 8)
+            held_to_block_rule(None, f"K2+K3 block {shape}", full,
+                               fb.fused_transformer_block_plain(x, params, 8))
+            held_to_block_rule("fused_block_apply_pipelined", f"K3P apply {shape}",
+                               fb.apply_pass_pipelined(x, apply, wts), ref)
+            held_to_block_rule("fused_attention", f"A1 attention {shape}",
+                               fa.fused_channel_attention(x, attn_params(c), 8),
+                               fa.fused_channel_attention_plain(x, attn_params(c), 8))
+            t = full.to(torch.bfloat16)  # the stage's own transformer-branch output
+            held_to_block_rule("fused_stage_tail", f"T1 stage tail {shape}",
+                               fs.fused_stage_tail(x, t, tail_params(c)),
+                               fs.fused_stage_tail_plain(x, t, tail_params(c)))
+            del x, g, g0, ref, full, t
         torch.cuda.synchronize()
+    aux_launches = {"fused_attention": fa.fused_channel_attention.launches,
+                    "fused_stage_tail": fs.fused_stage_tail.launches}
+    check(min(aux_launches.values()) == len(BATCH_SHAPES + FULLRES_SHAPES),
+          f"A1 / T1 did not launch once per shape: {aux_launches}")
 
     def backward_leaves(x, dy, wts, run):
         """dx2, d_apply, dx and every folded-weight grad of B1 -> finalize
@@ -388,8 +465,8 @@ def main() -> int:
     for hw in ((2832, 4240), (1000, 1500)):
         raw = mosaics(rng, hw).astype(np.float32)
         frames.append(np.clip((raw - 512.0) / (16383.0 - 512.0), 0.0, None) * 100.0)
-    counters = (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fbb.bwd1, fbb.bwd2,
-                ssk.selective_scan_fwd, ssk.selective_scan_bwd)
+    counters = (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fb.apply_pass_pipelined,
+                fbb.bwd1, fbb.bwd2, ssk.selective_scan_fwd, ssk.selective_scan_bwd)
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
@@ -402,6 +479,7 @@ def main() -> int:
     check(launches["bayer_pack_normalize"] == len(requests), "K1 did not run once per u16 request")
     check(launches["gram_pass"] == 7 * forwards, "K2 did not run 7 times per forward")
     check(launches["apply_pass"] == 7 * forwards, "K3 did not run 7 times per forward")
+    check(launches["apply_pass_pipelined"] == 0, "K3P ran on the tiled path")
     check(launches["bwd1"] == launches["bwd2"] == 0, "a backward kernel ran while serving")
     check(launches["selective_scan_fwd"] == 0, "a scan kernel ran in RawFormer-S")
     for (m, _), y in zip(requests, outs):
@@ -431,6 +509,38 @@ def main() -> int:
     log(f"kernel path vs twin path, 8 x 512^2: max abs err {d.max():.3e} (tol {E2E_MAX_TOL}), "
         f"mean {d.mean():.3e} (tol {E2E_MEAN_TOL})")
     check(d.max() <= E2E_MAX_TOL and d.mean() <= E2E_MEAN_TOL, "kernel path disagrees with twin path")
+
+    # 4a. serving with the pipelined apply pass: a model of the same seed
+    # (Predictor sets the apply kernel on the model it is given).
+    pmodel = get_model("rawformer_s", device=dev, generator=torch.Generator().manual_seed(0),
+                       dtype=torch.bfloat16)
+    ppred = Predictor(pmodel, device=dev, apply_kernel="pipelined")
+    frame_u16 = (mosaics(rng, (2832, 4240)), 100.0)
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pouts = [ppred.raw_u16(m, r) for m, r in requests + [frame_u16]]
+    pserve_s = time.perf_counter() - t0
+    pipe_launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"pipelined path served 3 x 8 x 512^2 u16 requests + one 2832x4240 u16 frame in "
+        f"{pserve_s:.2f} s; launches {pipe_launches}")
+    pforwards = len(requests) + 1
+    check(pipe_launches["apply_pass_pipelined"] == 7 * pforwards,
+          "K3P did not run 7 times per forward")
+    check(pipe_launches["apply_pass"] == 0, "K3 ran on the pipelined path")
+    check(pipe_launches["gram_pass"] == 7 * pforwards
+          and pipe_launches["bayer_pack_normalize"] == pforwards,
+          "K1 / K2 did not run on the pipelined path")
+    check(pipe_launches["bwd1"] == pipe_launches["bwd2"] == 0, "a backward kernel ran while serving")
+    for (m, _), y in zip(requests + [frame_u16], pouts):
+        check(y.shape == m.shape + (3,) and bool(np.isfinite(y).all()) and y.min() >= 0.0
+              and y.max() <= 1.0, f"pipelined output not finite in [0, 1] of shape {m.shape}")
+    d = np.abs(pouts[0] - twin)
+    log(f"pipelined kernel path vs twin path, 8 x 512^2: max abs err {d.max():.3e} (tol "
+        f"{E2E_MAX_TOL}), mean {d.mean():.3e} (tol {E2E_MEAN_TOL})")
+    check(d.max() <= E2E_MAX_TOL and d.mean() <= E2E_MEAN_TOL,
+          "pipelined kernel path disagrees with twin path")
 
     # 4b. training ------------------------------------------------------------
     train_ds = SyntheticBayerDataset(num_images=8, full_size=(576, 576), patch_size=512,
@@ -501,6 +611,26 @@ def main() -> int:
     check(val_psnr.shape == (4,) and bool(torch.isfinite(val_psnr).all()), "eval PSNR not finite")
     del kern
 
+    # 4c. one train step with the pipelined apply pass, from the same init on
+    # the same batch as the tiled kernel path's first step.
+    pm = rawformer_s()
+    common.set_apply_kernel(pm, "pipelined")
+    ptrain = Trainer(pm, train_cfg)
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    ploss = float(ptrain.train_step(fixed))
+    torch.cuda.synchronize()
+    ptrain_launches = {fn.__name__: fn.launches for fn in counters}
+    dl = abs(ploss - kern_losses[0]) / abs(kern_losses[0])
+    log(f"pipelined train step at batch 8 @ 512^2: loss {ploss} vs tiled {kern_losses[0]} (rel "
+        f"err {dl:.3e}, tol {TRAIN_LOSS_RTOL}); launches {ptrain_launches}")
+    for name in ("gram_pass", "apply_pass_pipelined", "bwd1", "bwd2"):
+        check(ptrain_launches[name] == 7, f"{name} did not run 7 times in the pipelined step")
+    check(ptrain_launches["apply_pass"] == 0, "K3 ran in the pipelined train step")
+    check(dl <= TRAIN_LOSS_RTOL, "pipelined train loss disagrees with the tiled path")
+    del ptrain, pm
+
     # 5. timing ---------------------------------------------------------------
     times = {}
     with torch.inference_mode():
@@ -534,19 +664,59 @@ def main() -> int:
                 f"(twin {pf:.3f})")
             times.setdefault("fused_block_gram", (ka, pa))
             times.setdefault("fused_block_apply", (kb, pb))
-            del x, g0
+
+            # K3P beside K3 (in turns: K3, K3P, K3P, K3), A1 beside its twin
+            # and the ChannelAttention module, T1 beside its twin and the
+            # module tail (cuDNN convs + LeakyReLU + concat + reduce).
+            kb0 = cuda_time_ms(lambda: fb.apply_pass(x, apply, wts), n)
+            kp = [cuda_time_ms(lambda: fb.apply_pass_pipelined(x, apply, wts), n) for _ in "12"]
+            kb1 = cuda_time_ms(lambda: fb.apply_pass(x, apply, wts), n)
+            kp, kb3 = sum(kp) / 2, (kb0 + kb1) / 2
+            log(f"time K3P {shape}: {kp:.3f} ms (K3 in the same turns {kb3:.3f} ms, twin "
+                f"{pb:.3f}, bound {b3:.4f} by {y3})")
+            ap = attn_params(c)
+            amod = common.ChannelAttention(c, 8, device=dev, compute_dtype=torch.bfloat16)
+            amod.load_state_dict(blocks[c].attn.state_dict())
+            x4 = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor (channels_last)
+            k1 = cuda_time_ms(lambda: fa.fused_channel_attention(x, ap, 8), n)
+            p1 = cuda_time_ms(lambda: fa.fused_channel_attention_plain(x, ap, 8), n)
+            m1 = cuda_time_ms(lambda: amod(x4), n)
+            ba, ya = bound(**attention_counts(*shape))
+            log(f"time A1 {shape}: {k1:.3f} ms (twin {p1:.3f}, ChannelAttention module bf16 "
+                f"{m1:.3f}, bound {ba:.4f} by {ya})")
+            tp, stg = tail_params(c), tails[c]
+            t = fb.fused_transformer_block(x, params, 8)
+            t4 = t.permute(0, 3, 1, 2)
+            act = torch.nn.functional.leaky_relu
+
+            def module_tail():
+                conv = act(stg.conv(x4), 0.2)
+                return act(stg.Conv_out(stg.channel_reduce(torch.cat([conv, t4], 1))), 0.2)
+
+            k2 = cuda_time_ms(lambda: fs.fused_stage_tail(x, t, tp), n)
+            p2 = cuda_time_ms(lambda: fs.fused_stage_tail_plain(x, t, tp), n)
+            m2 = cuda_time_ms(module_tail, n)
+            bt, yt = bound(**tail_counts(*shape))
+            log(f"time T1 {shape}: {k2:.3f} ms (twin {p2:.3f}, module tail bf16 {m2:.3f}, bound "
+                f"{bt:.4f} by {yt})")
+            times.setdefault("fused_block_apply_pipelined", (kp, pb))
+            times.setdefault("fused_attention", (k1, p1))
+            times.setdefault("fused_stage_tail", (k2, p2))
+            del x, g0, t, t4, x4
         md = u16_to_device(requests[0][0])
         rd = torch.from_numpy(requests[0][1]).to(dev)
         fwd = cuda_time_ms(lambda: pred._u16_forward(md, rd), 20, warmup=5)
         with twin_blocks():
             fwd_twin = cuda_time_ms(lambda: pred._u16_forward(md, rd), 5)
+        pfwd = cuda_time_ms(lambda: ppred._u16_forward(md, rd), 20, warmup=5)
         mp = 8 * 512 * 512 / 1e6
         log(f"time RawFormer-S u16 forward, batch 8 @ 512^2: {fwd:.3f} ms, {mp / fwd * 1e3:.1f} MP/s "
-            f"(twin blocks: {fwd_twin:.3f} ms)")
+            f"(twin blocks: {fwd_twin:.3f} ms; pipelined apply pass: {pfwd:.3f} ms)")
         xf = torch.from_numpy(frames[0]).to(dev)[None, None]
         full = cuda_time_ms(lambda: model(xf), 3, warmup=1)
+        pfull = cuda_time_ms(lambda: pmodel(xf), 3, warmup=1)
         log(f"time RawFormer-S full-res frame 2832x4240: {full:.3f} ms, "
-            f"{2832 * 4240 / 1e6 / full * 1e3:.1f} MP/s")
+            f"{2832 * 4240 / 1e6 / full * 1e3:.1f} MP/s (pipelined apply pass: {pfull:.3f} ms)")
         log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     with torch.no_grad():  # not inference mode: the twins differentiate with autograd
         for shape in BATCH_SHAPES:
@@ -570,10 +740,13 @@ def main() -> int:
     for bs in (8, 16):
         batch = tuple(torch.cat([a, b]) for a, b in zip(*device_batches(2))) if bs == 16 \
             else device_batches(1)[0]
-        for path in ("kernel", "twin"):
+        for path in ("kernel", "pipelined", "twin") if bs == 8 else ("kernel", "twin"):
             ctx = twin_blocks() if path == "twin" else contextlib.nullcontext()
             with ctx:
-                tr = Trainer(rawformer_s(), train_cfg)
+                tm = rawformer_s()
+                if path == "pipelined":
+                    common.set_apply_kernel(tm, "pipelined")
+                tr = Trainer(tm, train_cfg)
                 tr.train_step(batch)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -581,7 +754,7 @@ def main() -> int:
                 peak = torch.cuda.max_memory_allocated() / 2**30
             log(f"time train step RawFormer-S batch {bs} @ 512^2, {path} path: {ms:.3f} ms "
                 f"({bs * 512 * 512 / 1e6 / ms * 1e3:.1f} MP/s), peak device memory {peak:.2f} GiB")
-            del tr
+            del tr, tm
             torch.cuda.empty_cache()
 
     # 6. RawFormer-WFB ----------------------------------------------------------
@@ -805,9 +978,58 @@ def main() -> int:
     del tr
     torch.cuda.empty_cache()
 
+    # 8. the probe ladders ------------------------------------------------------
+    del pmodel, ppred
+    torch.cuda.empty_cache()
+    for fn in (probes.floor_probe, probes.bisect_probe, fb.apply_pass, fb.apply_pass_pipelined):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    floor_rows = probes.run_floor_ladder(BATCH_SHAPES[0], iters=10)
+    for r in floor_rows:
+        err = "-" if r["err"] is None else f"{r['err']:.2e}"
+        bf_, byf_ = bound(**floor_counts(r["level"], *BATCH_SHAPES[0]))
+        log(f"probe floor {list(BATCH_SHAPES[0])} {r['strategy']:6s} {r['level']} th={r['th']:2d}: "
+            f"{r['ms']:.4f} ms, {r['gbs']:.1f} GB/s, err {err} (bound {bf_:.4f} by {byf_})")
+        if r["err"] is not None:
+            check(r["err"] <= (0.0 if r["level"] == "c" else PROBE_TOL),
+                  f"floor probe {r['strategy']}/{r['level']} th={r['th']} disagrees with its twin")
+    bisect_rows = probes.run_bisect_ladder(BATCH_SHAPES, iters=10)
+    for r in bisect_rows:
+        bs_, bys_ = bound(**stage_counts(r["stage"], *r["shape"]))
+        log(f"probe bisect {list(r['shape'])} {r['apply_kernel']:9s} stage {r['stage']}: "
+            f"{r['ms']:.4f} ms, {r['gbs']:.1f} GB/s, err {r['err']:.2e} (bound {bs_:.4f} by "
+            f"{bys_})")
+        check(r["err"] <= PROBE_TOL, f"bisect probe {r} disagrees with its twin")
+    probe_launches = {"probe_floor": probes.floor_probe.launches,
+                      "probe_bisect": probes.bisect_probe.launches}
+    log(f"probe ladders in {time.perf_counter() - t0:.1f} s; launches {probe_launches} (stage 5 "
+        f"rungs: K3 {fb.apply_pass.launches}, K3P {fb.apply_pass_pipelined.launches})")
+    with torch.no_grad():  # the twins' times for the table's rows
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(BATCH_SHAPES[0], generator=g).to(dev, torch.bfloat16)
+        w = (torch.randn(32, 32, generator=g) / 32 ** 0.5).to(dev, torch.bfloat16)
+        dw = (torch.randn(9, 32, generator=g) / 3.0).to(dev)
+        floor_twin = cuda_time_ms(lambda: probes.floor_probe_plain(x, w, dw, "c"), 10)
+        wts = probes.block_weights(32, 32, dev)
+        apply = fb.finalize_attention(*fb.gram_pass_plain(x, wts), wts.temperature, wts.wproj, 8)
+        bisect_twin = cuda_time_ms(lambda: probes.bisect_probe_plain(x, apply, wts, 1), 10)
+        del x, apply
+    floor_row = next(r for r in floor_rows if (r["strategy"], r["level"], r["th"]) == ("plain", "c", 8))
+    bisect_row = next(r for r in bisect_rows if r["shape"] == BATCH_SHAPES[0]
+                      and (r["apply_kernel"], r["stage"]) == ("tiled", 1))
+    times["probe_floor"] = (floor_row["ms"], floor_twin)
+    times["probe_bisect"] = (bisect_row["ms"], bisect_twin)
+    errs["probe_floor"] = max(r["err"] for r in floor_rows if r["err"] is not None)
+    errs["probe_bisect"] = max(r["err"] for r in bisect_rows)
+    bounds["probe_floor"] = bound(**floor_counts("c", *BATCH_SHAPES[0]))
+    bounds["probe_bisect"] = bound(**stage_counts(1, *BATCH_SHAPES[0]))
+
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
-                       ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2")):
+                       ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),
+                       ("fused_block_apply_pipelined", "apply")):
         bounds[name] = bound(**block_counts(kind, *BATCH_SHAPES[0]))
+    bounds["fused_attention"] = bound(**attention_counts(*BATCH_SHAPES[0]))
+    bounds["fused_stage_tail"] = bound(**tail_counts(*BATCH_SHAPES[0]))
     b, h, w = PACK_SHAPES[0]
     bounds["bayer_pack"] = bound(nbytes=b * h * w * 4 + 4 * b, fp32=4.0 * b * h * w)
 
@@ -826,13 +1048,30 @@ def main() -> int:
          TPU + "ssm_scan.py:92, " + TPU + "ssm_scan.py:272", wfb_launches["selective_scan_fwd"]),
         ("ssm_scan_bwd", PKG + "csrc/ssm_scan.cu", TPU + "ssm_scan.py:299",
          wfb_train_launches["selective_scan_bwd"]),
+        ("fused_block_apply_pipelined", PKG + "csrc/apply_pipelined.cuh", TPU + "fused_block.py:494",
+         pipe_launches["apply_pass_pipelined"]),
+        ("fused_attention", PKG + "csrc/fused_attention.cu", "attic/fused_attention.py:67",
+         aux_launches["fused_attention"]),
+        ("fused_stage_tail", PKG + "csrc/fused_stage.cu", "attic/fused_stage.py:75",
+         aux_launches["fused_stage_tail"]),
+        ("probe_floor", PKG + "csrc/probes_floor.cu",
+         "benchmarks/probe_floor.py:60, benchmarks/exp_dma_floor.py:113, "
+         "benchmarks/exp_dma_floor.py:125, benchmarks/exp_dma_floor.py:147, "
+         "benchmarks/exp_dma_bw.py:83",
+         probe_launches["probe_floor"]),
+        ("probe_bisect", PKG + "csrc/probes_bisect.cu", "benchmarks/bisect_b5.py:106",
+         probe_launches["probe_bisect"]),
     ]
-    log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_* at "
-        "[8,256,256,32] bf16, ssm_scan_* at [6,16384,96,32] bf16 (ssm_scan_fwd without "
-        "states); launches of K1-K3 from RawFormer-S serving, of B1/B2 from its training, of "
-        "ssm_scan_fwd from WFB serving, of ssm_scan_bwd from WFB training; max_abs_err of "
-        "B1/B2 on dx2 / dx, of ssm_scan_fwd on y, of ssm_scan_bwd on du; no single PyTorch "
-        "call computes any of these functions (library_ms null)")
+    log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_*, "
+        "fused_attention, fused_stage_tail and the probes at [8,256,256,32] bf16 (probe_floor: "
+        "the plain/c/th=8 rung; probe_bisect: K3 cut after stage 1), ssm_scan_* at "
+        "[6,16384,96,32] bf16 (ssm_scan_fwd without states); launches of K1-K3 from RawFormer-S "
+        "serving, of K3P from its pipelined serving, of B1/B2 from its training, of "
+        "ssm_scan_fwd from WFB serving, of ssm_scan_bwd from WFB training, of A1, T1 and the "
+        "probes from their own experiments (no model calls them); max_abs_err of B1/B2 on "
+        "dx2 / dx, of ssm_scan_fwd on y, of ssm_scan_bwd on du, of the probes relative to "
+        "the twin's max; no single PyTorch call computes any of these functions (library_ms "
+        "null)")
     log(card)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": l,

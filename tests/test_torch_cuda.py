@@ -296,3 +296,149 @@ def test_wfb_train_step_kernel_path_matches_twin_path(cuda):
             assert (v - st[name]).abs().max() <= 1e-2 * st[name].abs().max(), name
         else:
             torch.testing.assert_close(v, st[name], rtol=0, atol=5e-4, msg=name)
+
+
+def folded_block(c, seed, device):
+    """A dim-c block's params (non-trivial LN affines and temperatures) and
+    their folded weights."""
+    gen = torch.Generator().manual_seed(seed)
+    blk = common.TransformerBlock(c, 8, 2, device=device)
+    common.reset_parameters_(blk, gen)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if "norm" in name or "temperature" in name:
+                p.add_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen).to(device))
+    params = {k: v.detach() for k, v in blk.named_parameters()}
+    return params, fb.fold_block_params(params)
+
+
+@pytest.mark.parametrize("c", fb.PIPELINED_WIDTHS)
+def test_pipelined_apply_kernel_matches_twin(cuda, c):
+    """K3P against the apply pass's twin (and beside K3) on ragged tiles; one
+    launch per call."""
+    params, w = folded_block(c, c + 11, cuda)
+    x = torch.randn(3, 21, 14, c, generator=torch.Generator().manual_seed(c)).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        apply = fb.finalize_attention(*fb.gram_pass_plain(x, w), w.temperature, w.wproj, 8)
+        before = fb.apply_pass_pipelined.launches
+        got = fb.apply_pass_pipelined(x, apply, w)
+        torch.cuda.synchronize()
+        assert fb.apply_pass_pipelined.launches == before + 1
+        want = fb.apply_pass_plain(x, apply, w)
+        tiled = fb.apply_pass(x, apply, w)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    torch.testing.assert_close(got.float(), tiled.float(), **BF16_TOL)
+
+
+def test_pipelined_gate_routes_by_width(cuda):
+    """With apply_kernel="pipelined" the power-of-two widths launch K3P and
+    48/96/192 keep K3 (the JAX package's gate); K3P refuses the others."""
+    for c in fb.KERNEL_WIDTHS:
+        params, w = folded_block(c, c, cuda)
+        x = torch.randn(1, 9, 10, c, device=cuda).to(torch.bfloat16)
+        before = (fb.apply_pass.launches, fb.apply_pass_pipelined.launches)
+        with torch.inference_mode():
+            got = fb.fused_transformer_block(x, params, 8, apply_kernel="pipelined").float()
+            want = fb.fused_transformer_block_plain(x, params, 8).float()
+        pipelined = c in fb.PIPELINED_WIDTHS
+        assert (fb.apply_pass.launches - before[0], fb.apply_pass_pipelined.launches - before[1]) \
+            == ((0, 1) if pipelined else (1, 0)), c
+        torch.testing.assert_close(got, want, **BF16_TOL)
+        if not pipelined:
+            with torch.inference_mode(), pytest.raises(ValueError, match="K3P takes"):
+                fb.apply_pass_pipelined(x, torch.zeros(1, c, c, device=cuda), w)
+
+
+@pytest.mark.parametrize("c", [32, 48, 128, 256])  # each tile configuration of A1 and T1
+def test_attention_and_stage_tail_kernels_match_twins(cuda, c):
+    """A1 against the ChannelAttention twin and T1 against the stage-tail
+    twin on ragged tiles, bf16 kernel vs fp32 twin."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_attention as fa
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_stage as fs
+
+    gen = torch.Generator().manual_seed(c + 3)
+    stage = common.ConvTransformer(c, 8, 2, device=cuda)
+    common.reset_parameters_(stage, gen)
+    sd = {k: v.detach() for k, v in stage.state_dict().items()}
+    attn = {k.removeprefix("Transformer.attn."): v for k, v in sd.items()
+            if k.startswith("Transformer.attn.")}
+    x = torch.randn(2, 19, 13, c, generator=gen).to(cuda, torch.bfloat16)
+    t = torch.randn(2, 19, 13, c, generator=gen).to(cuda, torch.bfloat16)
+    before = (fa.fused_channel_attention.launches, fs.fused_stage_tail.launches)
+    with torch.inference_mode():
+        a = fa.fused_channel_attention(x, attn, 8)
+        s = fs.fused_stage_tail(x, t, sd)
+        torch.cuda.synchronize()
+        a0 = fa.fused_channel_attention_plain(x, attn, 8)
+        s0 = fs.fused_stage_tail_plain(x, t, sd)
+    assert (fa.fused_channel_attention.launches, fs.fused_stage_tail.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(a.float(), a0, **BF16_TOL)
+    torch.testing.assert_close(s.float(), s0, **BF16_TOL)
+
+
+def test_probe_ladders_match_twins(cuda):
+    """Every floor rung that computes a result (all but "center" at level
+    "v") and every bisect stage of K3 and K3P against their twins, on ragged
+    tiles."""
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(2, 37, 21, 32, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(32, 32, generator=g) / 32 ** 0.5).to(cuda, torch.bfloat16)
+    dw = (torch.randn(9, 32, generator=g) / 3).to(cuda)
+    for level in pf.LEVELS:
+        ref = pf.floor_probe_plain(x, w, dw, level)
+        for th in pf.TILE_HEIGHTS:
+            for strategy in pf.STRATEGIES:
+                out = pf.floor_probe(x, w, dw, strategy, level, th).float()
+                if (strategy, level) != ("center", "v"):
+                    err = ((out - ref).abs().max() / ref.abs().max()).item()
+                    assert err <= (0 if level == "c" else 3e-2), (strategy, level, th, err)
+    for c in fb.PIPELINED_WIDTHS:
+        w = pf.block_weights(c, c, cuda)
+        x = torch.randn(2, 15, 18, c, generator=g).to(cuda, torch.bfloat16)
+        apply = fb.finalize_attention(*fb.gram_pass_plain(x, w), w.temperature, w.wproj, 8)
+        for kind in fb.APPLY_KERNELS:
+            for stage in pf.STAGES:
+                got = pf.bisect_probe(x, apply, w, stage, kind).float()
+                torch.testing.assert_close(got, pf.bisect_probe_plain(x, apply, w, stage),
+                                           **BF16_TOL, msg=f"{kind} stage {stage} C={c}")
+
+
+def test_pipelined_serving_and_training(cuda):
+    """RawFormer-S served through Predictor(apply_kernel="pipelined") runs
+    K3P 7 times and K3 never per forward and matches the CPU twin path; two
+    train steps with set_apply_kernel(model, "pipelined") match the tiled
+    path's losses and params."""
+    from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig, Trainer
+
+    gen = torch.Generator().manual_seed(3)
+    gpu = RawFormer(RawFormerConfig.from_size("S", dtype=torch.bfloat16), device=cuda, generator=gen)
+    cpu = RawFormer(RawFormerConfig.from_size("S"))
+    cpu.load_state_dict(gpu.state_dict())
+    m = np.random.default_rng(9).integers(0, 17000, (2, 70, 90), dtype=np.uint16)
+    before = (fb.apply_pass.launches, fb.apply_pass_pipelined.launches)
+    got = Predictor(gpu, apply_kernel="pipelined").raw_u16(m, [60.0, 200.0])
+    assert (fb.apply_pass.launches - before[0], fb.apply_pass_pipelined.launches - before[1]) == (0, 7)
+    want = Predictor(cpu, device="cpu").raw_u16(m, [60.0, 200.0])
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
+
+    g = np.random.default_rng(4)
+    batch = (torch.from_numpy(g.uniform(0, 2, (2, 64, 64, 1)).astype(np.float32)).to(cuda),
+             torch.from_numpy(g.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(cuda))
+    runs = []
+    for kind in ("pipelined", "tiled"):
+        model = RawFormer(RawFormerConfig(dim=32, dtype=torch.bfloat16), device=cuda,
+                          generator=torch.Generator().manual_seed(0))
+        common.set_apply_kernel(model, kind)
+        trainer = Trainer(model, TrainConfig(warmup_epochs=1, steps_per_epoch=1))
+        before = [f.launches for f in (fb.apply_pass, fb.apply_pass_pipelined, fbb.bwd1, fbb.bwd2)]
+        losses = [float(trainer.train_step(batch)) for _ in range(2)]
+        launched = [f.launches - b for f, b in
+                    zip((fb.apply_pass, fb.apply_pass_pipelined, fbb.bwd1, fbb.bwd2), before)]
+        assert launched == ([0, 14, 14, 14] if kind == "pipelined" else [14, 0, 14, 14])
+        runs.append((losses, torch.cat([p.detach().flatten() for p in model.parameters()])))
+    (lp, pp), (lt, pt) = runs
+    np.testing.assert_allclose(lp, lt, rtol=2e-2)
+    torch.testing.assert_close(pp, pt, rtol=0, atol=5e-4)
