@@ -48,11 +48,15 @@ _SIGNATURES = {
     # out, B, H, W, C, stream
     "blle_apply_pass": [_P] * 14 + [_I] * 4 + [_P],
     # x, dy, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2t, wp1t,
-    # workspace, dx2, dapply, dw, B, H, W, C, stream
-    "blle_bwd1": [_P] * 18 + [_I] * 4 + [_P],
+    # op_v, op_y, op_dt, op_g (NULL below the split width), workspace, dx2,
+    # dapply, dw, B, H, W, C, stream
+    "blle_bwd1": [_P] * 22 + [_I] * 4 + [_P],
     # x, dx2, applyt, dgramt, dgram, dss, wqk, bqk, dwqk, bdwqk, wv, bv, dwv,
-    # bdwv, wqkvt, workspace, dx, dw, B, H, W, C, stream
-    "blle_bwd2": [_P] * 18 + [_I] * 4 + [_P],
+    # bdwv, wqkvt, op_x, op_dz (NULL below the split width), workspace, dx,
+    # dw, B, H, W, C, stream
+    "blle_bwd2": [_P] * 20 + [_I] * 4 + [_P],
+    # the problem table (11 long longs per product), products, stream
+    "blle_weight_grad": [ctypes.POINTER(ctypes.c_longlong), _I, _P],
     # u, dt, A, B, C, D, y, states (or NULL), hbuf, sbuf, B, L, D, N, chunk,
     # in_bf16, stream
     "blle_ssm_fwd": [_P] * 10 + [_I] * 6 + [_P],

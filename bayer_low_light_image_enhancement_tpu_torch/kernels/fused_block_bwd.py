@@ -24,6 +24,14 @@ Each pass has a plain twin (``*_plain``, fp32, torch autograd of the
 forward twins). The wrappers ``bwd1``/``bwd2`` run the twin on a CPU tensor
 and launch the CUDA kernel (``csrc/fused_block_bwd.cu``) on a CUDA tensor,
 or raise; ``bwd1.launches``/``bwd2.launches`` count the launches.
+
+Where the weight grads are summed depends on the width
+(``weight_grad_regime``). Below SPLIT_MIN_WIDTH each block of B1/B2 holds
+them on chip over all of its tiles. From SPLIT_MIN_WIDTH on they do not
+fit: B1/B2 write the products' operands once per pixel in bf16
+(``bwd1_operands_plain``/``bwd2_operands_plain`` are their twins) and the
+weight-grad pass (``kernels/weight_grad.py``) contracts the pairs that
+``bwd1_product_pairs``/``bwd2_product_pairs`` lay out.
 """
 
 from __future__ import annotations
@@ -32,10 +40,13 @@ import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
 from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
     BlockWeights,
+    _dw3x3,
+    _ln_hat,
     attention_out_plain,
     bf16,
     check_block_input,
@@ -47,6 +58,7 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
     require,
     select_apply_pass,
 )
+from bayer_low_light_image_enhancement_tpu_torch.kernels.weight_grad import weight_grad
 
 # BlockWeights fields whose grads each pass emits (the rest, temperature
 # and wproj, come from finalize_backward).
@@ -54,6 +66,17 @@ B1_FIELDS = ("wp1", "bp1", "dwf", "bdwf", "wp2", "bp2", "bproj")
 B2_FIELDS = ("wqk", "bqk", "dwqk", "bdwqk", "wv", "bv", "dwv", "bdwv")
 
 Grads = Dict[str, torch.Tensor]
+
+# From this width on, B1's weight-grad accumulators (d_apply, dwp1, dwp2:
+# 184 KB at C = 96) do not fit on chip beside its tile and the products go
+# to the weight-grad pass (csrc/fused_block_bwd.cu kSplitMinC says the same).
+SPLIT_MIN_WIDTH = 96
+
+
+def weight_grad_regime(c: int) -> str:
+    """"on chip" (each block of B1/B2 holds the weight grads over all of its
+    tiles) or "split" (operands to memory, then the weight-grad pass)."""
+    return "split" if c >= SPLIT_MIN_WIDTH else "on chip"
 
 
 def _const(t: torch.Tensor) -> torch.Tensor:
@@ -110,6 +133,65 @@ def bwd2_plain(
                  + (kss * _const(d_kss)).sum() + (y * _const(dx2)).sum())
         dx, *g = torch.autograd.grad(total, [xf, *leaves.values()])
     return dx, dict(zip(leaves, g))
+
+
+def bwd1_operands_plain(
+    x: torch.Tensor, dy: torch.Tensor, apply: torch.Tensor, w: BlockWeights
+) -> Dict[str, torch.Tensor]:
+    """What B1 writes per pixel in the split regime, fp32 [B,H,W,.]: v (the
+    attention's value), yh = LN2(y), dt (the grad at the FFN expand's
+    output, [.., 2C]), g = GELU(f_pre) ([.., 2C]), and dx2."""
+    wl = BlockWeights(**{f.name: _const(getattr(w, f.name)) for f in dataclasses.fields(w)})
+    xf = _const(x)
+    with torch.enable_grad():
+        v = _dw3x3(_ln_hat(xf) @ wl.wv + wl.bv, wl.dwv, wl.bdwv)
+        y = (xf + torch.einsum("bhwc,bcd->bhwd", v, _const(apply)) + wl.bproj).requires_grad_()
+        yh = _ln_hat(y)
+        t = yh @ wl.wp1 + wl.bp1
+        g = F.gelu(_dw3x3(t, wl.dwf, wl.bdwf))
+        out = y + g @ wl.wp2 + wl.bp2
+        dx2, dt = torch.autograd.grad(out, [y, t], dy.float())
+    return dict(v=v, yh=yh.detach(), dt=dt, g=g.detach(), dx2=dx2)
+
+
+def bwd1_product_pairs(v, dx2, yh, dt, g, dy):
+    """B1's weight-grad products as (a [G,K,M], b [G,K,N]) pairs over the
+    pixels: d_apply = v^T dx2 per image (G = B), dwp1 = yh^T dt and
+    dwp2 = g^T dy over all pixels (G = 1)."""
+    b, h, w, c = v.shape
+    p = b * h * w
+    return [(v.reshape(b, h * w, c), dx2.reshape(b, h * w, c)),
+            (yh.reshape(1, p, c), dt.reshape(1, p, 2 * c)),
+            (g.reshape(1, p, 2 * c), dy.reshape(1, p, c))]
+
+
+def bwd2_operands_plain(x, dx2, apply, d_gram, d_qss, d_kss, w: BlockWeights):
+    """What B2 writes per pixel in the split regime, fp32 [B,H,W,.]: xh =
+    LN1(x) and dz = [dz_q|dz_k|dz_v] ([.., 3C]), the grads at the pre-dw
+    1x1 outputs."""
+    wl = BlockWeights(**{f.name: _const(getattr(w, f.name)) for f in dataclasses.fields(w)})
+    xf = _const(x)
+    c = x.shape[-1]
+    with torch.enable_grad():
+        xh = _ln_hat(xf)
+        zqk = (xh @ wl.wqk + wl.bqk).requires_grad_()
+        zv = (xh @ wl.wv + wl.bv).requires_grad_()
+        qk = _dw3x3(zqk, wl.dwqk, wl.bdwqk)
+        q, k = qk[..., :c], qk[..., c:]
+        gram = torch.einsum("bhwc,bhwd->bcd", q, k)
+        v = _dw3x3(zv, wl.dwv, wl.bdwv)
+        y = xf + torch.einsum("bhwc,bcd->bhwd", v, _const(apply)) + wl.bproj
+        total = ((gram * _const(d_gram)).sum() + ((q * q).sum((1, 2)) * _const(d_qss)).sum()
+                 + ((k * k).sum((1, 2)) * _const(d_kss)).sum() + (y * _const(dx2)).sum())
+        dzqk, dzv = torch.autograd.grad(total, [zqk, zv])
+    return dict(xh=xh, dz=torch.cat([dzqk, dzv], -1))
+
+
+def bwd2_product_pairs(xh, dz):
+    """B2's weight-grad product [dwqk|dwv] = xh^T dz over all pixels."""
+    b, h, w, c = xh.shape
+    p = b * h * w
+    return [(xh.reshape(1, p, c), dz.reshape(1, p, 3 * c))]
 
 
 def finalize_backward(
@@ -187,8 +269,12 @@ def _bwd1_kernel(x, dy, apply, w):
     dx2 = torch.empty_like(x)
     d_apply = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
     dw = torch.empty(lib.blle_bwd1_grad_floats(c), dtype=torch.float32, device=x.device)
+    # Split regime: B1 writes v, LN2(y), dt, GELU(f_pre) per pixel.
+    ops = ([torch.empty((b, h, wd, n), dtype=torch.bfloat16, device=x.device)
+            for n in (c, c, ch, ch)] if weight_grad_regime(c) == "split" else [])
     err = lib.blle_bwd1(
-        x.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in args), ws.data_ptr(),
+        x.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in args),
+        *([t.data_ptr() for t in ops] or [None] * 4), ws.data_ptr(),
         dx2.data_ptr(), d_apply.data_ptr(), dw.data_ptr(), b, h, wd, c, _build.stream_of(x),
     )
     _build.check(err, "fused_block backward pass B1")
@@ -196,6 +282,10 @@ def _bwd1_kernel(x, dy, apply, w):
     # Layout of dw (csrc/fused_block_bwd.cu Bwd1Cfg, without d_apply).
     sizes = [c * ch, ch * c, 9 * ch, ch, ch, c, c]
     wp1, wp2, dwf, bdwf, bp1, bp2, bproj = torch.split(dw[: sum(sizes)], sizes)
+    if ops:
+        v, yh, dt, gl = ops
+        weight_grad(bwd1_product_pairs(v, dx2, yh, dt, gl, dy),
+                    [d_apply, wp1.view(1, c, ch), wp2.view(1, ch, c)])
     g = dict(wp1=wp1.view(c, ch), wp2=wp2.view(ch, c), dwf=dwf.view(9, ch), bdwf=bdwf,
              bp1=bp1, bp2=bp2, bproj=bproj)
     return dx2, d_apply, g
@@ -235,8 +325,12 @@ def _bwd2_kernel(x, dx2, apply, d_gram, d_qss, d_kss, w):
                      device=x.device)
     dx = torch.empty_like(x)
     dw = torch.empty(lib.blle_bwd2_grad_floats(c), dtype=torch.float32, device=x.device)
+    # Split regime: B2 writes LN1(x) and [dz_q|dz_k|dz_v] per pixel.
+    ops = ([torch.empty((b, h, wd, n), dtype=torch.bfloat16, device=x.device)
+            for n in (c, 3 * c)] if weight_grad_regime(c) == "split" else [])
     err = lib.blle_bwd2(
-        x.data_ptr(), dx2.data_ptr(), *(t.data_ptr() for t in args), ws.data_ptr(),
+        x.data_ptr(), dx2.data_ptr(), *(t.data_ptr() for t in args),
+        *([t.data_ptr() for t in ops] or [None] * 2), ws.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), b, h, wd, c, _build.stream_of(x),
     )
     _build.check(err, "fused_block backward pass B2")
@@ -244,6 +338,8 @@ def _bwd2_kernel(x, dx2, apply, d_gram, d_qss, d_kss, w):
     # Layout of dw (Bwd2Cfg): dW [C,3C] | ddw [9,3C] | dbdw [3C] | db [3C].
     sizes = [3 * c * c, 27 * c, 3 * c, 3 * c]
     dw_, ddw, dbdw, db = torch.split(dw[: sum(sizes)], sizes)
+    if ops:
+        weight_grad(bwd2_product_pairs(*ops), [dw_.view(1, c, 3 * c)])
     dw_, ddw = dw_.view(c, 3 * c), ddw.view(9, 3 * c)
     g = dict(wqk=dw_[:, : 2 * c], wv=dw_[:, 2 * c :], dwqk=ddw[:, : 2 * c], dwv=ddw[:, 2 * c :],
              bqk=db[: 2 * c], bv=db[2 * c :], bdwqk=dbdw[: 2 * c], bdwv=dbdw[2 * c :])

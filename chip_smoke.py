@@ -10,7 +10,9 @@ Phases (any failed check raises and the script exits non-zero):
 3. each kernel against its plain PyTorch twin on the card, at the shapes the
    RawFormer-S serving path gives it (batch 8 @ 512x512 and one 2832x4240
    frame), with the tolerances below; then the backward kernels B1/B2
-   against their twins at the training shapes (batch 8 @ 512x512);
+   against their twins at the training shapes (batch 8 @ 512x512), and the
+   weight-grad pass they call at C >= 96 against its twin on the products
+   B1/B2 hand it there;
 4. serving: RawFormer-S (dim 32, heads 8/8/8/8, FFN 2, seeded random
    weights, bf16 compute) answers 3 requests of 8 uint16 mosaics at 512x512
    through ``Predictor.raw_u16`` and two float frames (2832x4240, 1000x1500)
@@ -20,12 +22,15 @@ Phases (any failed check raises and the script exits non-zero):
 4b. training: RawFormer-S (fp32 params, bf16 compute) takes Adam steps on
    synthetic batch-8 @ 512x512 crops fed by ``Loader`` +
    ``prefetch_to_device`` through ``Trainer.train_step``; the counters must
-   show K2, K3, B1 and B2 7 times per step, the first steps must match a
+   show K2, K3, B1 and B2 7 times per step (and the weight-grad pass twice
+   per block of width >= 96: 6 times), the first steps must match a
    twin-path trainer, 20 steps on one batch must lower its loss, and
    ``eval_step`` must give finite PSNRs;
 5. timing with CUDA events after warmup: each kernel against its twin, the
-   batch-8 forward, the full-resolution frame, and the train step at batch
-   8 and 16 @ 512x512 on the kernel and the twin path (with peak memory);
+   batch-8 forward, the full-resolution frame, B1 and B2 as whole wrapper
+   calls (the weight-grad pass included) at the block shapes of batch 8
+   and 16, and the train step at batch 8 and 16 @ 512x512 on the kernel and
+   the twin path (with peak memory and B1 + B2's launch-weighted share);
 6. RawFormer-WFB: the selective-scan kernels S1 (with and without saved
    states) and S2 against their twins at the four distinct scan shapes of
    WFB-48 at batch 2 @ 512x512 (b = 3 high bands x 2 images); WFB-48
@@ -36,7 +41,8 @@ Phases (any failed check raises and the script exits non-zero):
    against twin path at batch 2 @ 256x256, 20 steps on one batch, and the
    step timed at batch 8 @ 512x512; the counters must show S1 7 times per
    forward (S2 never) when serving and S1 with states and S2 7 times per
-   train step; S1 / S2 and the WFB forward and step are timed.
+   train step; S1 / S2 and the WFB forward and step are timed, S2 also at
+   the scan shapes of a batch-8 @ 512x512 train step (b = 24).
 7. the pipelined apply pass K3P and the retired kernels A1 (standalone
    channel attention) and T1 (stage tail, on the stage's own t from
    ``fused_transformer_block``) against their twins at the block shapes of
@@ -120,6 +126,12 @@ PROBE_TOL = 3e-2
 # WFB-48 at batch 2 @ 512^2: the scan's (b, L, d_inner) at stages 1-4
 # (stages 5-7 repeat 3-1); b = 3 high bands x 2 images, N = 32.
 SCAN_SHAPES = [(6, 16384, 96), (6, 4096, 192), (6, 1024, 384), (6, 256, 768)]
+# The same at the WFB-48 train step's batch 8 @ 512^2 (b = 3 bands x 8).
+SCAN_TRAIN_SHAPES = [(24, 16384, 96), (24, 4096, 192), (24, 1024, 384), (24, 256, 768)]
+# The weight-grad pass (bf16 operands, fp32 sums over up to 2^19 pixels
+# taken in another order than the fp32 twin's): within WG_TOL of each
+# product's max.
+WG_TOL = 1e-4
 
 BATCH_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (8, 32, 32, 256)]
 FULLRES_SHAPES = [(1, 1416, 2120, 32), (1, 177, 265, 256)]
@@ -159,6 +171,13 @@ def block_counts(kind: str, b: int, h: int, w: int, c: int) -> dict:
                     fp32=72.0 * p * c)
     return dict(nbytes=3 * p * c * 2 + b * c * c * 8 + 6 * c * c, tc=16.0 * p * c * c,
                 fp32=108.0 * p * c)
+
+
+def weight_grad_counts(shapes) -> dict:
+    """The weight-grad pass on (G, K, M, N) products: a and b bf16 read once,
+    the fp32 out written once, 2 G K M N flops on the tensor cores."""
+    return dict(nbytes=sum(g * k * (m + n) * 2 + g * m * n * 4 for g, k, m, n in shapes),
+                tc=sum(2.0 * g * k * m * n for g, k, m, n in shapes))
 
 
 def tail_counts(b: int, h: int, w: int, c: int) -> dict:
@@ -280,6 +299,7 @@ def main() -> int:
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_stage as fs
     from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
     from bayer_low_light_image_enhancement_tpu_torch.models import common, get_model
     from bayer_low_light_image_enhancement_tpu_torch.ops import ssm
     from bayer_low_light_image_enhancement_tpu_torch.probes import floor as probes
@@ -311,7 +331,7 @@ def main() -> int:
 
     # 3. kernels against twins ------------------------------------------------
     errs = {"bayer_pack": 0.0, "fused_block_gram": 0.0, "fused_block_apply": 0.0,
-            "fused_block_bwd1": 0.0, "fused_block_bwd2": 0.0,
+            "fused_block_bwd1": 0.0, "fused_block_bwd2": 0.0, "weight_grad": 0.0,
             "fused_block_apply_pipelined": 0.0, "fused_attention": 0.0, "fused_stage_tail": 0.0}
 
     def held_to_block_rule(name, what, got, ref):
@@ -424,7 +444,22 @@ def main() -> int:
         with torch.autocast("cuda", torch.bfloat16):
             return twins(k, *args)
 
-    bwd_inputs = {}
+    def weight_grad_pairs(x, dy, wts):
+        """The (a, b) products the split regime hands the weight-grad pass at
+        x's shape: B1's and B2's operands as their twins compute them, in
+        bf16 as the kernels write them."""
+        gram, qss, kss = fb.gram_pass_plain(x, wts)
+        apply = fb.finalize_attention(gram, qss, kss, wts.temperature, wts.wproj, 8)
+        o1 = fbb.bwd1_operands_plain(x, dy, apply, wts)
+        d_apply = wgk.weight_grad_plain(fbb.bwd1_product_pairs(
+            o1["v"], o1["dx2"], o1["yh"], o1["dt"], o1["g"], dy))[0]
+        d = fbb.finalize_backward(gram, qss, kss, wts.temperature, wts.wproj, d_apply, 8)
+        o2 = fbb.bwd2_operands_plain(x, o1["dx2"], apply, *d[:3], wts)
+        bf = lambda t: t.to(torch.bfloat16).contiguous()  # noqa: E731
+        return [fbb.bwd1_product_pairs(*(bf(o1[k]) for k in ("v", "dx2", "yh", "dt", "g")), dy),
+                fbb.bwd2_product_pairs(bf(o2["xh"]), bf(o2["dz"]))]
+
+    bwd_inputs, wg_inputs = {}, {}
     with torch.no_grad():
         for shape in BATCH_SHAPES:
             c = shape[-1]
@@ -453,6 +488,19 @@ def main() -> int:
             errs["fused_block_bwd1"] = max(errs["fused_block_bwd1"], e1)
             errs["fused_block_bwd2"] = max(errs["fused_block_bwd2"], e2)
             del got, ref, noisy
+            if fbb.weight_grad_regime(c) == "split":
+                # The weight-grad pass on the operands B1 and B2 write here.
+                pairs = weight_grad_pairs(x, dy, wts)
+                before = wgk.weight_grad.launches
+                outs = [o for ps in pairs for o in wgk.weight_grad(ps)]
+                check(wgk.weight_grad.launches == before + len(pairs), "weight_grad did not launch")
+                wants = [o for ps in pairs for o in wgk.weight_grad_plain(ps)]
+                rel = max(((o - r).abs().max() / r.abs().max()).item() for o, r in zip(outs, wants))
+                log(f"weight-grad pass {shape} on B1's and B2's operands: max error {rel:.3e} of "
+                    f"each product's max (tol {WG_TOL})")
+                check(rel <= WG_TOL, f"weight_grad disagrees with its twin at {shape}")
+                errs["weight_grad"] = max(errs["weight_grad"], rel)
+                wg_inputs[shape] = pairs
         torch.cuda.synchronize()
 
     # 4. serving --------------------------------------------------------------
@@ -466,6 +514,7 @@ def main() -> int:
         raw = mosaics(rng, hw).astype(np.float32)
         frames.append(np.clip((raw - 512.0) / (16383.0 - 512.0), 0.0, None) * 100.0)
     counters = (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fb.apply_pass_pipelined,
+                wgk.weight_grad,
                 fbb.bwd1, fbb.bwd2, ssk.selective_scan_fwd, ssk.selective_scan_bwd)
     torch.cuda.synchronize()
     for fn in counters:
@@ -480,7 +529,8 @@ def main() -> int:
     check(launches["gram_pass"] == 7 * forwards, "K2 did not run 7 times per forward")
     check(launches["apply_pass"] == 7 * forwards, "K3 did not run 7 times per forward")
     check(launches["apply_pass_pipelined"] == 0, "K3P ran on the tiled path")
-    check(launches["bwd1"] == launches["bwd2"] == 0, "a backward kernel ran while serving")
+    check(launches["bwd1"] == launches["bwd2"] == launches["weight_grad"] == 0,
+          "a backward kernel ran while serving")
     check(launches["selective_scan_fwd"] == 0, "a scan kernel ran in RawFormer-S")
     for (m, _), y in zip(requests, outs):
         check(y.shape == m.shape + (3,), f"bad output shape {y.shape}")
@@ -532,7 +582,8 @@ def main() -> int:
     check(pipe_launches["gram_pass"] == 7 * pforwards
           and pipe_launches["bayer_pack_normalize"] == pforwards,
           "K1 / K2 did not run on the pipelined path")
-    check(pipe_launches["bwd1"] == pipe_launches["bwd2"] == 0, "a backward kernel ran while serving")
+    check(pipe_launches["bwd1"] == pipe_launches["bwd2"] == pipe_launches["weight_grad"] == 0,
+          "a backward kernel ran while serving")
     for (m, _), y in zip(requests + [frame_u16], pouts):
         check(y.shape == m.shape + (3,) and bool(np.isfinite(y).all()) and y.min() >= 0.0
               and y.max() <= 1.0, f"pipelined output not finite in [0, 1] of shape {m.shape}")
@@ -573,6 +624,8 @@ def main() -> int:
         f"launches {train_launches}")
     for name in ("gram_pass", "apply_pass", "bwd1", "bwd2"):
         check(train_launches[name] == 7 * len(steps), f"{name} did not run 7 times per train step")
+    check(train_launches["weight_grad"] == 6 * len(steps),
+          "the weight-grad pass did not run 6 times per train step")
     check(all(np.isfinite(train_losses)), "non-finite training loss")
 
     fixed = steps[0]
@@ -627,12 +680,13 @@ def main() -> int:
         f"err {dl:.3e}, tol {TRAIN_LOSS_RTOL}); launches {ptrain_launches}")
     for name in ("gram_pass", "apply_pass_pipelined", "bwd1", "bwd2"):
         check(ptrain_launches[name] == 7, f"{name} did not run 7 times in the pipelined step")
+    check(ptrain_launches["weight_grad"] == 6, "the weight-grad pass did not run 6 times")
     check(ptrain_launches["apply_pass"] == 0, "K3 ran in the pipelined train step")
     check(dl <= TRAIN_LOSS_RTOL, "pipelined train loss disagrees with the tiled path")
     del ptrain, pm
 
     # 5. timing ---------------------------------------------------------------
-    times = {}
+    times, bounds, library, bwd_ms = {}, {}, {}, {}
     with torch.inference_mode():
         for shape in PACK_SHAPES:
             m = u16_to_device(mosaics(rng, shape))
@@ -735,7 +789,39 @@ def main() -> int:
                 f"B2 {k2:.3f} ms (twin {p2:.3f}, bound {bb2:.4f} by {yb2})")
             times.setdefault("fused_block_bwd1", (k1, p1))
             times.setdefault("fused_block_bwd2", (k2, p2))
+            bwd_ms[shape] = k1 + k2
+            # The same weights at the batch-16 block shape (kernels only).
+            s16 = (16,) + shape[1:]
+            x16 = torch.randn(s16, device=dev).to(torch.bfloat16)
+            dy16 = (0.05 * torch.randn(s16, device=dev)).to(torch.bfloat16)
+            g16, q16, kk16 = fb.gram_pass_plain(x16, wts)
+            a16 = fb.finalize_attention(g16, q16, kk16, wts.temperature, wts.wproj, 8)
+            dx2_16, da16, _ = fbb.bwd1(x16, dy16, a16, wts)
+            d16 = fbb.finalize_backward(g16, q16, kk16, wts.temperature, wts.wproj, da16, 8)
+            k16 = (cuda_time_ms(lambda: fbb.bwd1(x16, dy16, a16, wts), 10)
+                   + cuda_time_ms(lambda: fbb.bwd2(x16, dx2_16, a16, *d16[:3], wts), 10))
+            bwd_ms[s16] = k16
+            log(f"time backward {s16}: B1 + B2 {k16:.3f} ms")
+            del x16, dy16, dx2_16, d16
         del bwd_inputs
+        # The weight-grad pass at the split shapes: B1's three products (one
+        # launch), B2's one; beside its twin and, for B2's single product, one
+        # PyTorch call of the same function (a bf16 matmul, fp32 sums).
+        for shape, (p1_, p2_) in wg_inputs.items():
+            w1 = cuda_time_ms(lambda: wgk.weight_grad(p1_), 20)
+            w2 = cuda_time_ms(lambda: wgk.weight_grad(p2_), 20)
+            pw2 = cuda_time_ms(lambda: wgk.weight_grad_plain(p2_), 5)
+            (a2, b2_), = p2_
+            lw2 = cuda_time_ms(lambda: torch.matmul(a2.mT, b2_), 20)
+            bw, ybw = bound(**weight_grad_counts([(t[0].shape[0], t[0].shape[1], t[0].shape[2],
+                                                   t[1].shape[2]) for t in p2_]))
+            log(f"time weight-grad pass {shape}: B1's products {w1:.4f} ms, B2's {w2:.4f} ms (twin "
+                f"{pw2:.3f}, torch.matmul bf16 {lw2:.4f}, bound {bw:.4f} by {ybw})")
+            if "weight_grad" not in times:
+                times["weight_grad"] = (w2, pw2)
+                bounds["weight_grad"] = (bw, ybw)
+                library["weight_grad"] = lw2
+        del wg_inputs
 
     for bs in (8, 16):
         batch = tuple(torch.cat([a, b]) for a, b in zip(*device_batches(2))) if bs == 16 \
@@ -752,8 +838,12 @@ def main() -> int:
                 torch.cuda.reset_peak_memory_stats()
                 ms = cuda_time_ms(lambda: tr.train_step(batch), 5, warmup=2)
                 peak = torch.cuda.max_memory_allocated() / 2**30
+            # B1 + B2 at the step's 7 block shapes (levels 1, 2, 3, 4, 3, 2, 1).
+            bwd = sum(n * bwd_ms[(bs,) + s[1:]] for n, s in zip((2, 2, 2, 1), BATCH_SHAPES))
+            share = f", B1 + B2 {bwd:.3f} ms a step ({bwd / ms:.1%})" if path != "twin" else ""
             log(f"time train step RawFormer-S batch {bs} @ 512^2, {path} path: {ms:.3f} ms "
-                f"({bs * 512 * 512 / 1e6 / ms * 1e3:.1f} MP/s), peak device memory {peak:.2f} GiB")
+                f"({bs * 512 * 512 / 1e6 / ms * 1e3:.1f} MP/s), peak device memory {peak:.2f} GiB"
+                + share)
             del tr, tm
             torch.cuda.empty_cache()
 
@@ -920,7 +1010,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6d. timing: S1 / S2 vs twins with their bounds, the WFB forward and step.
-    bounds = {}
     with torch.no_grad():
         for (b, L, d), (args, dy) in scan_args.items():
             _, states = ssk.selective_scan_fwd(*args, save_states=True)
@@ -941,6 +1030,15 @@ def main() -> int:
             bounds.setdefault("ssm_scan_bwd", (bb, byb))
             del states
     del scan_args
+    with torch.no_grad():  # S2 at the batch-8 @ 512^2 train step's scan shapes
+        for b, L, d in SCAN_TRAIN_SHAPES:
+            args, dy = scan_inputs(b, L, d, seed=L + 1)
+            _, states = ssk.selective_scan_fwd(*args, save_states=True)
+            kb = cuda_time_ms(lambda: ssk.selective_scan_bwd(*args, dy, states), 10)
+            bb, byb = bound(**scan_counts(b, L, d, 32, 2, backward=True))
+            log(f"time scan backward S2 [{b},{L},{d},32] bf16 (train step shape): {kb:.4f} ms "
+                f"(bound {bb:.4f} by {byb})")
+            del args, dy, states
     xw = torch.from_numpy(wreqs[0]).to(dev).permute(0, 3, 1, 2).contiguous()
     with torch.inference_mode():
         fwd = cuda_time_ms(lambda: wfb(xw), 10, warmup=3)
@@ -1036,6 +1134,9 @@ def main() -> int:
     rows = [
         ("bayer_pack", PKG + "csrc/bayer_pack.cu", TPU + "bayer_pack.py:34",
          launches["bayer_pack_normalize"]),
+        ("weight_grad", PKG + "csrc/weight_grad.cu",
+         TPU + "fused_block_bwd.py:194, " + TPU + "fused_block_bwd.py:318",
+         train_launches["weight_grad"]),
         ("fused_block_gram", PKG + "csrc/fused_block.cu", TPU + "fused_block.py:406",
          launches["gram_pass"]),
         ("fused_block_apply", PKG + "csrc/fused_block.cu", TPU + "fused_block.py:683",
@@ -1068,15 +1169,16 @@ def main() -> int:
         "[6,16384,96,32] bf16 (ssm_scan_fwd without states); launches of K1-K3 from RawFormer-S "
         "serving, of K3P from its pipelined serving, of B1/B2 from its training, of "
         "ssm_scan_fwd from WFB serving, of ssm_scan_bwd from WFB training, of A1, T1 and the "
-        "probes from their own experiments (no model calls them); max_abs_err of B1/B2 on "
-        "dx2 / dx, of ssm_scan_fwd on y, of ssm_scan_bwd on du, of the probes relative to "
-        "the twin's max; no single PyTorch call computes any of these functions (library_ms "
-        "null)")
+        "probes from their own experiments (no model calls them); weight_grad at [8,64,64,128] "
+        "on B2's product (1, 32768, 128, 384), launches from RawFormer-S training; max_abs_err "
+        "of B1/B2 on dx2 / dx, of ssm_scan_fwd on y, of ssm_scan_bwd on du, of the probes and "
+        "weight_grad relative to the twin's max; library_ms: weight_grad beside torch.matmul "
+        "(bf16); no single PyTorch call computes any other of these functions (null)")
     log(card)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": l,
          "max_abs_err": errs[n], "ms": times[n][0], "plain_ms": times[n][1],
-         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": None}
+         "bound_ms": bounds[n][0], "bound_by": bounds[n][1], "library_ms": library.get(n)}
         for n, s, r, l in rows
     ]}))
     print(json.dumps({"ok": True, "device": {

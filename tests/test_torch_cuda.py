@@ -14,6 +14,7 @@ import torch
 from bayer_low_light_image_enhancement_tpu_torch.kernels import bayer_pack as bp
 from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
 from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
+from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wg
 from bayer_low_light_image_enhancement_tpu_torch.models import RawFormer, RawFormerConfig, common
 from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
 
@@ -119,27 +120,89 @@ def bf16_twin_run(k, *args):
         return twin_run(k, *args)
 
 
-@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
-def test_backward_kernels_match_twins(cuda, c):
-    """B1 and B2 against their fp32 twins on ragged tiles, each leaf within
-    max(3 x the bf16 twin's error, 2e-2) of the fp32 twin."""
-    gen = torch.Generator().manual_seed(c + 1)
-    blk = common.TransformerBlock(c, 8, 2, device=cuda)
+def backward_case(shape, seed, device):
+    """Folded weights of a width-C TransformerBlock (non-trivial LN affines
+    and temperatures), bf16 x and dy of ``shape`` on ``device``."""
+    c = shape[-1]
+    gen = torch.Generator().manual_seed(seed)
+    blk = common.TransformerBlock(c, 8, 2, device=device)
     common.reset_parameters_(blk, gen)
     with torch.no_grad():
         for name, p in blk.named_parameters():
             if "norm" in name or "temperature" in name:
-                p.add_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen).to(cuda))
+                p.add_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen).to(device))
     wts = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
-    x = torch.randn(2, 19, 13, c, generator=gen).to(cuda, torch.bfloat16)
-    dy = (0.1 * torch.randn(2, 19, 13, c, generator=gen)).to(cuda, torch.bfloat16)
-    before = (fbb.bwd1.launches, fbb.bwd2.launches)
+    x = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+    dy = (0.1 * torch.randn(shape, generator=gen)).to(device, torch.bfloat16)
+    return x, dy, wts
+
+
+def check_backward_against_twins(x, dy, wts):
+    """B1 and B2 launch once each (and the weight-grad pass once for each in
+    the split regime); each leaf within max(3 x the bf16 twin's error, 2e-2)
+    of the fp32 twin."""
+    split = fbb.weight_grad_regime(x.shape[-1]) == "split"
+    before = (fbb.bwd1.launches, fbb.bwd2.launches, wg.weight_grad.launches)
     got = backward_leaves(x, dy, wts, 8, kernel_run)
-    assert (fbb.bwd1.launches, fbb.bwd2.launches) == (before[0] + 1, before[1] + 1)
+    assert (fbb.bwd1.launches, fbb.bwd2.launches, wg.weight_grad.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2 * split)
     errs = yardstick_errors(got, backward_leaves(x, dy, wts, 8, twin_run),
                             backward_leaves(x, dy, wts, 8, bf16_twin_run))
     bad = {n: e for n, e in errs.items() if not e[0] <= max(3 * e[1], 2e-2)}
     assert not bad, bad
+
+
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_backward_kernels_match_twins(cuda, c):
+    """B1 and B2 against their fp32 twins on ragged tiles, each leaf within
+    max(3 x the bf16 twin's error, 2e-2) of the fp32 twin."""
+    x, dy, wts = backward_case((2, 19, 13, c), c + 1, cuda)
+    check_backward_against_twins(x, dy, wts)
+
+
+# Fewer tiles than blocks (one 8x8 image at C = 256: 4 tiles of 4x4); many
+# tiles per block with ragged edges (C = 32: 8x16 tiles; C = 128: 4x8).
+@pytest.mark.parametrize("shape", [(1, 8, 8, 256), (4, 72, 40, 32), (4, 202, 168, 32),
+                                   (2, 66, 70, 128)])
+def test_backward_kernels_edge_shapes(cuda, shape):
+    x, dy, wts = backward_case(shape, shape[1], cuda)
+    check_backward_against_twins(x, dy, wts)
+
+
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_backward_kernels_are_deterministic(cuda, c):
+    """Two launches on the same inputs give bitwise-equal dx2, d_apply, dx
+    and weight grads (fixed-order sums, no atomics)."""
+    x, dy, wts = backward_case((2, 37, 29, c), c, cuda)
+    gram, qss, kss = fb.gram_pass_plain(x, wts)
+    apply = fb.finalize_attention(gram, qss, kss, wts.temperature, wts.wproj, 8)
+    first, second = (fbb.bwd1(x, dy, apply, wts) for _ in "12")
+    d = fbb.finalize_backward(gram, qss, kss, wts.temperature, wts.wproj, first[1], 8)
+    dx2 = first[0].to(torch.bfloat16)
+    third, fourth = (fbb.bwd2(x, dx2, apply, *d[:3], wts) for _ in "12")
+    for a, b in ((first, second), (third, fourth)):
+        for u, v in zip(a[:-1], b[:-1]):
+            assert torch.equal(u, v)
+        assert a[-1].keys() == b[-1].keys()
+        for name in a[-1]:
+            assert torch.equal(a[-1][name], b[-1][name]), name
+
+
+@pytest.mark.parametrize("shapes", [[(2, 1000, 96, 96), (1, 2000, 96, 192), (1, 2000, 192, 96)],
+                                    [(1, 4099, 256, 768)], [(1, 5, 8, 16)]])
+def test_weight_grad_kernel_matches_twin(cuda, shapes):
+    """The weight-grad pass (one launch for all products; ragged K, M and N
+    of 96) against its fp32 twin: bf16 products are exact in fp32, so only
+    the order of the sums differs."""
+    gen = torch.Generator().manual_seed(len(shapes))
+    pairs = [(torch.randn(g, k, m, generator=gen).to(cuda, torch.bfloat16),
+              torch.randn(g, k, n, generator=gen).to(cuda, torch.bfloat16))
+             for g, k, m, n in shapes]
+    before = wg.weight_grad.launches
+    got = wg.weight_grad(pairs)
+    assert wg.weight_grad.launches == before + 1
+    for o, r in zip(got, wg.weight_grad_plain(pairs)):
+        torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-3)
 
 
 def scan_inputs(b, L, d, n, dtype, seed):
