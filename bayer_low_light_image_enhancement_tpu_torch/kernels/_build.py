@@ -63,6 +63,8 @@ _SIGNATURES = {
     # u, dt, A, B, C, D, dy, states, du, ddt, dA, dB, dC, dD, workspace, B, L,
     # D, N, chunk, dgroup, in_bf16, stream
     "blle_ssm_bwd": [_P] * 15 + [_I] * 7 + [_P],
+    # dgroup, in_bf16 (returns blocks per SM, not an error code)
+    "blle_ssm_bwd_blocks_per_sm": [_I, _I],
     # the arguments of blle_apply_pass
     "blle_apply_pipelined": [_P] * 14 + [_I] * 4 + [_P],
     # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, stream

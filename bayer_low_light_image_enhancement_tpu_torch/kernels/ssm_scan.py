@@ -21,6 +21,9 @@ fp32); A and D in fp32; the recurrence is fp32.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
@@ -30,20 +33,63 @@ FWD_CHUNK = 128   # L-chunk per block of the forward (multiple of STATE_EVERY)
 BWD_CHUNK = 128   # L-chunk per block of the backward (multiple of STATE_EVERY)
 STATE_EVERY = 32  # kSub in csrc/ssm_scan.cu
 MAX_STATE = 32    # one lane per state n
-_WARPS = 8        # channels per forward block = d-group granularity (kScanWarps)
-_BLOCKS_TARGET = 4 * 132  # backward blocks to aim for: 4 per SM of an H100
-_DGROUP_MAX = 256  # channels per backward block (shared memory ~ 65 floats each)
+BWD_WARPS = 4     # warps per backward block (kBwdWarps)
+BWD_DGROUP_MAX = 40  # channels per backward block at most (its shared memory grows with them)
+BWD_WAVES = 2     # backward blocks to aim for, in multiples of those the card holds at once
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def bwd_dgroup(bsz: int, L: int, d: int) -> int:
-    """Channels per backward block: all of them when the (chunk, batch) grid
-    alone fills the card, else fewer, so that about ``_BLOCKS_TARGET`` blocks
-    run; a multiple of 8, at most ``_DGROUP_MAX``."""
-    rows = bsz * -(-L // BWD_CHUNK)
-    groups = min(-(-d // _WARPS), max(1, -(-_BLOCKS_TARGET // rows)))
-    dgroup = -(-(-(-d // groups)) // _WARPS) * _WARPS
-    return min(dgroup, _DGROUP_MAX)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's grid: (chunks, ``groups``, B) blocks of ``BWD_WARPS``
+    warps; a block walks ``chunk`` steps of ``dgroup`` channels, each warp
+    ``per_warp`` of them (a ragged last group leaves some warps fewer)."""
+
+    chunk: int
+    dgroup: int
+    per_warp: int
+    groups: int
+    blocks: int
+
+
+def bwd_plan(bsz: int, L: int, d: int, resident: int) -> BwdPlan:
+    """S2's grid for u [bsz, L, d], given the blocks the card holds at once
+    (``resident``: SMs x the occupancy API's blocks per SM). The (chunk,
+    batch) rows take all channels in as few groups as ``BWD_DGROUP_MAX``
+    allows (each group past the first costs a [B, L, N] partial of dB and
+    of dC and a summing pass), with more groups while the grid is short of
+    ``BWD_WAVES`` x ``resident`` blocks, down to one channel per warp."""
+    rows = bsz * _cdiv(L, BWD_CHUNK)
+    groups = max(_cdiv(d, BWD_DGROUP_MAX),
+                 min(_cdiv(d, BWD_WARPS), _cdiv(BWD_WAVES * resident, rows)))
+    per_warp = _cdiv(_cdiv(d, groups), BWD_WARPS)
+    groups = _cdiv(d, per_warp * BWD_WARPS)
+    return BwdPlan(BWD_CHUNK, per_warp * BWD_WARPS, per_warp, groups, rows * groups)
+
+
+def bwd_workspace_floats(bsz: int, L: int, d: int, n: int, plan: BwdPlan) -> int:
+    """The fp32 workspace S2 needs (``BwdLayout`` in csrc/ssm_scan.cu): the
+    chunk carries [B, chunks, D, N] and sums of dt [B, chunks, D], the dA and
+    dD partials of the same shapes, and with several d-groups the dB and dC
+    partials [groups, B, L, N] each."""
+    rows = bsz * _cdiv(L, plan.chunk) * d
+    part = plan.groups * bsz * L * n if plan.groups > 1 else 0
+    return 2 * rows * (n + 1) + 2 * part
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_resident(device_index: int, in_bf16: bool) -> int:
+    """Backward blocks the card holds at once at ``BWD_DGROUP_MAX``
+    channels per block: its SMs x the occupancy API's blocks per SM."""
+    per_sm = _build.library().blle_ssm_bwd_blocks_per_sm(BWD_DGROUP_MAX, int(in_bf16))
+    if per_sm < 1:
+        raise RuntimeError(f"S2 cannot be resident at {BWD_DGROUP_MAX} channels a block "
+                           f"(occupancy API: {per_sm})")
+    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check(u, dt, A, B, C, D, **more):
@@ -126,16 +172,16 @@ def _bwd_kernel(u, dt, A, B, C, D, dy, states):
     t = u.dtype
     u, dt, B, C, dy = (_as(x, t) for x in (u, dt, B, C, dy))
     A, D, states = (_as(x, torch.float32) for x in (A, D, states))
-    dgroup = bwd_dgroup(bsz, L, d)
+    plan = bwd_plan(bsz, L, d, bwd_resident(u.device.index, t == torch.bfloat16))
     lib = _build.library()
     f32 = dict(dtype=torch.float32, device=u.device)
-    ws = torch.empty(lib.blle_ssm_bwd_workspace_floats(bsz, L, d, n, BWD_CHUNK, dgroup), **f32)
+    ws = torch.empty(bwd_workspace_floats(bsz, L, d, n, plan), **f32)
     du, ddt = torch.empty((bsz, L, d), **f32), torch.empty((bsz, L, d), **f32)
     dA, dD = torch.empty((d, n), **f32), torch.empty((d,), **f32)
     dB, dC = torch.empty((bsz, L, n), **f32), torch.empty((bsz, L, n), **f32)
     err = lib.blle_ssm_bwd(
         *(x.data_ptr() for x in (u, dt, A, B, C, D, dy, states, du, ddt, dA, dB, dC, dD, ws)),
-        bsz, L, d, n, BWD_CHUNK, dgroup, int(t == torch.bfloat16), _build.stream_of(u),
+        bsz, L, d, n, plan.chunk, plan.dgroup, int(t == torch.bfloat16), _build.stream_of(u),
     )
     _build.check(err, "selective scan backward S2")
     selective_scan_bwd.launches += 1

@@ -1,8 +1,8 @@
-"""Time B1/B2 and the RawFormer-S train step for several checkouts of the
-port on one card, in turns.
+"""Time kernels and train steps for several checkouts of the port on one
+card, in turns.
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.time_trees \\
-        ROOT [ROOT ...] [--what bwd,step] [--turns 2]
+        ROOT [ROOT ...] [--what bwd,step,scan] [--turns 2]
 
 Each ROOT is a directory that holds a copy of the package (``.`` for this
 checkout; another commit unpacked by ``git archive`` into an ignored
@@ -16,7 +16,14 @@ kernels. Per root and turn it prints
   pass included; CUDA events, 10 calls after 3, twice) at the RawFormer-S
   block shapes of batch 8 @ 512^2, seeded random weights and inputs;
 * ``step``: ``Trainer.train_step`` of RawFormer-S at batch 8 and 16 @ 512^2
-  (CUDA events over 5 steps after 2, three times).
+  (CUDA events over 5 steps after 2, three times);
+* ``scan``: S2 (``selective_scan_bwd``) and, as a control, S1 with states
+  as whole wrapper calls (10 calls after 3, twice) at the scan shapes of a
+  WFB-48 batch-8 @ 512^2 train step (b = 3 bands x 8, N = 32; seeded bf16
+  inputs as a random Mamba block makes them), each of S2's kernels by its
+  device time per call (``torch.profiler`` over 5 calls), then
+  ``Trainer.train_step`` of WFB-48 at batch 8 @ 512^2 (CUDA events over 3
+  steps after 1, twice).
 
 A card is required: there is no CPU fallback.
 """
@@ -25,10 +32,28 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 
 BATCH_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (8, 32, 32, 256)]
+SCAN_TRAIN_SHAPES = [(24, 16384, 96), (24, 4096, 192), (24, 1024, 384), (24, 256, 768)]
+
+
+def _scan_inputs(b, L, d, dev):
+    """bf16 u, dt, B, C, dy and fp32 A, D as a random Mamba block makes
+    them (dt softplus of N(-2.5, 1), A near -(1..32)), seeded by L."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(L)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
+    u, B, C, dy = r(b, L, d), r(b, L, 32), r(b, L, 32), 0.1 * r(b, L, d)
+    dt = torch.nn.functional.softplus(r(b, L, d) - 2.5)
+    A = -torch.arange(1, 33, device=dev, dtype=torch.float32).repeat(d, 1) * torch.exp(
+        0.1 * r(d, 32))
+    D = 1.0 + 0.1 * r(d)
+    u, dt, B, C, dy = (t.to(torch.bfloat16) for t in (u, dt, B, C, dy))
+    return (u, dt, A, B, C, D), dy
 
 
 def _child(root: str, what: str) -> None:
@@ -79,12 +104,50 @@ def _child(root: str, what: str) -> None:
                   flush=True)
             del tr, model
             torch.cuda.empty_cache()
+    if "scan" in what:
+        from torch.profiler import ProfilerActivity, profile
+
+        from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
+
+        with torch.no_grad():
+            for b, L, d in SCAN_TRAIN_SHAPES:
+                args, dy = _scan_inputs(b, L, d, dev)
+                _, states = ssk.selective_scan_fwd(*args, save_states=True)
+                s2 = [cuda_time_ms(lambda: ssk.selective_scan_bwd(*args, dy, states), 10)
+                      for _ in "12"]
+                s1 = [cuda_time_ms(lambda: ssk.selective_scan_fwd(*args, save_states=True), 10)
+                      for _ in "12"]
+                print(f"{root} scan [{b},{L},{d},32]: S2 {s2[0]:.4f} {s2[1]:.4f} ms, S1 with "
+                      f"states {s1[0]:.4f} {s1[1]:.4f} ms", flush=True)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        ssk.selective_scan_bwd(*args, dy, states)
+                    torch.cuda.synchronize()
+                for e in prof.key_averages():
+                    us = getattr(e, "self_device_time_total", None)
+                    us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+                    if us > 0:
+                        name = re.sub(r"^.*?(\w+_kernel)\b.*$", r"\1", e.key)
+                        print(f"{root} scan [{b},{L},{d},32]:   S2 kernel {name} "
+                              f"{us / 1e3 / 5:.4f} ms a call", flush=True)
+                del args, dy, states
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.rand(8, 512, 512, 1, generator=g, device=dev)
+        gt = torch.rand(8, 512, 512, 3, generator=g, device=dev)
+        model = get_model("rawformer_wfb", device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0))
+        tr = Trainer(model, TrainConfig(base_lr=1e-4, warmup_epochs=1, steps_per_epoch=1))
+        ms = [cuda_time_ms(lambda: tr.train_step((x, gt)), 3, warmup=1) for _ in "12"]
+        print(f"{root} WFB-48 train step batch 8: " + " ".join(f"{t:.3f}" for t in ms) + " ms",
+              flush=True)
+        del tr, model
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs="+", help="directories holding a copy of the package")
-    p.add_argument("--what", default="bwd,step", help="bwd, step or both (comma-separated)")
+    p.add_argument("--what", default="bwd,step", help="any of bwd, step, scan (comma-separated)")
     p.add_argument("--turns", type=int, default=2, help="passes over the roots, alternating order")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

@@ -186,7 +186,46 @@ def test_kernel_wrappers_refuse_bad_inputs():
         ks._check(u, dt[:, :4], A, B, C, D)
     with pytest.raises(TypeError):
         ks._check(u.double(), dt, A, B, C, D)
-    # d-groups: all channels when the grid fills the card, else fewer
-    assert ks.bwd_dgroup(6, 16384, 96) == 96
-    assert ks.bwd_dgroup(6, 256, 768) % 8 == 0 and ks.bwd_dgroup(6, 256, 768) < 768
-    assert ks.bwd_dgroup(1, 77, 13) == 8
+
+
+# S2's plan on an H100 at two resident blocks per SM (132 x 2): (B, L, D)
+# -> (channels per block, per warp, groups, blocks). The WFB-48 scan shapes
+# at batch 2 (b = 6) and 8 (b = 24) @ 512^2, then the card tests' ragged ones.
+@pytest.mark.parametrize("shape,want", [
+    ((24, 16384, 96), (32, 8, 3, 9216)), ((24, 4096, 192), (40, 10, 5, 3840)),
+    ((24, 1024, 384), (40, 10, 10, 1920)), ((24, 256, 768), (40, 10, 20, 960)),
+    ((6, 16384, 96), (32, 8, 3, 2304)), ((6, 4096, 192), (40, 10, 5, 960)),
+    ((6, 1024, 384), (36, 9, 11, 528)), ((6, 256, 768), (20, 5, 39, 468)),
+    ((1, 77, 13), (4, 1, 4, 4)), ((2, 300, 20), (4, 1, 5, 30)), ((3, 1000, 40), (4, 1, 10, 240)),
+])
+def test_backward_plan(shape, want):
+    """Few groups (at most BWD_DGROUP_MAX channels a block), more while the
+    grid is short of BWD_WAVES x the resident blocks; the groups cover D
+    with a ragged last one."""
+    bsz, L, d = shape
+    plan = ks.bwd_plan(bsz, L, d, resident=2 * 132)
+    assert (plan.dgroup, plan.per_warp, plan.groups, plan.blocks) == want
+    assert plan.chunk == ks.BWD_CHUNK and plan.chunk % ks.STATE_EVERY == 0
+    assert plan.dgroup == plan.per_warp * ks.BWD_WARPS <= ks.BWD_DGROUP_MAX
+    assert (plan.groups - 1) * plan.dgroup < d <= plan.groups * plan.dgroup
+    assert plan.blocks == bsz * -(-L // plan.chunk) * plan.groups
+
+
+def test_backward_plan_follows_occupancy():
+    """A card that holds fewer blocks at once gets fewer, wider groups."""
+    wide = ks.bwd_plan(6, 1024, 384, resident=132)
+    narrow = ks.bwd_plan(6, 1024, 384, resident=4 * 132)
+    assert wide.groups < narrow.groups and wide.dgroup > narrow.dgroup
+    assert ks.bwd_plan(24, 16384, 96, resident=1).groups == 3  # BWD_DGROUP_MAX caps the width
+
+
+@pytest.mark.parametrize("shape,n,want", [
+    ((24, 16384, 96), 32, 2 * 24 * 128 * 96 * 33 + 2 * 3 * 24 * 16384 * 32),
+    ((1, 77, 13), 8, 2 * 1 * 1 * 13 * 9 + 2 * 4 * 77 * 8),
+    ((8, 16384, 32), 32, 2 * 8 * 128 * 32 * 33),  # one group: no dB / dC partials
+])
+def test_backward_workspace_floats(shape, n, want):
+    """What the wrapper allocates for S2: chunk carries, sums of dt, dA and
+    dD partials, and dB / dC partials only with several groups."""
+    plan = ks.bwd_plan(*shape, resident=2 * 132)
+    assert ks.bwd_workspace_floats(*shape, n, plan) == want
