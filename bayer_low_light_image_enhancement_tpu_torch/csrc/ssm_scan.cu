@@ -18,17 +18,22 @@
 // moving the bytes. What the TPU kernel kept out of HBM, the [L, D, N]
 // expansion, never leaves registers here.
 //
-// Design: one warp per (b, d), one lane per state n (N <= 32; lanes >= N
-// carry zeros), y_t summed over the lanes with shuffles. The TPU carried the
-// state across a sequential grid of L-chunks; here L is cut into chunks that
-// run in parallel, with the chunk-carry algebra of ops/ssm.py:
-//   1. ssm_chunk_end_kernel: each chunk's zero-start end state and sum(dt);
-//   2. ssm_compose_kernel: per (b, d, n), the ordered composition
-//      h_in(c+1) = exp(A sum dt(c)) h_in(c) + h_end(c) over the chunks;
-//   3. ssm_scan_kernel: each chunk rescans from its true entry state and
-//      writes y; with kStates it also saves the state entering every
-//      kSub-step sub-chunk (what the backward restarts from).
-// The backward mirrors it in reverse:
+// S1's design: a block stages each 32-step sub-chunk of its channel tile's
+// inputs in shared memory (cp.async, double-buffered) and walks each
+// channel's states from there, the exps of 8 steps ahead of the chain
+// h = a h + x and y summed over the states by a transpose-reduce; see the
+// note above fwd_chunk. The TPU carried the state across a sequential grid
+// of L-chunks; here the plan (kernels/ssm_scan.fwd_plan) cuts L into nc
+// chunks only when the (b, d) walks alone leave the card short of warps:
+//   nc = 1: one launch, one serial walk per (b, d), one exp per element;
+//   nc > 1: ssm_fwd_end_kernel walks chunk 0 from zero (its y and states
+//     are final) and chunks 1..nc-2 for their zero-start end states and
+//     sums of dt; ssm_fwd_scan_kernel composes each chunk c >= 1's entry
+//     state from those (the chunk-carry algebra of ops/ssm.py, c terms)
+//     and rescans it: 2 (nc - 1) / nc exps per element, two launches.
+// nc = 2 halves no serial walk (chunk 1 waits for chunk 0), so the plan
+// never takes it.
+// S2 cuts L into 128-step chunks that run in parallel, in reverse:
 //   1. ssm_bwd_chunk_kernel: each chunk's zero-start a_first * lam_first;
 //   2. ssm_compose_rev_kernel: the carry mu entering each chunk from the
 //      right, mu(c-1) = z(c) + exp(A sum dt(c)) mu(c);
@@ -37,16 +42,16 @@
 //      emit du, ddt per element; see the design note above it.
 // dB and dC sum over d, dA and dD over b and t: fixed-order sums of
 // per-block partials, no atomics, so reruns are bitwise equal.
-// Ragged L and D are masked in the kernels: the forward masks its loops; the
-// backward stages ragged steps as dt = 0, B = C = dy = 0, which carry the
-// state and lam through unchanged and add nothing.
+// Ragged L and D are masked in the kernels: both stage ragged steps as
+// dt = 0, u = B = C = dy = 0, which carry the state and lam through
+// unchanged and add nothing, and store no output outside [L] x [D].
 #include "common.cuh"
 
 namespace {
 
-constexpr int kScanWarps = 8;  // channels d per block (one warp each)
-constexpr int kScanThreads = kScanWarps * 32;
-constexpr int kSub = 32;       // steps per saved state = backward sub-chunk
+constexpr int kSub = 32;  // steps per saved state = staged sub-chunk = backward sub-chunk
+constexpr int kRed = 8;   // steps per transpose-reduce
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -61,80 +66,403 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Forward pass 1: the zero-start end state of chunk blockIdx.x and its
-// sum of dt. Grid (chunks, ceil(D / kScanWarps), B).
+// 2^x on the SFU (one MUFU.EX2; what __expf issues after its multiply by
+// log2 e, which S1 folds into A once).
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// One halving level of transpose_sum: lanes with bit X set keep v[O..2O),
+// the others v[0..O), each adding its partner's copy (O shuffles).
+template <int O, int X>
+__device__ __forceinline__ void halve(float (&v)[kRed], int lane) {
+  const bool up = lane & X;
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    const float keep = up ? v[k + O] : v[k], send = up ? v[k] : v[k + O];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, X);
+  }
+}
+
+// v[k] for kRed steps k in each lane -> the sum over each aligned group of
+// G lanes of v[k] for k = (lane % G) / (G / kRed), in every lane: halving
+// exchanges at xor G/2, G/4, G/8, then full ones below (for G = 32: 9
+// shuffles for 8 steps, where a butterfly per step takes 5; a fixed
+// order). Every index is a constant, so v stays in registers.
+static_assert(kRed == 8, "transpose_sum is written out for 8 steps");
+template <int G = 32>
+__device__ __forceinline__ float transpose_sum(float (&v)[kRed], int lane) {
+  static_assert(G == 8 || G == 32, "groups of 8 or 32 lanes");
+  halve<4, G / 2>(v, lane);
+  halve<2, G / 4>(v, lane);
+  halve<1, G / 8>(v, lane);
+#pragma unroll
+  for (int x = G / 16; x >= 1; x >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], x);
+  return v[0];
+}
+
+// ---- S1: the forward ------------------------------------------------------
+// Layout: a (b, d) walk is kLanes = 8 lanes holding kSpl = 4 states each
+// (states >= N carry zeros), so a warp walks 4 channels and a block of
+// kFwdWarps warps a tile of DT = 32 channels. Against one lane per state
+// (PERF.md §6): a quarter of the warps per walk, but a quarter of the
+// shared-memory traffic per element and fewer instructions (the B, C loads
+// and the reduce shared by 4 states), so the plan's chunks supply the
+// warps. Per kSub-step sub-chunk:
+//   1. the block stages the u, dt tile [kSub][DT] and the B, C rows
+//      [kSub][32] in their own type with 16-byte cp.async (plain loads
+//      where N < 32 or a shape or pointer is not 16-byte aligned; ragged
+//      steps and states >= N as zeros, which carry h through unchanged),
+//      kFwdRaw sub-chunks in flight: two ahead of the walk;
+//   2. one pass converts sub-chunk i + 1 to fp32 {dt, dt u} and u per
+//      channel, [DT][kSub] (two steps a 16-byte load), and to {B, C} pairs
+//      [kSub][32] (bf16 inputs: both halves of one word, which halves the
+//      walk's shared-memory traffic, what limits it) while the warps walk
+//      sub-chunk i: one barrier a sub-chunk;
+//   3. each channel walks 8 steps at a time: the 8 x 4 exps first, then
+//      the chain h = a h + (dt u) B (the only serial dependency), y's terms
+//      C h summed over its 8 lanes by a transpose-reduce into a shared
+//      [kSub][DT] tile, which leaves as coalesced rows.
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kSpl = 4;              // states a lane
+constexpr int kLanes = 32 / kSpl;    // lanes a channel
+constexpr int DT = kFwdWarps * kSpl;  // channels a block (the tile)
+constexpr int kFwdRaw = 3;           // staged sub-chunks in flight
+constexpr int kXfLd = kSub + 2;      // float2 row of xf: 16 bytes of pad, conflict-free channels
+constexpr int kUfLd = kSub + 1;      // float row of uf
+// Blocks per SM the register budget is set for: 2 (128 registers) spills
+// nothing; 3 spilled 12-76 bytes for a few percent.
+constexpr int kFwdMinBlocks = 2;
+
+// {B, C} of one (step, state) as the walk reads it: bf16 inputs keep their
+// two bf16 in one word (B low); fp32 inputs two floats.
 template <typename T>
-__global__ void __launch_bounds__(kScanThreads) ssm_chunk_end_kernel(
-    const T* __restrict__ u, const T* __restrict__ dt, const float* __restrict__ A,
-    const T* __restrict__ Bm, float* __restrict__ hend, float* __restrict__ sdt,
-    int L, int D, int N, int chunk) {
-  const int c = blockIdx.x, b = blockIdx.z, nc = gridDim.x;
-  const int d = blockIdx.y * kScanWarps + threadIdx.x / 32;
-  const int n = threadIdx.x % 32;
-  if (d >= D) return;
-  const float a_dn = n < N ? A[d * N + n] : 0.f;
-  const int t0 = c * chunk, t1 = min(L, t0 + chunk);
-  float h = 0.f, s = 0.f;
-  for (int t = t0; t < t1; ++t) {
-    const size_t i = ((size_t)b * L + t) * D + d;
-    const float dtv = to_f(dt[i]), uv = to_f(u[i]);
-    const float bv = n < N ? to_f(Bm[((size_t)b * L + t) * N + n]) : 0.f;
-    h = __expf(dtv * a_dn) * h + dtv * uv * bv;
-    s += dtv;
+struct BcPair;
+template <>
+struct BcPair<bf16> {
+  typedef unsigned type;
+};
+template <>
+struct BcPair<float> {
+  typedef float2 type;
+};
+
+template <typename T>
+struct FwdSmem {  // byte offsets: kFwdRaw raw buffers, then two of each converted one
+  static constexpr int raw_ud = 2 * kSub * DT * (int)sizeof(T);        // u, dt
+  static constexpr int raw = raw_ud + 2 * kSub * 32 * (int)sizeof(T);  // + B, C
+  static constexpr int xf_size = DT * kXfLd * 8;                       // float2 {dt, dt u}
+  static constexpr int uf_size = (DT * kUfLd * 4 + 15) / 16 * 16;      // float u
+  static constexpr int bc_size = kSub * 32 * (int)sizeof(typename BcPair<T>::type);
+  static constexpr int ys_size = kSub * DT * (int)sizeof(T);  // T [kSub][DT]
+  static constexpr int xf = kFwdRaw * raw;
+  static constexpr int uf = xf + 2 * xf_size;
+  static constexpr int bc = uf + 2 * uf_size;
+  static constexpr int ys = bc + 2 * bc_size;
+  static constexpr int total = ys + 2 * ys_size;
+};
+
+template <typename T>
+struct FwdArgs {
+  const T *u, *dt, *Bm, *Cm;
+  const float *A, *Dskip;
+  T* y;
+  float *states, *hend, *sdt;  // hend [B][nc-1][D][N], sdt [B][nc-1][D]
+  int L, D, N, chunk, nc;
+  int vec_ud, vec_bc;  // 16-byte copies of the u, dt (and y) tiles / the B, C rows
+};
+
+// Stage sub-chunk rows [ts, ts + nt) of block tile d0 into raw buffer `raw`:
+// the u, dt tile [kSub][DT] and the B, C rows [kSub][32] (states >= N as
+// zeros). Every loop has a trip count known at compile time.
+template <typename T>
+__device__ __forceinline__ void fwd_stage(const FwdArgs<T>& a, unsigned char* raw, int b,
+                                          int d0, int ts, int nt) {
+  constexpr int U = 16 / (int)sizeof(T);  // elements per 16 bytes
+  T* su = reinterpret_cast<T*>(raw);
+  T* sdt = su + kSub * DT;
+  T* sB = reinterpret_cast<T*>(raw + FwdSmem<T>::raw_ud);
+  T* sC = sB + kSub * 32;
+  const int tid = threadIdx.x, D = a.D, N = a.N;
+  const size_t row0 = (size_t)b * a.L + ts;
+  const T zero = from_f<T>(0.f);
+  if (a.vec_ud) {
+    constexpr int R = DT / U, UD = 2 * kSub * R;  // 16-byte units a row, of both tiles
+    static_assert(UD % kFwdThreads == 0, "whole rounds of u, dt units");
+#pragma unroll
+    for (int e0 = 0; e0 < UD; e0 += kFwdThreads) {
+      const int e = e0 + tid, which = e / (kSub * R), k = e % (kSub * R), j = k / R, part = k % R;
+      const T* src = which ? a.dt : a.u;
+      const bool ok = j < nt;
+      cp_async16((which ? sdt : su) + j * DT + part * U,
+                 ok ? src + (row0 + j) * D + d0 + part * U : src, ok);
+    }
+  } else {
+#pragma unroll
+    for (int e0 = 0; e0 < kSub * DT; e0 += kFwdThreads) {
+      const int e = e0 + tid, j = e / DT, dl = e % DT;
+      const bool ok = j < nt && d0 + dl < D;
+      const size_t i = (row0 + j) * D + d0 + dl;
+      su[e] = ok ? a.u[i] : zero;
+      sdt[e] = ok ? a.dt[i] : zero;
+    }
   }
-  const size_t o = ((size_t)b * nc + c) * D + d;
-  if (n < N) hend[o * N + n] = h;
-  if (n == 0) sdt[o] = s;
+  if (a.vec_bc) {  // N = 32: the sub-chunk's rows are one run
+    constexpr int UB = kSub * 32 / U;
+    static_assert(2 * UB % kFwdThreads == 0, "whole rounds of B, C units");
+#pragma unroll
+    for (int e0 = 0; e0 < 2 * UB; e0 += kFwdThreads) {
+      const int e = e0 + tid, which = e / UB, k = e % UB;
+      const T* src = which ? a.Cm : a.Bm;
+      const bool ok = k * U / 32 < nt;
+      cp_async16((which ? sC : sB) + k * U, ok ? src + row0 * 32 + k * U : src, ok);
+    }
+  } else {
+#pragma unroll
+    for (int e0 = 0; e0 < kSub * 32; e0 += kFwdThreads) {
+      const int e = e0 + tid, j = e / 32, n = e % 32;
+      const bool ok = j < nt && n < N;
+      const size_t r = (row0 + j) * N + n;
+      sB[e] = ok ? a.Bm[r] : zero;
+      sC[e] = ok ? a.Cm[r] : zero;
+    }
+  }
+  cp_async_commit();
 }
 
-// Forward pass 2: replace each chunk's end state by its entry state, in
-// place. One thread per (b, d, n).
-__global__ void ssm_compose_kernel(const float* __restrict__ A, float* __restrict__ h,
-                                   const float* __restrict__ sdt, int Bsz, int D, int N,
-                                   int nc) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)Bsz * D * N) return;
-  const int n = (int)(idx % N), d = (int)(idx / N % D), b = (int)(idx / ((long long)N * D));
-  const float a_dn = A[d * N + n];
-  float carry = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    const size_t o = ((size_t)b * nc + c) * D + d;
-    const float end = h[o * N + n];
-    h[o * N + n] = carry;
-    carry = __expf(a_dn * sdt[o]) * carry + end;
+// Raw buffer -> converted buffer `buf`: xf {dt, dt u} and uf u, [DT][kSub]
+// each (a channel's steps contiguous), and bc {B, C} [kSub][32].
+template <typename T>
+__device__ __forceinline__ void fwd_convert(const unsigned char* raw, unsigned char* sm,
+                                            int buf) {
+  using S = FwdSmem<T>;
+  const T* su = reinterpret_cast<const T*>(raw);
+  const T* sdt = su + kSub * DT;
+  const T* sB = reinterpret_cast<const T*>(raw + S::raw_ud);
+  const T* sC = sB + kSub * 32;
+  float2* xf = reinterpret_cast<float2*>(sm + S::xf + buf * S::xf_size);
+  float* uf = reinterpret_cast<float*>(sm + S::uf + buf * S::uf_size);
+#pragma unroll
+  for (int e0 = 0; e0 < kSub * DT; e0 += kFwdThreads) {
+    const int e = e0 + threadIdx.x, dl = e / kSub, j = e % kSub;
+    const float dv = to_f(sdt[j * DT + dl]), uv = to_f(su[j * DT + dl]);
+    xf[dl * kXfLd + j] = make_float2(dv, dv * uv);
+    uf[dl * kUfLd + j] = uv;
+  }
+  static_assert(kSub * 32 == 4 * kFwdThreads, "four B, C values a thread");
+  const int e = 4 * threadIdx.x;
+  unsigned char* bc = sm + S::bc + buf * S::bc_size;
+  if constexpr (sizeof(T) == 2) {
+    const uint2 b4 = *reinterpret_cast<const uint2*>(sB + e);
+    const uint2 c4 = *reinterpret_cast<const uint2*>(sC + e);
+    *reinterpret_cast<uint4*>(bc + e * 4) =
+        make_uint4(__byte_perm(b4.x, c4.x, 0x5410), __byte_perm(b4.x, c4.x, 0x7632),
+                   __byte_perm(b4.y, c4.y, 0x5410), __byte_perm(b4.y, c4.y, 0x7632));
+  } else {
+    const float4 b4 = *reinterpret_cast<const float4*>(sB + e);
+    const float4 c4 = *reinterpret_cast<const float4*>(sC + e);
+    float4* o = reinterpret_cast<float4*>(bc + e * 8);
+    o[0] = make_float4(b4.x, c4.x, b4.y, c4.y);
+    o[1] = make_float4(b4.z, c4.z, b4.w, c4.w);
   }
 }
 
-// Forward pass 3: rescan chunk blockIdx.x from its entry state (zero when
-// `entry` is null), write y, and with kStates the state entering every
-// kSub-step sub-chunk (states [B, ceil(L / kSub), D, N]; chunk % kSub == 0).
+// A lane's kSpl states' {B, C} from bc row r, as fp32.
+__device__ __forceinline__ void load_bc(const unsigned* r, float (&bv)[kSpl],
+                                        float (&cv)[kSpl]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(r);
+  const unsigned w[kSpl] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int s = 0; s < kSpl; ++s) {
+    bv[s] = __uint_as_float(w[s] << 16);
+    cv[s] = __uint_as_float(w[s] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load_bc(const float2* r, float (&bv)[kSpl], float (&cv)[kSpl]) {
+#pragma unroll
+  for (int s = 0; s < kSpl; s += 2) {
+    const float4 v = *reinterpret_cast<const float4*>(r + s);
+    bv[s] = v.x, cv[s] = v.y, bv[s + 1] = v.z, cv[s + 1] = v.w;
+  }
+}
+
+// Store y rows [ts, ts + nt) of the tile from ys.
+template <typename T>
+__device__ __forceinline__ void fwd_store_y(const FwdArgs<T>& a, const T* ys, int b, int d0,
+                                            int ts, int nt) {
+  constexpr int U = 16 / (int)sizeof(T);
+  const size_t row0 = (size_t)b * a.L + ts;
+  if (a.vec_ud) {
+    constexpr int R = DT / U;
+    for (int e = threadIdx.x; e < nt * R; e += kFwdThreads) {
+      const int j = e / R, part = e % R;
+      *reinterpret_cast<uint4*>(a.y + (row0 + j) * a.D + d0 + part * U) =
+          *reinterpret_cast<const uint4*>(ys + j * DT + part * U);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nt * DT; e += kFwdThreads) {
+      const int j = e / DT, dl = e % DT;
+      if (d0 + dl < a.D) a.y[(row0 + j) * a.D + d0 + dl] = ys[e];
+    }
+  }
+}
+
+// One sub-chunk of channel dl's walk from h (lane sg of its 8 holds states
+// sg * kSpl + s), from converted buffer `buf`. kY: y's terms into ys; kSum:
+// sum dt into `sum`.
+template <typename T, bool kY, bool kSum>
+__device__ __forceinline__ void fwd_walk(const unsigned char* sm, int buf, T* ys, int dl, int sg,
+                                         int lane, const float (&a2)[kSpl], float (&h)[kSpl],
+                                         float dsk, float& sum) {
+  using S = FwdSmem<T>;
+  using P = typename BcPair<T>::type;
+  static_assert(kLanes == kRed, "one step of the 8 a lane after the transpose-reduce");
+  const float4* xf =
+      reinterpret_cast<const float4*>(sm + S::xf + buf * S::xf_size) + dl * (kXfLd / 2);
+  const float* uf = reinterpret_cast<const float*>(sm + S::uf + buf * S::uf_size) + dl * kUfLd;
+  const P* bc = reinterpret_cast<const P*>(sm + S::bc + buf * S::bc_size) + sg * kSpl;
+#pragma unroll
+  for (int q = 0; q < kSub / kRed; ++q) {
+    float dtu[kRed], e[kRed][kSpl], yv[kRed];
+#pragma unroll
+    for (int k = 0; k < kRed; k += 2) {  // the exps, ahead of the chain
+      const float4 x = xf[(q * kRed + k) / 2];  // {dt, dt u} of steps k, k + 1
+      dtu[k] = x.y, dtu[k + 1] = x.w;
+      if (kSum) sum += x.x + x.z;
+#pragma unroll
+      for (int s = 0; s < kSpl; ++s) {
+        e[k][s] = ex2(x.x * a2[s]);
+        e[k + 1][s] = ex2(x.z * a2[s]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRed; ++k) {
+      float bv[kSpl], cv[kSpl];
+      load_bc(bc + (q * kRed + k) * 32, bv, cv);
+      float acc = 0.f;
+#pragma unroll
+      for (int s = 0; s < kSpl; ++s) {
+        h[s] = fmaf(e[k][s], h[s], dtu[k] * bv[s]);
+        acc = fmaf(cv[s], h[s], acc);
+      }
+      yv[k] = acc;
+    }
+    if (kY) {
+      const int j = q * kRed + sg;
+      ys[j * DT + dl] = from_f<T>(transpose_sum<kLanes>(yv, lane) + dsk * uf[j]);
+    }
+  }
+}
+
+// Chunk c of block (tile blockIdx.y, batch blockIdx.z). kY: write y (and
+// with kStates the state entering every sub-chunk); kEnd: write the chunk's
+// end state to hend (and, without kY, its sum of dt to sdt). Without kEnd
+// the entry state is composed from the end states of chunks 0..c-1:
+//   h_in(c) = end(c-1) + exp(A sdt(c-1)) (end(c-2) + ...), end(0) exact.
+template <typename T, bool kStates, bool kY, bool kEnd>
+__device__ __forceinline__ void fwd_chunk(const FwdArgs<T>& a, int c) {
+  using S = FwdSmem<T>;
+  unsigned char* sm = dyn_smem();
+  const int lane = threadIdx.x % 32, sg = lane % kLanes;
+  const int dl = threadIdx.x / 32 * kSpl + lane / kLanes, b = blockIdx.z, d0 = blockIdx.y * DT;
+  const int d = d0 + dl, D = a.D, N = a.N, ncm = a.nc - 1;
+  const bool live = d < D;
+  float a2[kSpl], h[kSpl];
+#pragma unroll
+  for (int s = 0; s < kSpl; ++s) {
+    const int n = sg * kSpl + s;
+    a2[s] = live && n < N ? a.A[d * N + n] * kLog2e : 0.f;
+    h[s] = 0.f;
+  }
+  if (!kEnd && live) {
+    for (int cc = 0; cc < c; ++cc) {
+      const size_t o = ((size_t)b * ncm + cc) * D + d;
+      const float sd = cc > 0 ? a.sdt[o] : 0.f;
+#pragma unroll
+      for (int s = 0; s < kSpl; ++s) {
+        const int n = sg * kSpl + s;
+        const float he = n < N ? a.hend[o * N + n] : 0.f;
+        h[s] = cc > 0 ? fmaf(ex2(sd * a2[s]), h[s], he) : he;
+      }
+    }
+  }
+  const float dsk = live ? a.Dskip[d] : 0.f;
+  const int t0 = c * a.chunk, t1 = min(a.L, t0 + a.chunk);
+  const int s0 = t0 / kSub, nsc = (t1 + kSub - 1) / kSub - s0, nsub = (a.L + kSub - 1) / kSub;
+  // Sub-chunk i of the chunk: its raw buffer i % kFwdRaw, its converted
+  // buffers and y tile i % 2. One commit group per sub-chunk (empty past
+  // the last), so cp_async_wait<1> always leaves exactly the newest one in
+  // flight.
+  auto stage = [&](int i) {
+    const int ts = (s0 + i) * kSub;
+    if (i < nsc)
+      fwd_stage<T>(a, sm + i % kFwdRaw * S::raw, b, d0, ts, min(kSub, t1 - ts));
+    else
+      cp_async_commit();
+  };
+  auto convert = [&](int i) { fwd_convert<T>(sm + i % kFwdRaw * S::raw, sm, i % 2); };
+  auto ys = [&](int i) { return reinterpret_cast<T*>(sm + S::ys + i % 2 * S::ys_size); };
+  stage(0);
+  stage(1);
+  cp_async_wait<1>();
+  __syncthreads();
+  convert(0);
+  stage(2);
+  float sum = 0.f;
+  for (int i = 0; i < nsc; ++i) {
+    cp_async_wait<1>();
+    // Sub-chunk i is converted and i + 1 has landed; every walk of i - 1
+    // is done, so its y tile is whole and its converted buffers are free.
+    __syncthreads();
+    if (kY && i > 0) fwd_store_y<T>(a, ys(i - 1), b, d0, (s0 + i - 1) * kSub, kSub);
+    if (i + 1 < nsc) convert(i + 1);
+    stage(i + 3);  // into the raw buffer convert(i) emptied
+    if (kStates && kY && live) {
+#pragma unroll
+      for (int q = 0; q < kSpl; ++q) {
+        const int n = sg * kSpl + q;
+        if (n < N) a.states[(((size_t)b * nsub + s0 + i) * D + d) * N + n] = h[q];
+      }
+    }
+    fwd_walk<T, kY, kEnd && !kY>(sm, i % 2, ys(i), dl, sg, lane, a2, h, dsk, sum);
+  }
+  __syncthreads();
+  if (kY) {
+    const int ts = (s0 + nsc - 1) * kSub;
+    fwd_store_y<T>(a, ys(nsc - 1), b, d0, ts, t1 - ts);
+  }
+  if (kEnd && live) {
+    const size_t o = ((size_t)b * ncm + c) * D + d;
+#pragma unroll
+    for (int q = 0; q < kSpl; ++q) {
+      const int n = sg * kSpl + q;
+      if (n < N) a.hend[o * N + n] = h[q];
+    }
+    if (!kY && sg == 0) a.sdt[o] = sum;
+  }
+}
+
+// Pass 1 (nc > 1), grid (nc - 1, tiles, B): chunk 0 walks from zero, its
+// exact y (and states) and end state; chunks 1..nc-2 only their zero-start
+// end states and sums of dt.
 template <typename T, bool kStates>
-__global__ void __launch_bounds__(kScanThreads) ssm_scan_kernel(
-    const T* __restrict__ u, const T* __restrict__ dt, const float* __restrict__ A,
-    const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dskip,
-    const float* __restrict__ entry, T* __restrict__ y, float* __restrict__ states,
-    int L, int D, int N, int chunk) {
-  const int c = blockIdx.x, b = blockIdx.z, nc = gridDim.x;
-  const int d = blockIdx.y * kScanWarps + threadIdx.x / 32;
-  const int n = threadIdx.x % 32;
-  if (d >= D) return;
-  const int nsub = (L + kSub - 1) / kSub;
-  const float a_dn = n < N ? A[d * N + n] : 0.f;
-  const float dsk = Dskip[d];
-  float h = (entry != nullptr && n < N) ? entry[(((size_t)b * nc + c) * D + d) * N + n] : 0.f;
-  const int t0 = c * chunk, t1 = min(L, t0 + chunk);
-  for (int t = t0; t < t1; ++t) {
-    if (kStates && t % kSub == 0 && n < N)
-      states[(((size_t)b * nsub + t / kSub) * D + d) * N + n] = h;
-    const size_t i = ((size_t)b * L + t) * D + d;
-    const size_t r = ((size_t)b * L + t) * N + n;
-    const float dtv = to_f(dt[i]), uv = to_f(u[i]);
-    const float bv = n < N ? to_f(Bm[r]) : 0.f;
-    const float cv = n < N ? to_f(Cm[r]) : 0.f;
-    h = __expf(dtv * a_dn) * h + dtv * uv * bv;
-    const float yv = warp_sum(cv * h);
-    if (n == 0) y[i] = from_f<T>(yv + dsk * uv);
-  }
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+    ssm_fwd_end_kernel(const FwdArgs<T> a) {
+  if (blockIdx.x == 0)
+    fwd_chunk<T, kStates, true, true>(a, 0);
+  else
+    fwd_chunk<T, false, false, true>(a, blockIdx.x);
+}
+
+// Pass 2, grid (max(1, nc - 1), tiles, B): chunk blockIdx.x + (nc > 1) from
+// its composed entry state (zero for the only chunk): y, and states.
+template <typename T, bool kStates>
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+    ssm_fwd_scan_kernel(const FwdArgs<T> a) {
+  fwd_chunk<T, kStates, true, false>(a, blockIdx.x + (a.nc > 1 ? 1 : 0));
 }
 
 // The backward's blocks (passes 1 and 3).
@@ -143,7 +471,6 @@ constexpr int kBwdThreads = kBwdWarps * 32;
 // Blocks per SM the register budget is set for: at 3 (168 registers) ptxas
 // spills the walk's rows whatever the layout; at 2 nothing spills.
 constexpr int kBwdMinBlocks = 2;
-constexpr int kRed = 8;           // steps per transpose-reduce
 
 // f(j, dl) for the elements k = tid, tid + kBwdThreads, ... of a [rows][dn]
 // tile, k = j * dn + dl, stepped without a division per element.
@@ -182,31 +509,6 @@ struct BwdSmem {
     total = dD + dgroup;
   }
 };
-
-// One halving level of transpose_sum: lanes with bit X set keep v[O..2O),
-// the others v[0..O), each adding its partner's copy (O shuffles).
-template <int O, int X>
-__device__ __forceinline__ void halve(float (&v)[kRed], int lane) {
-  const bool up = lane & X;
-#pragma unroll
-  for (int k = 0; k < O; ++k) {
-    const float keep = up ? v[k + O] : v[k], send = up ? v[k] : v[k + O];
-    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, X);
-  }
-}
-
-// v[k] for kRed steps k in each lane -> the sum over the 32 lanes of v[k]
-// for k = lane / (32 / kRed), in every lane: halving exchanges at xor 16, 8,
-// 4, then full ones at 2, 1 (9 shuffles for 8 steps; a fixed order). Every
-// index is a constant, so v stays in registers.
-static_assert(kRed == 8, "transpose_sum is written out for 8 steps");
-__device__ __forceinline__ float transpose_sum(float (&v)[kRed], int lane) {
-  halve<4, 16>(v, lane);
-  halve<2, 8>(v, lane);
-  halve<1, 4>(v, lane);
-  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
-  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
-}
 
 // Backward pass 1: chunk blockIdx.x's zero-start carry a_first * lam_first
 // (z) and its sum of dt, for the d-group blockIdx.y of ssm_bwd_kernel's
@@ -517,28 +819,39 @@ bool bad_shape(int Bsz, int L, int D, int N, int chunk) {
          chunk % kSub != 0;
 }
 
-template <typename T>
-cudaError_t ssm_fwd(const T* u, const T* dt, const float* A, const T* Bm, const T* Cm,
-                    const float* Dskip, T* y, float* states, float* hbuf, float* sbuf, int Bsz,
-                    int L, int D, int N, int chunk, cudaStream_t s) {
-  const int nc = cdiv(L, chunk);
-  const dim3 grid(nc, cdiv(D, kScanWarps), Bsz), block(kScanThreads);
-  const float* entry = nullptr;
-  if (nc > 1) {
-    cudaError_t e = launch(ssm_chunk_end_kernel<T>, grid, block, 0, s, u, dt, A, Bm, hbuf, sbuf,
-                           L, D, N, chunk);
+template <typename T, bool kStates>
+cudaError_t ssm_fwd_launch(const FwdArgs<T>& a, int Bsz, cudaStream_t s) {
+  const size_t smem = FwdSmem<T>::total;
+  const int tiles = cdiv(a.D, DT);
+  if (a.nc > 1) {
+    const cudaError_t e = launch(ssm_fwd_end_kernel<T, kStates>, dim3(a.nc - 1, tiles, Bsz),
+                                 dim3(kFwdThreads), smem, s, a);
     if (e != cudaSuccess) return e;
-    const long long threads = (long long)Bsz * D * N;
-    e = launch(ssm_compose_kernel, dim3((unsigned)((threads + 255) / 256)), dim3(256), 0, s, A,
-               hbuf, sbuf, Bsz, D, N, nc);
-    if (e != cudaSuccess) return e;
-    entry = hbuf;
   }
-  if (states != nullptr)
-    return launch(ssm_scan_kernel<T, true>, grid, block, 0, s, u, dt, A, Bm, Cm, Dskip, entry,
-                  y, states, L, D, N, chunk);
-  return launch(ssm_scan_kernel<T, false>, grid, block, 0, s, u, dt, A, Bm, Cm, Dskip, entry, y,
-                states, L, D, N, chunk);
+  return launch(ssm_fwd_scan_kernel<T, kStates>, dim3(a.nc > 1 ? a.nc - 1 : 1, tiles, Bsz),
+                dim3(kFwdThreads), smem, s, a);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <typename T>
+cudaError_t ssm_fwd(FwdArgs<T> a, int Bsz, cudaStream_t s) {
+  if (a.nc > 1 && (a.hend == nullptr || a.sdt == nullptr)) return cudaErrorInvalidValue;
+  a.vec_ud = a.D % DT == 0 && aligned16(a.u) && aligned16(a.dt) && aligned16(a.y);
+  a.vec_bc = a.N == 32 && aligned16(a.Bm) && aligned16(a.Cm);
+  return a.states != nullptr ? ssm_fwd_launch<T, true>(a, Bsz, s)
+                             : ssm_fwd_launch<T, false>(a, Bsz, s);
+}
+
+template <typename T>
+int fwd_blocks_per_sm() {
+  const auto kernel = ssm_fwd_scan_kernel<T, true>;
+  const int smem = FwdSmem<T>::total;
+  int per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdThreads, smem);
+  return e == cudaSuccess ? per_sm : -1;
 }
 
 template <typename T>
@@ -582,21 +895,30 @@ cudaError_t ssm_bwd(const T* u, const T* dt, const float* A, const T* Bm, const 
 }  // namespace
 
 // y [B, L, D] in the inputs' type; states (may be null) [B, ceil(L/32), D,
-// N] fp32; hbuf [B, ceil(L/chunk), D, N] and sbuf [B, ceil(L/chunk), D] fp32
-// scratch (unused for a single chunk).
+// N] fp32; with nc = ceil(L / chunk) > 1 chunks, hend [B, nc-1, D, N] and
+// sdt [B, nc-1, D] fp32 scratch (unused, may be null, for one chunk).
 extern "C" int blle_ssm_fwd(const void* u, const void* dt, const void* A, const void* Bm,
                             const void* Cm, const void* Dskip, void* y, void* states,
-                            void* hbuf, void* sbuf, int Bsz, int L, int D, int N, int chunk,
+                            void* hend, void* sdt, int Bsz, int L, int D, int N, int chunk,
                             int in_bf16, void* stream) {
-  if (bad_shape(Bsz, L, D, N, chunk)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(Bsz, L, D, N, chunk) || cdiv(D, DT) > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float *a = (const float*)A, *dsk = (const float*)Dskip;
-  float *st = (float*)states, *hb = (float*)hbuf, *sb = (float*)sbuf;
+  float *st = (float*)states, *he = (float*)hend, *sd = (float*)sdt;
+  const int nc = cdiv(L, chunk);
   if (in_bf16)
-    return ssm_fwd<bf16>((const bf16*)u, (const bf16*)dt, a, (const bf16*)Bm, (const bf16*)Cm,
-                         dsk, (bf16*)y, st, hb, sb, Bsz, L, D, N, chunk, s);
-  return ssm_fwd<float>((const float*)u, (const float*)dt, a, (const float*)Bm,
-                        (const float*)Cm, dsk, (float*)y, st, hb, sb, Bsz, L, D, N, chunk, s);
+    return ssm_fwd<bf16>({(const bf16*)u, (const bf16*)dt, (const bf16*)Bm, (const bf16*)Cm, a, dsk,
+                          (bf16*)y, st, he, sd, L, D, N, chunk, nc, 0, 0},
+                         Bsz, s);
+  return ssm_fwd<float>({(const float*)u, (const float*)dt, (const float*)Bm, (const float*)Cm, a,
+                         dsk, (float*)y, st, he, sd, L, D, N, chunk, nc, 0, 0},
+                        Bsz, s);
+}
+
+// Blocks of S1 resident per SM (the occupancy API: registers and shared
+// memory), or -1 on an error.
+extern "C" int blle_ssm_fwd_blocks_per_sm(int in_bf16) {
+  return in_bf16 ? fwd_blocks_per_sm<bf16>() : fwd_blocks_per_sm<float>();
 }
 
 extern "C" long long blle_ssm_bwd_workspace_floats(int Bsz, int L, int D, int N, int chunk,

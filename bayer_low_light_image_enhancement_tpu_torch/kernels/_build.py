@@ -57,14 +57,16 @@ _SIGNATURES = {
     "blle_bwd2": [_P] * 20 + [_I] * 4 + [_P],
     # the problem table (11 long longs per product), products, stream
     "blle_weight_grad": [ctypes.POINTER(ctypes.c_longlong), _I, _P],
-    # u, dt, A, B, C, D, y, states (or NULL), hbuf, sbuf, B, L, D, N, chunk,
-    # in_bf16, stream
+    # u, dt, A, B, C, D, y, states (or NULL), hend, sdt (NULL for one chunk),
+    # B, L, D, N, chunk, in_bf16, stream
     "blle_ssm_fwd": [_P] * 10 + [_I] * 6 + [_P],
     # u, dt, A, B, C, D, dy, states, du, ddt, dA, dB, dC, dD, workspace, B, L,
     # D, N, chunk, dgroup, in_bf16, stream
     "blle_ssm_bwd": [_P] * 15 + [_I] * 7 + [_P],
     # dgroup, in_bf16 (returns blocks per SM, not an error code)
     "blle_ssm_bwd_blocks_per_sm": [_I, _I],
+    # in_bf16 (returns blocks per SM, not an error code)
+    "blle_ssm_fwd_blocks_per_sm": [_I],
     # the arguments of blle_apply_pass
     "blle_apply_pipelined": [_P] * 14 + [_I] * 4 + [_P],
     # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, stream

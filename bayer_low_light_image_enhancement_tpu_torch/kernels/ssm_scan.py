@@ -5,7 +5,9 @@ Port of ``bayer_low_light_image_enhancement_tpu/kernels/ssm_scan.py``:
 * ``selective_scan_fwd`` (S1): y of the scan; with ``save_states`` also the
   fp32 state entering every ``STATE_EVERY`` steps (the training forward,
   TPU ``_ssm_fwd_states_kernel``; without it the inference forward, TPU
-  ``_ssm_kernel``);
+  ``_ssm_kernel``); ``fwd_plan`` cuts L into chunks only where the (b, d)
+  walks alone leave the card short of warps, so it is one launch with one
+  exp per element wherever they fill it;
 * ``selective_scan_bwd`` (S2): du, ddt, dA, dB, dC, dD from dy and those
   states (TPU ``_ssm_bwd_kernel``);
 * ``SelectiveScanFn``: forward S1 with states, backward S2;
@@ -29,10 +31,14 @@ import torch
 from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
 from bayer_low_light_image_enhancement_tpu_torch.ops import ssm
 
-FWD_CHUNK = 128   # L-chunk per block of the forward (multiple of STATE_EVERY)
+TWIN_CHUNK = 128  # L-chunk of the CPU twin (any multiple of STATE_EVERY: exact maths)
 BWD_CHUNK = 128   # L-chunk per block of the backward (multiple of STATE_EVERY)
 STATE_EVERY = 32  # kSub in csrc/ssm_scan.cu
-MAX_STATE = 32    # one lane per state n
+MAX_STATE = 32    # S2: one lane per state n; S1: 8 lanes of FWD_STATES_PER_LANE states
+FWD_WARPS = 8     # warps per forward block (kFwdWarps)
+FWD_STATES_PER_LANE = 4  # kSpl: a (b, d) walk of S1 takes 8 lanes, a warp walks 4
+FWD_ONE_CHUNK = 2  # one chunk while the walks fill 1 / FWD_ONE_CHUNK of the resident warps
+FWD_WAVES = 4     # else chunks for FWD_WAVES x the resident warps in each pass
 BWD_WARPS = 4     # warps per backward block (kBwdWarps)
 BWD_DGROUP_MAX = 40  # channels per backward block at most (its shared memory grows with them)
 BWD_WAVES = 2     # backward blocks to aim for, in multiples of those the card holds at once
@@ -54,6 +60,57 @@ class BwdPlan:
     per_warp: int
     groups: int
     blocks: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """S1's L-chunks: ``chunks`` of ``chunk`` steps (the last may be
+    shorter)."""
+
+    chunk: int
+    chunks: int
+
+    @property
+    def launches(self) -> int:
+        """Kernels a call: 1 for one chunk, else 2."""
+        return 1 if self.chunks == 1 else 2
+
+
+def fwd_plan(bsz: int, L: int, d: int, resident: int) -> FwdPlan:
+    """S1's chunks for u [bsz, L, d], given the warps the card holds at
+    once (``resident``: SMs x the occupancy API's blocks per SM x
+    ``FWD_WARPS``). One chunk (one launch, one exp per element) while the
+    (b, d) walks alone give at least 1 / ``FWD_ONE_CHUNK`` of them; else
+    the fewest chunks whose nc - 1 chunks in each pass give
+    ``FWD_WAVES`` x ``resident`` (both passes run nc - 1 chunks, so nc = 2
+    would walk as long as nc = 1 and is asked for only by rounding at small
+    L). Chunks are multiples of ``STATE_EVERY`` steps."""
+    warps = _cdiv(bsz * d, FWD_STATES_PER_LANE)
+    if FWD_ONE_CHUNK * warps >= resident:
+        nc = 1
+    else:
+        nc = 1 + _cdiv(FWD_WAVES * resident, warps)
+    chunk = _cdiv(_cdiv(L, nc), STATE_EVERY) * STATE_EVERY
+    nc = _cdiv(L, chunk)
+    return FwdPlan(chunk, nc)
+
+
+def fwd_scratch_floats(bsz: int, d: int, n: int, plan: FwdPlan) -> int:
+    """The fp32 scratch S1 needs: the end states [B, chunks - 1, D, N] and
+    sums of dt [B, chunks - 1, D] of every chunk but the last (none for one
+    chunk)."""
+    return bsz * (plan.chunks - 1) * d * (n + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_resident(device_index: int, in_bf16: bool) -> int:
+    """S1 warps the card holds at once: its SMs x the occupancy API's blocks
+    per SM x ``FWD_WARPS``."""
+    per_sm = _build.library().blle_ssm_fwd_blocks_per_sm(int(in_bf16))
+    if per_sm < 1:
+        raise RuntimeError(f"S1 cannot be resident (occupancy API: {per_sm})")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return per_sm * FWD_WARPS * sms
 
 
 def bwd_plan(bsz: int, L: int, d: int, resident: int) -> BwdPlan:
@@ -123,7 +180,7 @@ def selective_scan_fwd(u, dt, A, B, C, D, save_states: bool = False):
     states [B, ceil(L / STATE_EVERY), D, N] (fp32; the compute dtype on the
     CPU). CPU: the chunked twin. CUDA: the kernel, or raise."""
     if not u.is_cuda:
-        return ssm.selective_scan(u, dt, A, B, C, D, chunk_size=FWD_CHUNK,
+        return ssm.selective_scan(u, dt, A, B, C, D, chunk_size=TWIN_CHUNK,
                                   state_every=STATE_EVERY if save_states else None)
     return _fwd_kernel(u, dt, A, B, C, D, save_states)
 
@@ -135,16 +192,19 @@ def _fwd_kernel(u, dt, A, B, C, D, save_states):
     t = u.dtype
     u, dt, B, C = (_as(x, t) for x in (u, dt, B, C))
     A, D = _as(A, torch.float32), _as(D, torch.float32)
-    nc = -(-L // FWD_CHUNK)
+    plan = fwd_plan(bsz, L, d, fwd_resident(u.device.index, t == torch.bfloat16))
     f32 = dict(dtype=torch.float32, device=u.device)
     y = torch.empty_like(u)
     states = (torch.empty((bsz, -(-L // STATE_EVERY), d, n), **f32) if save_states else None)
-    hbuf = torch.empty((bsz, nc, d, n), **f32)
-    sbuf = torch.empty((bsz, nc, d), **f32)
+    hend = sdt = None
+    if plan.chunks > 1:  # the end states [B, chunks - 1, D, N], then the sums of dt
+        scratch = torch.empty(fwd_scratch_floats(bsz, d, n, plan), **f32)
+        hend = scratch.data_ptr()
+        sdt = hend + 4 * bsz * (plan.chunks - 1) * d * n
     err = _build.library().blle_ssm_fwd(
         u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-        y.data_ptr(), None if states is None else states.data_ptr(), hbuf.data_ptr(),
-        sbuf.data_ptr(), bsz, L, d, n, FWD_CHUNK, int(t == torch.bfloat16), _build.stream_of(u),
+        y.data_ptr(), None if states is None else states.data_ptr(), hend, sdt, bsz, L, d, n,
+        plan.chunk, int(t == torch.bfloat16), _build.stream_of(u),
     )
     _build.check(err, "selective scan forward S1")
     selective_scan_fwd.launches += 1

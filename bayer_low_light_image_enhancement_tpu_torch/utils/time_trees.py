@@ -17,13 +17,15 @@ kernels. Per root and turn it prints
   block shapes of batch 8 @ 512^2, seeded random weights and inputs;
 * ``step``: ``Trainer.train_step`` of RawFormer-S at batch 8 and 16 @ 512^2
   (CUDA events over 5 steps after 2, three times);
-* ``scan``: S2 (``selective_scan_bwd``) and, as a control, S1 with states
-  as whole wrapper calls (10 calls after 3, twice) at the scan shapes of a
-  WFB-48 batch-8 @ 512^2 train step (b = 3 bands x 8, N = 32; seeded bf16
-  inputs as a random Mamba block makes them), each of S2's kernels by its
-  device time per call (``torch.profiler`` over 5 calls), then
-  ``Trainer.train_step`` of WFB-48 at batch 8 @ 512^2 (CUDA events over 3
-  steps after 1, twice).
+* ``scan``: S1 (``selective_scan_fwd``) without states at the scan shapes
+  of a WFB-48 batch-2 @ 512^2 forward (b = 3 bands x 2), then S2
+  (``selective_scan_bwd``) and S1 with states at those of a batch-8 @
+  512^2 train step (b = 3 x 8; N = 32; seeded bf16 inputs as a random
+  Mamba block makes them), each as whole wrapper calls (10 calls after 3,
+  twice) and each of its kernels by its device time per call
+  (``torch.profiler`` over 5 calls); then the WFB-48 forward at batch 2 @
+  512^2 (CUDA events over 10 calls after 3, twice) and
+  ``Trainer.train_step`` at batch 8 @ 512^2 (3 steps after 1, twice).
 
 A card is required: there is no CPU fallback.
 """
@@ -37,6 +39,7 @@ import subprocess
 import sys
 
 BATCH_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (8, 32, 32, 256)]
+SCAN_SERVE_SHAPES = [(6, 16384, 96), (6, 4096, 192), (6, 1024, 384), (6, 256, 768)]
 SCAN_TRAIN_SHAPES = [(24, 16384, 96), (24, 4096, 192), (24, 1024, 384), (24, 256, 768)]
 
 
@@ -109,33 +112,52 @@ def _child(root: str, what: str) -> None:
 
         from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
 
+        def split(tag, name, fn):
+            """Each kernel of ``fn`` by its device time per call."""
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", None)
+                us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+                if us > 0:
+                    kernel = re.sub(r"^.*?(\w+_kernel)\b.*$", r"\1", e.key)
+                    print(f"{root} {tag}:   {name} kernel {kernel} {us / 1e3 / 5:.4f} ms a call",
+                          flush=True)
+
         with torch.no_grad():
+            for b, L, d in SCAN_SERVE_SHAPES:
+                args, _ = _scan_inputs(b, L, d, dev)
+                tag = f"scan [{b},{L},{d},32]"
+                s1 = [cuda_time_ms(lambda: ssk.selective_scan_fwd(*args), 10) for _ in "12"]
+                print(f"{root} {tag}: S1 {s1[0]:.4f} {s1[1]:.4f} ms", flush=True)
+                split(tag, "S1", lambda: ssk.selective_scan_fwd(*args))
+                del args
             for b, L, d in SCAN_TRAIN_SHAPES:
                 args, dy = _scan_inputs(b, L, d, dev)
+                tag = f"scan [{b},{L},{d},32]"
                 _, states = ssk.selective_scan_fwd(*args, save_states=True)
                 s2 = [cuda_time_ms(lambda: ssk.selective_scan_bwd(*args, dy, states), 10)
                       for _ in "12"]
                 s1 = [cuda_time_ms(lambda: ssk.selective_scan_fwd(*args, save_states=True), 10)
                       for _ in "12"]
-                print(f"{root} scan [{b},{L},{d},32]: S2 {s2[0]:.4f} {s2[1]:.4f} ms, S1 with "
-                      f"states {s1[0]:.4f} {s1[1]:.4f} ms", flush=True)
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(5):
-                        ssk.selective_scan_bwd(*args, dy, states)
-                    torch.cuda.synchronize()
-                for e in prof.key_averages():
-                    us = getattr(e, "self_device_time_total", None)
-                    us = getattr(e, "self_cuda_time_total", 0) if us is None else us
-                    if us > 0:
-                        name = re.sub(r"^.*?(\w+_kernel)\b.*$", r"\1", e.key)
-                        print(f"{root} scan [{b},{L},{d},32]:   S2 kernel {name} "
-                              f"{us / 1e3 / 5:.4f} ms a call", flush=True)
+                print(f"{root} {tag}: S2 {s2[0]:.4f} {s2[1]:.4f} ms, S1 with states {s1[0]:.4f} "
+                      f"{s1[1]:.4f} ms", flush=True)
+                split(tag, "S1 with states",
+                      lambda: ssk.selective_scan_fwd(*args, save_states=True))
+                split(tag, "S2", lambda: ssk.selective_scan_bwd(*args, dy, states))
                 del args, dy, states
-        g = torch.Generator(device=dev).manual_seed(0)
-        x = torch.rand(8, 512, 512, 1, generator=g, device=dev)
-        gt = torch.rand(8, 512, 512, 3, generator=g, device=dev)
         model = get_model("rawformer_wfb", device=dev, dtype=torch.bfloat16,
                           generator=torch.Generator().manual_seed(0))
+        g = torch.Generator(device=dev).manual_seed(0)
+        xw = torch.rand(2, 1, 512, 512, generator=g, device=dev)
+        with torch.inference_mode():
+            ms = [cuda_time_ms(lambda: model(xw), 10, warmup=3) for _ in "12"]
+        print(f"{root} WFB-48 forward batch 2: " + " ".join(f"{t:.3f}" for t in ms) + " ms",
+              flush=True)
+        x = torch.rand(8, 512, 512, 1, generator=g, device=dev)
+        gt = torch.rand(8, 512, 512, 3, generator=g, device=dev)
         tr = Trainer(model, TrainConfig(base_lr=1e-4, warmup_epochs=1, steps_per_epoch=1))
         ms = [cuda_time_ms(lambda: tr.train_step((x, gt)), 3, warmup=1) for _ in "12"]
         print(f"{root} WFB-48 train step batch 8: " + " ".join(f"{t:.3f}" for t in ms) + " ms",

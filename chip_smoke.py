@@ -42,10 +42,11 @@ Phases (any failed check raises and the script exits non-zero):
    against twin path at batch 2 @ 256x256, 20 steps on one batch, and the
    step timed at batch 8 @ 512x512; the counters must show S1 7 times per
    forward (S2 never) when serving and S1 with states and S2 7 times per
-   train step; S1 / S2 and the WFB forward and step are timed, S2 also at
-   the scan shapes of a batch-8 @ 512x512 train step (b = 24), where it is
-   held against its twin too and its plan and resident warps per SM are
-   printed.
+   train step; S1 / S2 and the WFB forward and step are timed, S1 (with
+   and without states) and S2 also at the scan shapes of a batch-8 @
+   512x512 train step (b = 24), where they are held against their twins
+   too; S1's plan (chunks, launches a call) is printed at every scan shape,
+   S2's plan and the resident warps per SM of both.
 7. the pipelined apply pass K3P and the retired kernels A1 (standalone
    channel attention) and T1 (stage tail, on the stage's own t from
    ``fused_transformer_block``) against their twins at the block shapes of
@@ -230,19 +231,22 @@ def floor_counts(level: str, b: int, h: int, w: int, c: int) -> dict:
                 fp32=60.0 * p * c if level == "v" else 0.0)
 
 
-def scan_counts(b: int, L: int, d: int, n: int, in_bytes: int, backward: bool) -> dict:
+def scan_counts(b: int, L: int, d: int, n: int, in_bytes: int, backward: bool,
+                states: bool = False) -> dict:
     """Bytes and operations of the scan: u, dt (dy) [b, L, d] and B, C
-    [b, L, n] in, y (or du, ddt, dB, dC, dA, dD fp32) out, the backward's
-    saved states [b, ceil(L/32), d, n] fp32 in; per (b, t, d, n) one exp and
-    the fp32 arithmetic of the recurrence (forward 6 flops: dt A, a h + .,
-    (dt u) B, C h + .; backward 18: h again, lam, its products and sums)."""
+    [b, L, n] in, y (or du, ddt, dB, dC, dA, dD fp32) out, the saved states
+    [b, ceil(L/32), d, n] fp32 out of the forward with ``states`` and into
+    the backward; per (b, t, d, n) one exp and the fp32 arithmetic of the
+    recurrence (forward 6 flops: dt A, a h + ., (dt u) B, C h + .; backward
+    18: h again, lam, its products and sums)."""
     bld, bln = b * L * d, b * L * n
+    state_bytes = 4 * b * -(-L // 32) * d * n
     if backward:
-        nbytes = ((3 * bld + 2 * bln) * in_bytes + 4 * b * -(-L // 32) * d * n
+        nbytes = ((3 * bld + 2 * bln) * in_bytes + state_bytes
                   + 4 * (2 * bld + 2 * bln + 2 * d * n + 2 * d))
         return dict(nbytes=nbytes, fp32=18.0 * bld * n, sfu=float(bld * n))
-    return dict(nbytes=(3 * bld + 2 * bln) * in_bytes + 4 * (d * n + d),
-                fp32=6.0 * bld * n, sfu=float(bld * n))
+    return dict(nbytes=(3 * bld + 2 * bln) * in_bytes + 4 * (d * n + d)
+                + (state_bytes if states else 0), fp32=6.0 * bld * n, sfu=float(bld * n))
 
 
 def log(*a):
@@ -904,29 +908,38 @@ def main() -> int:
     def max_rel(got, ref):
         return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
-    errs.update({"ssm_scan_fwd": 0.0, "ssm_scan_bwd": 0.0})
+    def check_s1(args, name):
+        """S1 without and with states against the twins on the same inputs
+        (y in fp32, the states on the bf16 inputs); prints S1's plan, adds
+        y's max abs err to errs[name] and returns the states."""
+        b, L, d = args[0].shape
+        plan = ssk.fwd_plan(b, L, d, ssk.fwd_resident(dev.index or 0, True))
+        y = ssk.selective_scan_fwd(*args)
+        y_s, states = ssk.selective_scan_fwd(*args, save_states=True)
+        y_ref, st_ref = ssm.selective_scan(*args, chunk_size=ssk.TWIN_CHUNK,
+                                           state_every=ssk.STATE_EVERY)
+        y_ref = ssm.selective_scan(*(t.float() for t in args), chunk_size=ssk.TWIN_CHUNK)
+        err = (y.float() - y_ref).abs()
+        scale = y_ref.abs().max().item()
+        bad = (err > SCAN_RTOL * y_ref.abs() + SCAN_ATOL_REL * scale).sum().item()
+        e_st = max_rel(states, st_ref)
+        log(f"S1 scan [{b},{L},{d},32] bf16: y max abs err {err.max().item():.3e} (max|y| "
+            f"{scale:.3e}), {bad} elements outside {SCAN_RTOL}|ref| + {SCAN_ATOL_REL} "
+            f"max|ref|; with states: y identical {torch.equal(y, y_s)}, states err {e_st:.3e} of "
+            f"their max (tol {STATE_TOL}); plan {plan.chunks} chunks of {plan.chunk} steps, "
+            f"{plan.launches} kernel launches a call")
+        check(bad == 0 and torch.equal(y, y_s) and e_st <= STATE_TOL,
+              f"S1 disagrees with its twin at {(b, L, d)}")
+        errs[name] = max(errs[name], err.max().item())
+        return states
+
+    errs.update({"ssm_scan_fwd": 0.0, "ssm_scan_fwd_states": 0.0, "ssm_scan_bwd": 0.0})
     scan_args = {}
     with torch.no_grad():
         for b, L, d in SCAN_SHAPES:
             args, dy = scan_inputs(b, L, d, seed=L)
             scan_args[(b, L, d)] = (args, dy)
-            y = ssk.selective_scan_fwd(*args)
-            y_s, states = ssk.selective_scan_fwd(*args, save_states=True)
-            y_ref, st_ref = ssm.selective_scan(*args, chunk_size=ssk.FWD_CHUNK,
-                                               state_every=ssk.STATE_EVERY)
-            y_ref = ssm.selective_scan(*(t.float() for t in args), chunk_size=ssk.FWD_CHUNK)
-            err = (y.float() - y_ref).abs()
-            scale = y_ref.abs().max().item()
-            bad = (err > SCAN_RTOL * y_ref.abs() + SCAN_ATOL_REL * scale).sum().item()
-            e_st = max_rel(states, st_ref)
-            log(f"S1 scan [{b},{L},{d},32] bf16: y max abs err {err.max().item():.3e} (max|y| "
-                f"{scale:.3e}), {bad} elements outside {SCAN_RTOL}|ref| + {SCAN_ATOL_REL} "
-                f"max|ref|; "
-                f"with states: y identical {torch.equal(y, y_s)}, states err {e_st:.3e} of their "
-                f"max (tol {STATE_TOL})")
-            check(bad == 0 and torch.equal(y, y_s) and e_st <= STATE_TOL,
-                  f"S1 disagrees with its twin at {(b, L, d)}")
-            errs["ssm_scan_fwd"] = max(errs["ssm_scan_fwd"], err.max().item())
+            states = check_s1(args, "ssm_scan_fwd")
             got = ssk.selective_scan_bwd(*args, dy, states)
             want = ssm.selective_scan_bwd_ref(*args, dy)
             rel = {n: max_rel(g_, w_) for n, g_, w_ in
@@ -937,7 +950,7 @@ def main() -> int:
                 + f" (tol {SCAN_BWD_TOL}); du max abs err {e_du:.3e}")
             check(max(rel.values()) <= SCAN_BWD_TOL, f"S2 disagrees with its twin at {(b, L, d)}")
             errs["ssm_scan_bwd"] = max(errs["ssm_scan_bwd"], e_du)
-            del y, y_s, states, y_ref, st_ref, got, want
+            del states, got, want
         torch.cuda.synchronize()
 
     # 6b. serving: WFB-48 through Predictor.__call__ (pad_to 32).
@@ -1055,7 +1068,7 @@ def main() -> int:
             n_it = 20 if L >= 4096 else 50
             k = cuda_time_ms(lambda: ssk.selective_scan_fwd(*args), n_it)
             kst = cuda_time_ms(lambda: ssk.selective_scan_fwd(*args, save_states=True), n_it)
-            p = cuda_time_ms(lambda: ssm.selective_scan(*args, chunk_size=ssk.FWD_CHUNK), 3, 1)
+            p = cuda_time_ms(lambda: ssm.selective_scan(*args, chunk_size=ssk.TWIN_CHUNK), 3, 1)
             kb = cuda_time_ms(lambda: ssk.selective_scan_bwd(*args, dy, states), n_it)
             pb = cuda_time_ms(lambda: ssm.selective_scan_bwd_ref(*args, dy), 2, 1)
             bf, byf = bound(**scan_counts(b, L, d, 32, 2, backward=False))
@@ -1069,11 +1082,19 @@ def main() -> int:
             bounds.setdefault("ssm_scan_bwd", (bb, byb))
             del states
     del scan_args
-    with torch.no_grad():  # S2 at the batch-8 @ 512^2 train step's scan shapes
+    with torch.no_grad():  # S1 and S2 at the batch-8 @ 512^2 train step's scan shapes
         lib = _build.library()
         for b, L, d in SCAN_TRAIN_SHAPES:
             args, dy = scan_inputs(b, L, d, seed=L + 1)
-            _, states = ssk.selective_scan_fwd(*args, save_states=True)
+            states = check_s1(args, "ssm_scan_fwd_states")
+            kst = cuda_time_ms(lambda: ssk.selective_scan_fwd(*args, save_states=True), 10)
+            pst = cuda_time_ms(lambda: ssm.selective_scan(*args, chunk_size=ssk.TWIN_CHUNK,
+                                                          state_every=ssk.STATE_EVERY), 2, 1)
+            bst, byst = bound(**scan_counts(b, L, d, 32, 2, backward=False, states=True))
+            log(f"time scan forward S1 with states [{b},{L},{d},32] bf16 (train step shape): "
+                f"{kst:.4f} ms (twin {pst:.3f}; bound {bst:.4f} by {byst})")
+            times.setdefault("ssm_scan_fwd_states", (kst, pst))
+            bounds.setdefault("ssm_scan_fwd_states", (bst, byst))
             plan = ssk.bwd_plan(b, L, d, ssk.bwd_resident(dev.index or 0, True))
             per_sm = lib.blle_ssm_bwd_blocks_per_sm(plan.dgroup, 1)
             got = ssk.selective_scan_bwd(*args, dy, states)
@@ -1091,6 +1112,8 @@ def main() -> int:
                 f"warp, {plan.groups} groups, {plan.blocks} blocks; {per_sm} blocks = "
                 f"{per_sm * ssk.BWD_WARPS} warps resident per SM")
             del args, dy, states
+        log(f"S1 resident: {lib.blle_ssm_fwd_blocks_per_sm(1)} blocks "
+            f"of {ssk.FWD_WARPS} warps per SM")
     xw = torch.from_numpy(wreqs[0]).to(dev).permute(0, 3, 1, 2).contiguous()
     with torch.inference_mode():
         fwd = cuda_time_ms(lambda: wfb(xw), 10, warmup=3)
@@ -1197,8 +1220,10 @@ def main() -> int:
          train_launches["bwd1"]),
         ("fused_block_bwd2", PKG + "csrc/fused_block_bwd.cu", TPU + "fused_block_bwd.py:318",
          train_launches["bwd2"]),
-        ("ssm_scan_fwd", PKG + "csrc/ssm_scan.cu",
-         TPU + "ssm_scan.py:92, " + TPU + "ssm_scan.py:272", wfb_launches["selective_scan_fwd"]),
+        ("ssm_scan_fwd", PKG + "csrc/ssm_scan.cu", TPU + "ssm_scan.py:92",
+         wfb_launches["selective_scan_fwd"]),
+        ("ssm_scan_fwd_states", PKG + "csrc/ssm_scan.cu", TPU + "ssm_scan.py:272",
+         wfb_train_launches["selective_scan_fwd"]),
         ("ssm_scan_bwd", PKG + "csrc/ssm_scan.cu", TPU + "ssm_scan.py:299",
          wfb_train_launches["selective_scan_bwd"]),
         ("fused_block_apply_pipelined", PKG + "csrc/apply_pipelined.cuh", TPU + "fused_block.py:494",
@@ -1217,13 +1242,16 @@ def main() -> int:
     ]
     log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_*, "
         "fused_attention, fused_stage_tail and the probes at [8,256,256,32] bf16 (probe_floor: "
-        "the plain/c/th=8 rung; probe_bisect: K3 cut after stage 1), ssm_scan_* at "
-        "[6,16384,96,32] bf16 (ssm_scan_fwd without states); launches of K1-K3 from RawFormer-S "
+        "the plain/c/th=8 rung; probe_bisect: K3 cut after stage 1), ssm_scan_fwd and "
+        "ssm_scan_bwd at [6,16384,96,32] bf16 (ssm_scan_fwd without states), "
+        "ssm_scan_fwd_states at [24,16384,96,32] bf16; launches of K1-K3 from RawFormer-S "
         "serving, of K3P from its pipelined serving, of B1/B2 from its training, of "
-        "ssm_scan_fwd from WFB serving, of ssm_scan_bwd from WFB training, of A1, T1 and the "
+        "ssm_scan_fwd from WFB serving, of ssm_scan_fwd_states and ssm_scan_bwd from WFB "
+        "training, of A1, T1 and the "
         "probes from their own experiments (no model calls them); weight_grad at [8,64,64,128] "
         "on B2's product (1, 32768, 128, 384), launches from RawFormer-S training; max_abs_err "
-        "of B1/B2 on dx2 / dx, of ssm_scan_fwd on y, of ssm_scan_bwd on du, of the probes and "
+        "of B1/B2 on dx2 / dx, of ssm_scan_fwd(_states) on y, of ssm_scan_bwd on du, of the "
+        "probes and "
         "weight_grad relative to the twin's max; library_ms: weight_grad beside torch.matmul "
         "(bf16); no single PyTorch call computes any other of these functions (null)")
     log(card)

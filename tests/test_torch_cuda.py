@@ -269,7 +269,7 @@ def test_scan_kernels_match_twins(cuda, monkeypatch, shape, dgroup, dtype):
     torch.cuda.synchronize()
     assert ks.selective_scan_fwd.launches == before + 2
     assert torch.equal(y, y2) and y.dtype == dtype
-    y_ref, st_ref = ssm.selective_scan(*args, chunk_size=ks.FWD_CHUNK, state_every=ks.STATE_EVERY)
+    y_ref, st_ref = ssm.selective_scan(*args, chunk_size=ks.TWIN_CHUNK, state_every=ks.STATE_EVERY)
     y_ref = ssm.selective_scan(*[t.float() for t in args])
     scale = y_ref.abs().max().item()
     if dtype == torch.float32:
@@ -310,6 +310,75 @@ def test_scan_backward_is_deterministic(cuda, shape):
     first, second = (ks.selective_scan_bwd(*args, dy, states) for _ in "12")
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def force_fwd_chunks(monkeypatch, ks, chunks):
+    """Make S1's plan cut L into ``chunks`` chunks (of a multiple of
+    STATE_EVERY steps; None: as many as there are sub-chunks), whatever the
+    card's occupancy."""
+    def plan(bsz, L, d, resident):
+        want = -(-L // ks.STATE_EVERY) if chunks is None else chunks
+        chunk = -(-(-(-L // want)) // ks.STATE_EVERY) * ks.STATE_EVERY
+        return ks.FwdPlan(chunk, -(-L // chunk))
+    monkeypatch.setattr(ks, "fwd_plan", plan)
+
+
+# S1's own cases: ragged L (77, 333, 1000) and L < 32, N < 32 (8, 13), D
+# not a multiple of the 32-channel tile (13, 20, 44), under each plan regime:
+# one chunk (one launch), two chunks, and one chunk per 32-step sub-chunk.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunks", [1, 2, None])
+@pytest.mark.parametrize("shape", [(2, 333, 20, 8), (1, 77, 13, 13), (3, 1000, 44, 32),
+                                   (2, 20, 24, 32)])
+def test_scan_forward_plans_match_twin(cuda, monkeypatch, shape, chunks, dtype):
+    """y within 1e-4 of its max (fp32) or its output rounding (bf16) and the
+    states within 1e-4 of their max, y identical with and without states,
+    bitwise-equal reruns, and S2 on these states within 1e-3 of each leaf's
+    max."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ks
+    from bayer_low_light_image_enhancement_tpu_torch.ops import ssm
+
+    force_fwd_chunks(monkeypatch, ks, chunks)
+    *args, dy = [t.to(cuda) for t in scan_inputs(*shape, dtype, seed=sum(shape) + 7)]
+    before = ks.selective_scan_fwd.launches
+    y = ks.selective_scan_fwd(*args)
+    y2, states = ks.selective_scan_fwd(*args, save_states=True)
+    y3, states3 = ks.selective_scan_fwd(*args, save_states=True)
+    torch.cuda.synchronize()
+    assert ks.selective_scan_fwd.launches == before + 3
+    assert torch.equal(y, y2) and torch.equal(y2, y3) and torch.equal(states, states3)
+    y_ref, st_ref = ssm.selective_scan(*args, chunk_size=ks.TWIN_CHUNK,
+                                       state_every=ks.STATE_EVERY)
+    y_ref = ssm.selective_scan(*[t.float() for t in args])
+    scale = y_ref.abs().max().item()
+    if dtype == torch.float32:
+        assert (y - y_ref).abs().max().item() <= 1e-4 * scale
+    else:
+        assert bool(((y.float() - y_ref).abs() <= 8e-3 * y_ref.abs() + 1e-3 * scale).all())
+    assert states.shape == st_ref.shape
+    assert (states - st_ref).abs().max().item() <= 1e-4 * st_ref.abs().max().item()
+    check_scan_backward(ks, ssm, args, dy, states)
+
+
+def test_scan_forward_plan_matches_the_library(cuda):
+    """S1 is resident at both input types, and the card's plan at the
+    WFB-48 scan shapes keeps one chunk where the walks fill the card."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ks
+
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bf16 in (0, 1):
+        assert lib.blle_ssm_fwd_blocks_per_sm(bf16) >= 1
+        resident = ks.fwd_resident(torch.cuda.current_device(), bool(bf16))
+        assert resident >= sms * ks.FWD_WARPS
+        for bsz, L, d in [(24, 16384, 96), (6, 16384, 96), (6, 256, 768), (1, 77, 13)]:
+            plan = ks.fwd_plan(bsz, L, d, resident)
+            assert plan.chunk % ks.STATE_EVERY == 0 and plan.chunks == -(-L // plan.chunk)
+            if ks.FWD_ONE_CHUNK * -(-bsz * d // ks.FWD_STATES_PER_LANE) >= resident:
+                assert plan.chunks == 1 and plan.launches == 1
+            else:
+                assert plan.chunks != 2 or L <= 2 * ks.STATE_EVERY
 
 
 def test_scan_backward_plan_and_workspace_match_the_library(cuda):

@@ -229,3 +229,58 @@ def test_backward_workspace_floats(shape, n, want):
     dD partials, and dB / dC partials only with several groups."""
     plan = ks.bwd_plan(*shape, resident=2 * 132)
     assert ks.bwd_workspace_floats(*shape, n, plan) == want
+
+
+# S1's plan on an H100 at two resident 8-warp blocks per SM (132 x 2 x 8
+# warps): (B, L, D) -> (chunk, chunks, launches). The WFB-48 scan shapes at
+# batch 2 (b = 6) and 8 (b = 24) @ 512^2, then the card tests' ragged ones.
+H100_FWD_RESIDENT = 132 * 2 * 8
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((6, 16384, 96), (288, 57, 2)), ((6, 4096, 192), (160, 26, 2)),
+    ((6, 1024, 384), (64, 16, 2)), ((6, 256, 768), (256, 1, 1)),
+    ((24, 16384, 96), (1024, 16, 2)), ((24, 4096, 192), (4096, 1, 1)),
+    ((24, 1024, 384), (1024, 1, 1)), ((24, 256, 768), (256, 1, 1)),
+    ((1, 77, 13), (32, 3, 2)), ((2, 20, 24), (32, 1, 1)), ((3, 1000, 44), (32, 32, 2)),
+])
+def test_forward_plan(shape, want):
+    """One chunk where the (b, d) walks fill the card; else enough chunks
+    for FWD_WAVES x the resident warps in each pass; chunks a multiple of
+    STATE_EVERY that cover L."""
+    bsz, L, d = shape
+    plan = ks.fwd_plan(bsz, L, d, resident=H100_FWD_RESIDENT)
+    assert (plan.chunk, plan.chunks, plan.launches) == want
+    assert plan.chunk % ks.STATE_EVERY == 0
+    assert (plan.chunks - 1) * plan.chunk < L <= plan.chunks * plan.chunk
+
+
+def test_forward_plan_one_chunk_where_the_walks_fill_the_card():
+    """Walks that fill 1 / FWD_ONE_CHUNK of the resident warps: one chunk
+    and one launch, whatever L."""
+    for L in (32, 1000, 16384, 100000):
+        walks = ks.FWD_STATES_PER_LANE * -(-H100_FWD_RESIDENT // ks.FWD_ONE_CHUNK)
+        plan = ks.fwd_plan(1, L, walks, resident=H100_FWD_RESIDENT)
+        assert (plan.chunks, plan.launches) == (1, 1) and plan.chunk >= L
+        plan = ks.fwd_plan(1, L, walks - ks.FWD_STATES_PER_LANE, resident=H100_FWD_RESIDENT)
+        assert plan.chunks > 1 or L <= ks.STATE_EVERY
+
+
+def test_forward_plan_follows_occupancy():
+    """A card that holds more warps at once gets more chunks (never 2 where
+    L allows 3), down to one sub-chunk a chunk."""
+    for shape in [(6, 16384, 96), (24, 16384, 96), (6, 1024, 384)]:
+        chunks = [ks.fwd_plan(*shape, resident=132 * 8 * k).chunks for k in (1, 2, 4, 8, 64)]
+        assert chunks == sorted(chunks) and chunks[-1] > chunks[0], chunks
+        assert 2 not in chunks
+    assert ks.fwd_plan(6, 1024, 384, resident=10 ** 9).chunk == ks.STATE_EVERY
+
+
+@pytest.mark.parametrize("shape,n,want", [
+    ((6, 16384, 96), 32, 6 * 56 * 96 * 33), ((24, 256, 768), 32, 0), ((1, 77, 13), 8, 2 * 13 * 9),
+])
+def test_forward_scratch_floats(shape, n, want):
+    """What the wrapper allocates for S1: the end states and sums of dt of
+    every chunk but the last; nothing for one chunk."""
+    plan = ks.fwd_plan(*shape, resident=H100_FWD_RESIDENT)
+    assert ks.fwd_scratch_floats(shape[0], shape[2], n, plan) == want
