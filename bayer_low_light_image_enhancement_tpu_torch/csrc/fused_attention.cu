@@ -5,16 +5,17 @@
 //   q, k, v = dw3x3(conv1x1(x))   (the 1x1 output zero-padded for the dw)
 //   out     = proj(softmax_head(norm(q)^T norm(k) * T) applied to v)
 //
-// Two passes over x, like K2/K3: the gram pass is K2's tile code with the
-// LayerNorm taken out (gram_tile_kernel<C, false>, block_tiles.cuh), then the
-// same fixed-order reduction; the [C, C] finalise stays plain torch
+// Two passes over x, like K2/K3: the gram pass is K2 with the LayerNorm
+// taken out (gram_kernel<C, false>, block_tiles.cuh), then the same
+// fixed-order reduction; the [C, C] finalise stays plain torch
 // (kernels/fused_block.py: finalize_attention) and folds normalisation,
 // temperature, softmax and the projection into `apply`; the apply pass
 // below recomputes v per tile (1x1 + dw3x3, 1-pixel halo) and writes
 // v @ apply + b_proj. x is read twice and the output written once; q, k and
 // v never leave shared memory.
 //
-// Bound: like K2/K3, the per-tile chain of dependent phases, not the bytes.
+// Bound: the apply pass below keeps the first port's per-tile chain of
+// dependent phases (one tile per block, WMMA); the gram pass is K2's design.
 // Widths: C in {32, 48, 64, 96, 128, 192, 256}.
 #include "block_tiles.cuh"
 
@@ -100,7 +101,7 @@ cudaError_t attn_apply_tiles(const void* const* p, void* out, int B, int H, int 
 }  // namespace
 
 extern "C" long long blle_attn_gram_workspace_floats(int B, int H, int W, int C) {
-  return gram_workspace_floats(B, H, W, C);
+  return gram_workspace_floats<false>(B, H, W, C);
 }
 
 // x [B,H,W,C] bf16 -> out [B, C*C + 2C] fp32 (gram q^T k, sum q^2, sum k^2)
@@ -108,7 +109,7 @@ extern "C" long long blle_attn_gram_workspace_floats(int B, int H, int W, int C)
 extern "C" int blle_attn_gram(const void* x, const void* wqk, const void* bqk,
                               const void* dwqk, const void* bdwqk, void* workspace, void* out,
                               int B, int H, int W, int C, void* stream) {
-  return (int)gram_pass<false>(x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C,
+  return (int)gram_pass<false>(x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, 0,
                                (cudaStream_t)stream);
 }
 

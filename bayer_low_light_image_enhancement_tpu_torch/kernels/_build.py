@@ -42,11 +42,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # mosaic, ratio, out, B, H, W, out_bf16, clamp01, stream
     "blle_bayer_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, stream
-    "blle_gram_pass": [_P] * 7 + [_I] * 4 + [_P],
+    # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, ctas, stream
+    "blle_gram_pass": [_P] * 7 + [_I] * 5 + [_P],
     # x, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2, bp2,
-    # out, B, H, W, C, stream
-    "blle_apply_pass": [_P] * 14 + [_I] * 4 + [_P],
+    # ybuf, out, B, H, W, C, grid1, grid2, stream
+    "blle_apply_pass": [_P] * 15 + [_I] * 6 + [_P],
+    # kind, C, info (5 long longs)
+    "blle_block_kernel_info": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
     # x, dy, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2t, wp1t,
     # op_v, op_y, op_dt, op_g (NULL below the split width), workspace, dx2,
     # dapply, dw, B, H, W, C, stream
@@ -67,7 +69,7 @@ _SIGNATURES = {
     "blle_ssm_bwd_blocks_per_sm": [_I, _I],
     # in_bf16 (returns blocks per SM, not an error code)
     "blle_ssm_fwd_blocks_per_sm": [_I],
-    # the arguments of blle_apply_pass
+    # x ... bp2, out, B, H, W, C, stream (blle_apply_pass without ybuf, grids)
     "blle_apply_pipelined": [_P] * 14 + [_I] * 4 + [_P],
     # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, stream
     "blle_attn_gram": [_P] * 7 + [_I] * 4 + [_P],
@@ -75,8 +77,8 @@ _SIGNATURES = {
     "blle_attn_apply": [_P] * 8 + [_I] * 4 + [_P],
     # x, t, wc, bc, wr1, wr2, br, wo, bo, out, B, H, W, C, stream
     "blle_stage_tail": [_P] * 10 + [_I] * 4 + [_P],
-    # the arguments of blle_apply_pass but the stream, stage, pipelined, stream
-    "blle_probe_apply_cut": [_P] * 14 + [_I] * 6 + [_P],
+    # x ... bp2, ybuf, out, B, H, W, C, stage, pipelined, stream
+    "blle_probe_apply_cut": [_P] * 15 + [_I] * 6 + [_P],
     # x, w, dw, out, B, H, W, C, strategy, level, th, stream
     "blle_probe_floor": [_P] * 4 + [_I] * 7 + [_P],
 }

@@ -9,7 +9,8 @@ One block runs as
   2. ``finalize_attention``: plain torch on [C, C] (XLA on the TPU too):
      F.normalize, temperature, per-head softmax, folded into the projection;
   3. ``apply_pass`` (K3): LN1 -> v -> ``y = x + v @ apply + b_proj`` -> LN2
-     -> 1x1 -> dw3x3 -> exact GELU -> 1x1 -> + y; or, with
+     -> 1x1 -> dw3x3 -> exact GELU -> 1x1 -> + y (two kernels a call, y
+     passed between them in a bf16 buffer); or, with
      ``apply_kernel="pipelined"``, ``apply_pass_pipelined`` (K3P, the port of
      the JAX package's v6 kernel): the same function, software-pipelined
      (``csrc/apply_pipelined.cuh``). K3P takes the power-of-two widths; the
@@ -22,13 +23,20 @@ not differentiable themselves: ``fused_transformer_block`` with grad
 enabled goes through ``fused_block_bwd.FusedTransformerBlockFn``, whose
 backward runs the kernels B1/B2 (``csrc/fused_block_bwd.cu``).
 
+``tile_config`` / ``block_plan`` mirror the kernels' plans in
+``csrc/block_tiles.cuh`` (tile shape, threads, shared memory, persistent
+CTAs, launches; ``gram_workspace_floats``): the CPU tests check them at every
+width, the card tests against the library's ``blle_block_kernel_info``.
+
 ``params`` is the state dict of ``models.common.TransformerBlock`` (the
 reference's names: ``norm1.body.weight``, ``attn.qkv.weight``, ...).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Mapping, Tuple
 
 import torch
@@ -186,6 +194,136 @@ def finalize_attention(
 
 
 # ----------------------------------------------------------------------------
+# The kernels' plans (csrc/block_tiles.cuh)
+# ----------------------------------------------------------------------------
+
+# The block kernels, in the order of blle_block_kernel_info's kind: K2, K3's
+# two kernels (up to y, from y), A1's gram pass (K2 without LayerNorm).
+BLOCK_KINDS = ("gram", "apply1", "apply2", "attn_gram")
+SMEM_PER_SM, SMEM_PER_BLOCK = 233472, 232448  # bytes, one H100 SM / block
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _r16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def _a128(n: int) -> int:
+    return _cdiv(n, 128) * 128
+
+
+@dataclasses.dataclass(frozen=True)
+class TileConfig:
+    """One block kernel's shape at one width: own-pixel tile th x tw (plus a
+    1-pixel halo), threads a CTA, dynamic shared memory bytes, and the gram's
+    channel splits (K2 runs splits^2 channel blocks)."""
+
+    th: int
+    tw: int
+    threads: int
+    smem: int
+    splits: int = 1
+
+
+def tile_config(kind: str, c: int) -> TileConfig:
+    """``GramCfg`` / ``Apply1Cfg`` / ``Apply2Cfg`` of block_tiles.cuh at width
+    c: weights resident in shared memory at c <= 64, else streamed through two
+    chunk slots; the depthwise taps and the biases resident; 256 threads
+    where two CTAs fit an SM, else 512."""
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"kind must be one of {BLOCK_KINDS}, got {kind!r}")
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"no kernel for C={c}; widths: {KERNEL_WIDTHS}")
+    res, splits, ldx = c <= 64, 1, c + 8
+    if kind in ("gram", "attn_gram"):
+        th, tw = 4 if c == 256 else 8, 16 if c in (32, 96) else 8
+        splits = 2 if c >= 192 else 1
+        n2 = 2 * c // splits
+        nc = n2 if n2 <= 96 else 64
+        p, rp = th * tw, _r16((th + 2) * (tw + 2))
+        slot = _a128(c * ((n2 if res else nc) + 8) * 2)
+        parts = [2 * _a128(rp * ldx * 2), slot if res else 2 * slot, _a128(rp * (nc + 8) * 4),
+                 _a128(p * (n2 + 8) * 2), _a128(11 * n2 * 4)]
+    elif kind == "apply1":
+        th, tw = 4 if c == 256 else 8, 16 if c <= 48 else 8
+        nc = c if c <= 96 else 64
+        p, rp = th * tw, _r16((th + 2) * (tw + 2))
+        parts = [2 * _a128(rp * ldx * 2), 2 * _a128(c * ((c if res else nc) + 8) * 2),
+                 _a128(rp * (nc + 8) * 4), _a128(p * ldx * 2), _a128(12 * c * 4)]
+    else:
+        th, tw, ch = 4 if c >= 192 else 8, 16 if c == 32 else 8, 2 * c
+        nc = 32 if c == 32 else ch if ch <= 96 else 64
+        kc = ch if res else 64
+        p, rp = th * tw, _r16((th + 2) * (tw + 2))
+        w1, w2 = _a128(c * ((ch if res else nc) + 8) * 2), _a128(kc * (c + 8) * 2)
+        parts = [2 * _a128(rp * ldx * 2), w1 + w2 if res else 2 * max(w1, w2),
+                 _a128(rp * (nc + 8) * 4), _a128(p * (ch + 8) * 2), _a128((11 * ch + c) * 4)]
+    smem = sum(parts)
+    threads = 256 if 2 * (smem + 1024) <= SMEM_PER_SM else 512
+    return TileConfig(th, tw, threads, smem, splits)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """A block kernel's launch at one shape: ``tiles`` per image, ``blocks``
+    channel blocks (K2), ``ctas`` persistent CTAs (K2: per image and block;
+    K3: over the whole call), ``launches`` kernels."""
+
+    config: TileConfig
+    tiles: int
+    blocks: int
+    ctas: int
+    launches: int
+
+
+def block_plan(kind: str, b: int, h: int, w: int, c: int, resident: int) -> BlockPlan:
+    """The launch the C library makes for ``kind`` on x [b, h, w, c], given
+    the CTAs the card holds at once (``resident``: the occupancy API's blocks
+    per SM times the SMs). K2 spreads them over the b x splits^2 (image,
+    block) pairs and adds its reduction launch; each K3 kernel takes at most
+    one CTA per tile of the call."""
+    cfg = tile_config(kind, c)
+    tiles = _cdiv(h, cfg.th) * _cdiv(w, cfg.tw)
+    if kind in ("gram", "attn_gram"):
+        blocks = cfg.splits ** 2
+        return BlockPlan(cfg, tiles, blocks, max(1, min(tiles, resident // (b * blocks))), 2)
+    return BlockPlan(cfg, tiles, 1, min(b * tiles, resident), 1)
+
+
+def gram_workspace_floats(b: int, h: int, w: int, c: int, plan: BlockPlan) -> int:
+    """K2's workspace: one partial [cb^2 + 2 cb] per CTA of each (image,
+    channel block), cb = c / splits."""
+    cb = c // plan.config.splits
+    return b * plan.blocks * plan.ctas * (cb * cb + 2 * cb)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_info(kind: str, c: int) -> Tuple[int, int, int, int, int]:
+    """The library's plan of ``kind`` at width c on the current card: (th,
+    tw, threads, shared-memory bytes, blocks per SM)."""
+    info = (ctypes.c_longlong * 5)()
+    _build.check(_build.library().blle_block_kernel_info(BLOCK_KINDS.index(kind), c, info),
+                 f"block kernel info ({kind}, C={c})")
+    return tuple(info)
+
+
+def resident_ctas(kind: str, c: int, device_index: int = 0) -> int:
+    """CTAs of ``kind`` the card holds at once: blocks per SM x SMs."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return kernel_info(kind, c)[4] * sms
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_for(kind: str, b: int, h: int, w: int, c: int, device_index: int) -> BlockPlan:
+    """The plan the wrappers launch (``block_plan`` at the card's residency),
+    cached per shape: the wrappers' host time counts at the deep levels."""
+    return block_plan(kind, b, h, w, c, resident_ctas(kind, c, device_index))
+
+
+# ----------------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------------
 
@@ -253,12 +391,13 @@ def _gram_pass_kernel(x: torch.Tensor, w: BlockWeights):
     for t, n, s in zip(args, ("wqk", "bqk", "dwqk", "bdwqk"),
                        ((c, 2 * c), (2 * c,), (9, 2 * c), (2 * c,))):
         require(t, n, s, x.device)
-    ws = torch.empty(lib.blle_gram_workspace_floats(b, h, wd, c), dtype=torch.float32,
+    plan = plan_for("gram", b, h, wd, c, x.device.index or 0)
+    ws = torch.empty(gram_workspace_floats(b, h, wd, c, plan), dtype=torch.float32,
                      device=x.device)
     out = torch.empty((b, c * c + 2 * c), dtype=torch.float32, device=x.device)
     err = lib.blle_gram_pass(
         x.data_ptr(), *(t.data_ptr() for t in args), ws.data_ptr(), out.data_ptr(),
-        b, h, wd, c, _build.stream_of(x),
+        b, h, wd, c, plan.ctas, _build.stream_of(x),
     )
     _build.check(err, "fused_block gram pass")
     gram_pass.launches += 1
@@ -296,10 +435,11 @@ def _apply_pass_args(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights):
 
 def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
     args = _apply_pass_args(x, apply, w)
-    out = torch.empty_like(x)
+    ybuf, out = torch.empty_like(x), torch.empty_like(x)
+    grids = [plan_for(k, *x.shape, x.device.index or 0).ctas for k in ("apply1", "apply2")]
     err = _build.library().blle_apply_pass(
-        x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
-        *x.shape, _build.stream_of(x),
+        x.data_ptr(), *(t.data_ptr() for t in args), ybuf.data_ptr(), out.data_ptr(),
+        *x.shape, *grids, _build.stream_of(x),
     )
     _build.check(err, "fused_block apply pass")
     apply_pass.launches += 1

@@ -18,7 +18,11 @@ Port of the JAX package's TPU probes ``benchmarks/probe_floor.py``,
   is the production kernel. Each stage's tensor at every pixel is the
   output: 1 the v 1x1 (LN1(x) @ wv + bv), 2 the attention output
   v @ apply + b_proj, 3 y, 4 the first C channels of the FFN expand, 5 the
-  block output.
+  block output. K3 runs as two kernels split at y: its stages 1-3 cut the
+  first kernel (window, LN1, v 1x1 | + dw3x3, apply | + residual: the first
+  kernel whole), stage 4 is the first kernel whole plus the second (y
+  window, LN2, expand) cut before its dw3x3, and 5 both whole; K3P's stages
+  cut its one kernel.
 
 Each wrapper runs its plain twin on a CPU tensor (fp32) and its kernel on a
 CUDA tensor, or raises. ``run_floor_ladder`` / ``run_bisect_ladder`` time the
@@ -166,10 +170,10 @@ def bisect_probe(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights, stage: i
     if stage == 5:
         return apply_fn(x, apply, w)
     args = _apply_pass_args(x, apply, w)
-    out = torch.empty_like(x)
+    ybuf, out = torch.empty_like(x), torch.empty_like(x)
     err = _build.library().blle_probe_apply_cut(
-        x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(), *x.shape, stage,
-        int(apply_kernel == "pipelined"), _build.stream_of(x))
+        x.data_ptr(), *(t.data_ptr() for t in args), ybuf.data_ptr(), out.data_ptr(), *x.shape,
+        stage, int(apply_kernel == "pipelined"), _build.stream_of(x))
     _build.check(err, f"bisect probe stage {stage} ({apply_kernel})")
     bisect_probe.launches += 1
     return out

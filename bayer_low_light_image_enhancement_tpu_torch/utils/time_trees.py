@@ -2,7 +2,7 @@
 card, in turns.
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.time_trees \\
-        ROOT [ROOT ...] [--what bwd,step,scan] [--turns 2]
+        ROOT [ROOT ...] [--what bwd,step,scan,block,wgrad] [--turns 2]
 
 Each ROOT is a directory that holds a copy of the package (``.`` for this
 checkout; another commit unpacked by ``git archive`` into an ignored
@@ -25,7 +25,20 @@ kernels. Per root and turn it prints
   twice) and each of its kernels by its device time per call
   (``torch.profiler`` over 5 calls); then the WFB-48 forward at batch 2 @
   512^2 (CUDA events over 10 calls after 3, twice) and
-  ``Trainer.train_step`` at batch 8 @ 512^2 (3 steps after 1, twice).
+  ``Trainer.train_step`` at batch 8 @ 512^2 (3 steps after 1, twice);
+* ``block``: K2 (``gram_pass``) and K3 (``apply_pass``) as whole wrapper
+  calls at the six block shapes of RawFormer-S serving (batch 8 @ 512^2 and
+  the 2832x4240 frame's first and deepest levels; 20 calls after 3, three
+  times: at the deep levels the calls can be bound by the host),
+  the whole fused block (K2 + ``finalize_attention`` + K3) beside the bf16
+  unfused ``TransformerBlock`` module path (``fused = False``: cuDNN convs,
+  the library-path yardstick), K2's and K3's kernels by their device time
+  per call (``torch.profiler`` over 5 calls), then the RawFormer-S u16
+  forward at batch 8 @ 512^2 (20 calls after 5, twice) and one 2832x4240
+  frame (3 after 1, twice);
+* ``wgrad``: the weight-grad pass (``weight_grad``) on B2's product at the
+  C >= 96 batch-8 block shapes beside one bf16 ``torch.matmul`` of the same
+  operands, in turns (pass, matmul, matmul, pass; 20 calls after 3 each).
 
 A card is required: there is no CPU fallback.
 """
@@ -39,6 +52,7 @@ import subprocess
 import sys
 
 BATCH_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (8, 32, 32, 256)]
+FULLRES_SHAPES = [(1, 1416, 2120, 32), (1, 177, 265, 256)]
 SCAN_SERVE_SHAPES = [(6, 16384, 96), (6, 4096, 192), (6, 1024, 384), (6, 256, 768)]
 SCAN_TRAIN_SHAPES = [(24, 16384, 96), (24, 4096, 192), (24, 1024, 384), (24, 256, 768)]
 
@@ -76,6 +90,23 @@ def _child(root: str, what: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+
+    def split(tag, name, fn):
+        """Each kernel of ``fn`` by its device time per call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+            if us > 0:
+                kernel = re.sub(r"^.*?(\w+_kernel)\b.*$", r"\1", e.key)
+                print(f"{root} {tag}:   {name} kernel {kernel} {us / 1e3 / 5:.4f} ms a call",
+                      flush=True)
+
     if "bwd" in what:
         for shape in BATCH_SHAPES:
             c = shape[-1]
@@ -107,24 +138,70 @@ def _child(root: str, what: str) -> None:
                   flush=True)
             del tr, model
             torch.cuda.empty_cache()
+    if "block" in what:
+        from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
+
+        for shape in BATCH_SHAPES + FULLRES_SHAPES:
+            c = shape[-1]
+            gen = torch.Generator().manual_seed(c)
+            blk = common.TransformerBlock(c, 8, 2, device=dev, compute_dtype=torch.bfloat16)
+            common.reset_parameters_(blk, gen)
+            params = {k: v.detach() for k, v in blk.named_parameters()}
+            wts = fb.fold_block_params(params)
+            x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            x4 = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor (channels_last)
+            blk.fused = False
+            with torch.inference_mode():
+                gram, qss, kss = fb.gram_pass_plain(x, wts)
+                apply = fb.finalize_attention(gram, qss, kss, wts.temperature, wts.wproj, 8)
+                k2 = [cuda_time_ms(lambda: fb.gram_pass(x, wts), 20) for _ in "123"]
+                k3 = [cuda_time_ms(lambda: fb.apply_pass(x, apply, wts), 20) for _ in "123"]
+                whole = [cuda_time_ms(lambda: fb.fused_transformer_block(x, params, 8), 20)
+                         for _ in "123"]
+                mod = [cuda_time_ms(lambda: blk(x4), 20) for _ in "123"]
+            ms = lambda t: " ".join(f"{v:.4f}" for v in t)  # noqa: E731
+            print(f"{root} block {list(shape)}: K2 {ms(k2)} ms, K3 {ms(k3)} ms, whole block "
+                  f"{ms(whole)} ms, bf16 module path {ms(mod)} ms", flush=True)
+            with torch.inference_mode():
+                split(f"block {list(shape)}", "K2", lambda: fb.gram_pass(x, wts))
+                split(f"block {list(shape)}", "K3", lambda: fb.apply_pass(x, apply, wts))
+            del x, x4, blk
+        model = get_model("rawformer_s", device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0))
+        pred = Predictor(model, device=dev)
+        g = torch.Generator().manual_seed(0)
+        m = torch.randint(0, 17000, (8, 512, 512), generator=g, dtype=torch.int32)
+        m = m.to(torch.int16).to(dev).view(torch.uint16)
+        r = torch.full((8,), 100.0, device=dev)
+        xf = torch.rand(1, 1, 2832, 4240, generator=g).to(dev)
+        with torch.inference_mode():
+            fwd = [cuda_time_ms(lambda: pred._u16_forward(m, r), 20, warmup=5) for _ in "12"]
+            frame = [cuda_time_ms(lambda: model(xf), 3, warmup=1) for _ in "12"]
+        print(f"{root} RawFormer-S u16 forward batch 8 @ 512^2: {fwd[0]:.3f} {fwd[1]:.3f} ms; "
+              f"2832x4240 frame: {frame[0]:.3f} {frame[1]:.3f} ms", flush=True)
+        del model, pred, xf
+        torch.cuda.empty_cache()
+    if "wgrad" in what:
+        from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
+
+        for b, h, w, c in BATCH_SHAPES:
+            if c < 96:
+                continue
+            g = torch.Generator(device=dev).manual_seed(c)
+            a = torch.randn(1, b * h * w, c, generator=g, device=dev).to(torch.bfloat16)
+            bb = (0.05 * torch.randn(1, b * h * w, 3 * c, generator=g, device=dev)).to(
+                torch.bfloat16)
+            with torch.no_grad():
+                t = [cuda_time_ms(lambda: wgk.weight_grad([(a, bb)]), 20),
+                     cuda_time_ms(lambda: torch.matmul(a.mT, bb), 20),
+                     cuda_time_ms(lambda: torch.matmul(a.mT, bb), 20),
+                     cuda_time_ms(lambda: wgk.weight_grad([(a, bb)]), 20)]
+            print(f"{root} weight-grad pass on B2's product (1, {b * h * w}, {c}, {3 * c}): "
+                  f"pass {t[0]:.4f} {t[3]:.4f} ms, torch.matmul bf16 {t[1]:.4f} {t[2]:.4f} ms",
+                  flush=True)
+            del a, bb
     if "scan" in what:
-        from torch.profiler import ProfilerActivity, profile
-
         from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
-
-        def split(tag, name, fn):
-            """Each kernel of ``fn`` by its device time per call."""
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fn()
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total", None)
-                us = getattr(e, "self_cuda_time_total", 0) if us is None else us
-                if us > 0:
-                    kernel = re.sub(r"^.*?(\w+_kernel)\b.*$", r"\1", e.key)
-                    print(f"{root} {tag}:   {name} kernel {kernel} {us / 1e3 / 5:.4f} ms a call",
-                          flush=True)
 
         with torch.no_grad():
             for b, L, d in SCAN_SERVE_SHAPES:
@@ -169,7 +246,7 @@ def _child(root: str, what: str) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs="+", help="directories holding a copy of the package")
-    p.add_argument("--what", default="bwd,step", help="any of bwd, step, scan (comma-separated)")
+    p.add_argument("--what", default="bwd,step", help="any of bwd, step, scan, block, wgrad (comma-separated)")
     p.add_argument("--turns", type=int, default=2, help="passes over the roots, alternating order")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

@@ -27,7 +27,8 @@ Phases (any failed check raises and the script exits non-zero):
    grad leaf must match a twin-path trainer (against a nudged and a bf16
    twin as yardsticks), 20 steps on one batch must lower its loss, and
    ``eval_step`` must give finite PSNRs;
-5. timing with CUDA events after warmup: each kernel against its twin, the
+5. timing with CUDA events after warmup: each kernel against its twin (K2
+   and K3 with their plans: tile, threads, shared memory, CTAs, launches), the
    batch-8 forward, the full-resolution frame, B1 and B2 as whole wrapper
    calls (the weight-grad pass included) at the block shapes of batch 8
    and 16, and the train step at batch 8 and 16 @ 512x512 on the kernel and
@@ -60,8 +61,10 @@ Phases (any failed check raises and the script exits non-zero):
    the module tail (cuDNN convs, LeakyReLUs, concat, reduce);
 8. the probe ladders: the floor ladder (load strategies x levels x tile
    heights) at [8,256,256,32] and the bisect ladder (K3 and K3P cut after
-   each stage) at the four RawFormer-S block shapes, every rung that
-   computes a result against its twin, ms and effective GB/s per rung.
+   each stage; K3's stages 1-3 cut its first kernel, stage 4 adds its
+   second cut after the FFN expand) at the four RawFormer-S block shapes,
+   every rung that computes a result against its twin, ms and effective
+   GB/s per rung.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -286,6 +289,20 @@ def ptxas_summary(build_log: str):
         elif name and "Used" in line and "registers" in line:
             yield f"{name}: {line.split(':', 1)[1].strip()}; {spill}"
             name = None
+
+
+def block_plan_line(fb, shape) -> str:
+    """K2's and K3's two kernels' plans at ``shape`` as the wrappers launch
+    them: tile, threads, shared memory, persistent CTAs, launches a call."""
+    parts = []
+    for kind, name in (("gram", "K2"), ("apply1", "K3 kernel 1"), ("apply2", "K3 kernel 2")):
+        p = fb.plan_for(kind, *shape, 0)
+        cfg = p.config
+        ctas = (f"{p.ctas} CTAs per image and channel block ({p.blocks} blocks)"
+                if kind == "gram" else f"{p.ctas} CTAs")
+        parts.append(f"{name} tile {cfg.th}x{cfg.tw}, {cfg.threads} threads, {cfg.smem} B shared, "
+                     f"{ctas}, {p.launches} launch{'es' if p.launches > 1 else ''}")
+    return "; ".join(parts)
 
 
 def u16_to_device(a: np.ndarray) -> torch.Tensor:
@@ -756,6 +773,7 @@ def main() -> int:
             kf = cuda_time_ms(lambda: fb.fused_transformer_block(x, params, 8), n)
             pf = cuda_time_ms(lambda: fb.fused_transformer_block_plain(x, params, 8), n)
             (b2, y2), (b3, y3) = (bound(**block_counts(kind, *shape)) for kind in ("gram", "apply"))
+            log(f"plan {shape}: {block_plan_line(fb, shape)}")
             log(f"time block {shape}: K2 {ka:.3f} ms (twin {pa:.3f}, bound {b2:.4f} by {y2}), K3 "
                 f"{kb:.3f} ms (twin {pb:.3f}, bound {b3:.4f} by {y3}), whole block {kf:.3f} ms "
                 f"(twin {pf:.3f})")
@@ -1212,9 +1230,9 @@ def main() -> int:
         ("weight_grad", PKG + "csrc/weight_grad.cu",
          TPU + "fused_block_bwd.py:194, " + TPU + "fused_block_bwd.py:318",
          train_launches["weight_grad"]),
-        ("fused_block_gram", PKG + "csrc/fused_block.cu", TPU + "fused_block.py:406",
+        ("fused_block_gram", PKG + "csrc/block_tiles.cuh", TPU + "fused_block.py:406",
          launches["gram_pass"]),
-        ("fused_block_apply", PKG + "csrc/fused_block.cu", TPU + "fused_block.py:683",
+        ("fused_block_apply", PKG + "csrc/block_tiles.cuh", TPU + "fused_block.py:683",
          launches["apply_pass"]),
         ("fused_block_bwd1", PKG + "csrc/fused_block_bwd.cu", TPU + "fused_block_bwd.py:194",
          train_launches["bwd1"]),

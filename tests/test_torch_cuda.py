@@ -72,6 +72,102 @@ def test_block_kernels_match_twins(cuda, c):
     torch.testing.assert_close(got, want, **BF16_TOL)
 
 
+def check_block_pass_kernels(x, w, tol=BF16_TOL):
+    """K2 (cosines, sums of squares) and K3 against their twins on x, each
+    wrapper counted once per call."""
+    before = (fb.gram_pass.launches, fb.apply_pass.launches)
+    with torch.inference_mode():
+        g, qs, ks = fb.gram_pass(x, w)
+        g0, qs0, ks0 = fb.gram_pass_plain(x, w)
+        apply = fb.finalize_attention(g0, qs0, ks0, w.temperature, w.wproj, 8)
+        got = fb.apply_pass(x, apply, w).float()
+        want = fb.apply_pass_plain(x, apply, w).float()
+    torch.cuda.synchronize()
+    assert (fb.gram_pass.launches, fb.apply_pass.launches) == (before[0] + 1, before[1] + 1)
+    cos = g / torch.sqrt(qs[:, :, None] * ks[:, None, :])
+    cos0 = g0 / torch.sqrt(qs0[:, :, None] * ks0[:, None, :])
+    torch.testing.assert_close(cos, cos0, rtol=0, atol=2e-2)
+    torch.testing.assert_close(qs, qs0, rtol=2e-2, atol=0)
+    torch.testing.assert_close(ks, ks0, rtol=2e-2, atol=0)
+    torch.testing.assert_close(got, want, **tol)
+
+
+# B = 1 with H and W below one tile, a tall narrow image, and several tiles
+# with ragged edges in both directions.
+@pytest.mark.parametrize("hw", [(1, 3, 5), (1, 40, 7), (3, 11, 29)])
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_block_pass_kernels_on_ragged_shapes(cuda, c, hw):
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    w = pf.block_weights(c, c + 1, cuda)
+    g = torch.Generator().manual_seed(c)
+    x = torch.randn(*hw, c, generator=g).to(cuda, torch.bfloat16)
+    check_block_pass_kernels(x, w)
+
+
+def force_block_plan(monkeypatch, regime):
+    """Make every K2 / K3 launch use one CTA ("one"), three ("three") or one
+    CTA per tile ("per_tile") whatever the card's residency."""
+    import dataclasses
+
+    real = fb.plan_for
+
+    def plan(kind, b, h, w, c, device_index):
+        p = real(kind, b, h, w, c, device_index)
+        tiles = p.tiles if kind in ("gram", "attn_gram") else b * p.tiles
+        ctas = {"one": 1, "three": min(3, tiles), "per_tile": tiles}[regime]
+        return dataclasses.replace(p, ctas=ctas)
+
+    monkeypatch.setattr(fb, "plan_for", plan)
+
+
+@pytest.mark.parametrize("regime", ["one", "three", "per_tile"])
+@pytest.mark.parametrize("c", [32, 48, 96, 192, 256])
+def test_block_pass_kernels_under_forced_plans(cuda, monkeypatch, c, regime):
+    """Each CTA walks a run of tiles (across images in K3) and carries its
+    gram share over it: any grid gives the same function."""
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    force_block_plan(monkeypatch, regime)
+    w = pf.block_weights(c, c + 2, cuda)
+    g = torch.Generator().manual_seed(c + 2)
+    x = torch.randn(2, 21, 18, c, generator=g).to(cuda, torch.bfloat16)
+    check_block_pass_kernels(x, w)
+
+
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_gram_kernel_reruns_are_bitwise_equal(cuda, c):
+    """K2's partials are summed in a fixed order without atomics."""
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    w = pf.block_weights(c, c + 3, cuda)
+    x = torch.randn(2, 37, 23, c, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        first, second = fb.gram_pass(x, w), fb.gram_pass(x, w)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_block_plans_match_the_library(cuda):
+    """The Python mirror of each kernel's plan (tile, threads, shared
+    memory) agrees with the library's, every kernel is resident, and the
+    gram workspace of the wrapper's plan equals the library's own."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for kind in fb.BLOCK_KINDS:
+        for c in fb.KERNEL_WIDTHS:
+            cfg = fb.tile_config(kind, c)
+            th, tw, threads, smem, per_sm = fb.kernel_info(kind, c)
+            assert (th, tw, threads, smem) == (cfg.th, cfg.tw, cfg.threads, cfg.smem), (kind, c)
+            assert per_sm >= 1, (kind, c)
+    for b, h, w, c in [(8, 256, 256, 32), (8, 32, 32, 256), (1, 177, 265, 256),
+                       (1, 1416, 2120, 32), (2, 19, 13, 48), (1, 3, 5, 192)]:
+        plan = fb.plan_for("gram", b, h, w, c, 0)
+        assert fb.gram_workspace_floats(b, h, w, c, plan) == \
+            lib.blle_gram_workspace_floats(b, h, w, c)
+
+
 def test_block_kernels_refuse_grad_and_unsupported_widths(cuda):
     """The pass wrappers are not differentiable (training goes through
     FusedTransformerBlockFn); widths without a kernel raise."""
