@@ -166,12 +166,14 @@ __device__ __forceinline__ void item_epilogue(const float (&acc)[2][2][4], int m
       }
 }
 
-// out (via epi) = A [MT*16][K] @ B [K][NT8*8], by the block's NW warps.
+// out (via epi) = A [MT*16][K] @ B [K][NT8*8], by NW warps: the group of
+// threads tid in [0, 32 NW) (the block's by default; a group's warps are
+// whole warps, so lane = tid % 32).
 template <int NW, int MT, int NT8, int K, typename Epi>
-__device__ __forceinline__ void product(const bf16* A, int lda, const bf16* B, int ldb,
-                                        Epi&& epi) {
+__device__ __forceinline__ void product_t(int tid, const bf16* A, int lda, const bf16* B,
+                                          int ldb, Epi&& epi) {
   using I = Items<NW, MT, NT8>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = tid / 32, lane = tid % 32;
   for (int it = warp; it < I::N; it += NW) {
     const int mi0 = it / I::NGS * I::MG, ni0 = it % I::NGS * I::NG;
     float acc[2][2][4] = {};
@@ -179,15 +181,21 @@ __device__ __forceinline__ void product(const bf16* A, int lda, const bf16* B, i
     item_epilogue<I::MG, I::NG, MT, NT8>(acc, mi0, ni0, lane, epi);
   }
 }
+template <int NW, int MT, int NT8, int K, typename Epi>
+__device__ __forceinline__ void product(const bf16* A, int lda, const bf16* B, int ldb,
+                                        Epi&& epi) {
+  product_t<NW, MT, NT8, K>(threadIdx.x, A, lda, B, ldb, epi);
+}
 
 // acc (+)= the same product, each warp keeping its items' accumulators in
 // registers across calls (the gram over a walk, the FFN projection over its
 // K chunks).
 template <bool AT, int NW, int MT, int NT8, int K>
-__device__ __forceinline__ void product_acc(float (&acc)[Items<NW, MT, NT8>::PER][2][2][4],
-                                            const bf16* A, int lda, const bf16* B, int ldb) {
+__device__ __forceinline__ void product_acc_t(int tid,
+                                              float (&acc)[Items<NW, MT, NT8>::PER][2][2][4],
+                                              const bf16* A, int lda, const bf16* B, int ldb) {
   using I = Items<NW, MT, NT8>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = tid / 32, lane = tid % 32;
 #pragma unroll
   for (int s = 0; s < I::PER; ++s) {
     const int it = warp + s * NW;
@@ -196,12 +204,17 @@ __device__ __forceinline__ void product_acc(float (&acc)[Items<NW, MT, NT8>::PER
                                              it % I::NGS * I::NG, lane);
   }
 }
+template <bool AT, int NW, int MT, int NT8, int K>
+__device__ __forceinline__ void product_acc(float (&acc)[Items<NW, MT, NT8>::PER][2][2][4],
+                                            const bf16* A, int lda, const bf16* B, int ldb) {
+  product_acc_t<AT, NW, MT, NT8, K>(threadIdx.x, acc, A, lda, B, ldb);
+}
 
 template <int NW, int MT, int NT8, typename Epi>
-__device__ __forceinline__ void acc_epilogue(const float (&acc)[Items<NW, MT, NT8>::PER][2][2][4],
-                                             Epi&& epi) {
+__device__ __forceinline__ void acc_epilogue_t(
+    int tid, const float (&acc)[Items<NW, MT, NT8>::PER][2][2][4], Epi&& epi) {
   using I = Items<NW, MT, NT8>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = tid / 32, lane = tid % 32;
 #pragma unroll
   for (int s = 0; s < I::PER; ++s) {
     const int it = warp + s * NW;
@@ -209,6 +222,11 @@ __device__ __forceinline__ void acc_epilogue(const float (&acc)[Items<NW, MT, NT
       item_epilogue<I::MG, I::NG, MT, NT8>(acc[s], it / I::NGS * I::MG, it % I::NGS * I::NG, lane,
                                            epi);
   }
+}
+template <int NW, int MT, int NT8, typename Epi>
+__device__ __forceinline__ void acc_epilogue(const float (&acc)[Items<NW, MT, NT8>::PER][2][2][4],
+                                             Epi&& epi) {
+  acc_epilogue_t<NW, MT, NT8>(threadIdx.x, acc, epi);
 }
 
 // ---------------------------------------------------------------------------
@@ -246,11 +264,12 @@ __device__ __forceinline__ float gelu(float v) {
 // LayerNorm without affine (biased variance, eps 1e-5, fp32 statistics) of
 // rows [0, n) of bf16 rows (stride ld), in place: a quad of lanes per row,
 // lane q of the quad holding the 4-channel units q, q + 4, ... (8-byte
-// loads), the sums by two shuffles. A zero row stays zero.
+// loads), the sums by two shuffles. A zero row stays zero. Threads tid in
+// [0, NT) (whole warps) share the rows.
 template <int C, int NT>
-__device__ void layernorm_quads(bf16* rows, int ld, int n) {
+__device__ void layernorm_quads_t(int tid, bf16* rows, int ld, int n) {
   constexpr int U = C / 16;
-  const int quad = threadIdx.x / 4, ql = threadIdx.x % 4;
+  const int quad = tid / 4, ql = tid % 4;
   for (int base = 0; base < n; base += NT / 4) {
     const int p = base + quad;
     bf16* r = rows + (p < n ? p : 0) * ld;
@@ -282,35 +301,57 @@ __device__ void layernorm_quads(bf16* rows, int ld, int n) {
     }
   }
 }
+template <int C, int NT>
+__device__ void layernorm_quads(bf16* rows, int ld, int n) {
+  layernorm_quads_t<C, NT>(threadIdx.x, rows, ld, n);
+}
 
 // dst[k][0:ncols] (stride ldd) <- src[k * lds + col(j)] for j < ncols, k <
 // rows, by cp.async in 8-column units (col maps a unit's first column and
-// keeps the unit contiguous); issued by the block's NT threads.
+// keeps the unit contiguous); issued by the NT threads tid (the block's by
+// default).
 template <int NT, typename Col>
-__device__ __forceinline__ void load_rows_async(bf16* dst, int ldd, const bf16* __restrict__ src,
-                                                int lds, int rows, int ncols, Col&& col) {
+__device__ __forceinline__ void load_rows_async_t(int tid, bf16* dst, int ldd,
+                                                  const bf16* __restrict__ src, int lds, int rows,
+                                                  int ncols, Col&& col) {
   const int u8 = ncols / 8;
-  for (int e = threadIdx.x; e < rows * u8; e += NT) {
+  for (int e = tid; e < rows * u8; e += NT) {
     const int k = e / u8, u = e % u8;
     cp_async16(dst + k * ldd + u * 8, src + (size_t)k * lds + col(u * 8), true);
   }
+}
+template <int NT, typename Col>
+__device__ __forceinline__ void load_rows_async(bf16* dst, int ldd, const bf16* __restrict__ src,
+                                                int lds, int rows, int ncols, Col&& col) {
+  load_rows_async_t<NT>(threadIdx.x, dst, ldd, src, lds, rows, ncols, col);
 }
 struct Same {
   __device__ int operator()(int c) const { return c; }
 };
 // dst[j] (fp32) <- src[col(j)] for j < n, by cp.async in 4-float units.
 template <int NT, typename Col>
+__device__ __forceinline__ void load_vec_async_t(int tid, float* dst,
+                                                 const float* __restrict__ src, int n, Col&& col) {
+  for (int u = tid; u < n / 4; u += NT) cp_async16(dst + 4 * u, src + col(4 * u), true);
+}
+template <int NT, typename Col>
 __device__ __forceinline__ void load_vec_async(float* dst, const float* __restrict__ src, int n,
                                                Col&& col) {
-  for (int u = threadIdx.x; u < n / 4; u += NT) cp_async16(dst + 4 * u, src + col(4 * u), true);
+  load_vec_async_t<NT>(threadIdx.x, dst, src, n, col);
 }
 // The 9 rows of depthwise taps (row stride ld, columns col(j), j < n) into
 // dst [9][n] by cp.async; with the biases (load_vec_async) they are staged
 // once per CTA for its epilogues.
 template <int NT, typename Col>
+__device__ __forceinline__ void load_taps_async_t(int tid, float* dst, int n,
+                                                  const float* __restrict__ taps, int ld,
+                                                  Col&& col) {
+  for (int k = 0; k < 9; ++k) load_vec_async_t<NT>(tid, dst + k * n, taps + k * ld, n, col);
+}
+template <int NT, typename Col>
 __device__ __forceinline__ void load_taps_async(float* dst, int n, const float* __restrict__ taps,
                                                 int ld, Col&& col) {
-  for (int k = 0; k < 9; ++k) load_vec_async<NT>(dst + k * n, taps + k * ld, n, col);
+  load_taps_async_t<NT>(threadIdx.x, dst, n, taps, ld, col);
 }
 
 // Depthwise 3x3 at a tile's TH x TW own pixels of the NC channels of a
@@ -321,14 +362,15 @@ __device__ __forceinline__ void load_taps_async(float* dst, int n, const float* 
 // rows): it walks down the column with the 3 x 3 neighbourhood in registers,
 // loading 3 new values a row (9 without reuse: the dw is bound by these
 // shared-memory reads). RS runs a column fill the block, at least 2 rows
-// each. out(p, cq, value) gets each result. No barrier.
+// each. out(p, cq, value) gets each result. No barrier. Threads tid in
+// [0, NT) (the block's by default) share the tasks.
 template <int NT, int TH, int TW, int NC, typename Out>
-__device__ __forceinline__ void dw3x3_own(const float* z, int ldz, const float* taps, int ldt,
-                                          const float* bias, Out&& out) {
+__device__ __forceinline__ void dw3x3_own_t(int tid, const float* z, int ldz, const float* taps,
+                                            int ldt, const float* bias, Out&& out) {
   constexpr int CQ = NC / 4, WC = TW + 2, RS0 = NT / (TW * CQ);
   constexpr int RS = RS0 >= TH / 2 ? TH / 2 : RS0 >= 2 ? 2 : 1, RH = TH / RS;
   static_assert(TH % RS == 0, "dw3x3 row runs");
-  for (int task = threadIdx.x; task < TW * CQ * RS; task += NT) {
+  for (int task = tid; task < TW * CQ * RS; task += NT) {
     const int cq = task % CQ, j = task / CQ % TW, i0 = task / (CQ * TW) * RH;
     float4 t[9];
 #pragma unroll
@@ -352,6 +394,11 @@ __device__ __forceinline__ void dw3x3_own(const float* z, int ldz, const float* 
       out((i0 + r) * TW + j, cq, a);
     }
   }
+}
+template <int NT, int TH, int TW, int NC, typename Out>
+__device__ __forceinline__ void dw3x3_own(const float* z, int ldz, const float* taps, int ldt,
+                                          const float* bias, Out&& out) {
+  dw3x3_own_t<NT, TH, TW, NC>(threadIdx.x, z, ldz, taps, ldt, bias, out);
 }
 
 // Blocks per SM the occupancy API grants `kernel` (after the shared-memory

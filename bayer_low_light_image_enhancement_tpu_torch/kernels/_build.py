@@ -57,8 +57,11 @@ _SIGNATURES = {
     # bdwv, wqkvt, op_x, op_dz (NULL below the split width), workspace, dx,
     # dw, B, H, W, C, stream
     "blle_bwd2": [_P] * 20 + [_I] * 4 + [_P],
-    # the problem table (11 long longs per product), products, stream
-    "blle_weight_grad": [ctypes.POINTER(ctypes.c_longlong), _I, _P],
+    # the problem table (11 long longs per product), products, tile width,
+    # cluster, stream
+    "blle_weight_grad": [ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, _P],
+    # tile width, cluster, info (4 long longs)
+    "blle_weight_grad_info": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
     # u, dt, A, B, C, D, y, states (or NULL), hend, sdt (NULL for one chunk),
     # B, L, D, N, chunk, in_bf16, stream
     "blle_ssm_fwd": [_P] * 10 + [_I] * 6 + [_P],
@@ -69,8 +72,9 @@ _SIGNATURES = {
     "blle_ssm_bwd_blocks_per_sm": [_I, _I],
     # in_bf16 (returns blocks per SM, not an error code)
     "blle_ssm_fwd_blocks_per_sm": [_I],
-    # x ... bp2, out, B, H, W, C, stream (blle_apply_pass without ybuf, grids)
-    "blle_apply_pipelined": [_P] * 14 + [_I] * 4 + [_P],
+    # x ... bp2, out, B, H, W, C, grid, stream (blle_apply_pass without ybuf,
+    # one grid)
+    "blle_apply_pipelined": [_P] * 14 + [_I] * 5 + [_P],
     # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, stream
     "blle_attn_gram": [_P] * 7 + [_I] * 4 + [_P],
     # x, apply, wv, bv, dwv, bdwv, bproj, out, B, H, W, C, stream
@@ -91,6 +95,8 @@ _SIZES = {
     "blle_bwd1_grad_floats": [_I],  # C
     "blle_bwd2_grad_floats": [_I],
     "blle_ssm_bwd_workspace_floats": [_I] * 6,  # B, L, D, N, chunk, dgroup
+    # (G, K, M, N, slices) per product, products, cluster
+    "blle_weight_grad_workspace_floats": [ctypes.POINTER(ctypes.c_longlong), _I, _I],
 }
 
 
@@ -184,6 +190,14 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
 
 
+# PyTorch's raw accessor of the current stream (what Triton launches on):
+# the same handle as torch.cuda.current_stream(device).cuda_stream without
+# building a Stream object, a few microseconds a launch. CUDA builds only.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream

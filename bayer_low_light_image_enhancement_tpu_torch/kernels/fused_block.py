@@ -197,9 +197,11 @@ def finalize_attention(
 # The kernels' plans (csrc/block_tiles.cuh)
 # ----------------------------------------------------------------------------
 
-# The block kernels, in the order of blle_block_kernel_info's kind: K2, K3's
-# two kernels (up to y, from y), A1's gram pass (K2 without LayerNorm).
+# The block kernels at every width, in the order of blle_block_kernel_info's
+# kind: K2, K3's two kernels (up to y, from y), A1's gram pass (K2 without
+# LayerNorm); then K3P ("pipe", kind 4) at PIPELINED_WIDTHS.
 BLOCK_KINDS = ("gram", "apply1", "apply2", "attn_gram")
+PIPE = "pipe"
 SMEM_PER_SM, SMEM_PER_BLOCK = 233472, 232448  # bytes, one H100 SM / block
 
 
@@ -232,9 +234,12 @@ def tile_config(kind: str, c: int) -> TileConfig:
     """``GramCfg`` / ``Apply1Cfg`` / ``Apply2Cfg`` of block_tiles.cuh at width
     c: weights resident in shared memory at c <= 64, else streamed through two
     chunk slots; the depthwise taps and the biases resident; 256 threads
-    where two CTAs fit an SM, else 512."""
+    where two CTAs fit an SM, else 512. "pipe" is ``PipeCfg`` of
+    apply_pipelined.cuh (``_pipe_config``)."""
+    if kind == PIPE:
+        return _pipe_config(c)
     if kind not in BLOCK_KINDS:
-        raise ValueError(f"kind must be one of {BLOCK_KINDS}, got {kind!r}")
+        raise ValueError(f"kind must be one of {BLOCK_KINDS + (PIPE,)}, got {kind!r}")
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"no kernel for C={c}; widths: {KERNEL_WIDTHS}")
     res, splits, ldx = c <= 64, 1, c + 8
@@ -266,6 +271,29 @@ def tile_config(kind: str, c: int) -> TileConfig:
     return TileConfig(th, tw, threads, smem, splits)
 
 
+def _pipe_config(c: int) -> TileConfig:
+    """K3P's ``PipeCfg`` at width c in PIPELINED_WIDTHS: 512 threads (two
+    groups of 8 warps, one a phase); tiles of 8 x 16, 8 x 8, 4 x 8, 4 x 4 at
+    C = 32, 64, 128, 256; the window (2-pixel halo) in two buffers at C = 32,
+    else one; weights resident at C <= 64, else each phase's streamed through
+    two slots of 64-channel chunks (32 at C = 256); the taps in shared memory
+    except at C = 256; two y slots of the 1-pixel ring."""
+    if c not in PIPELINED_WIDTHS:
+        raise ValueError(f"no K3P for C={c}; widths: {PIPELINED_WIDTHS}")
+    th, tw, ch = (8 if c <= 64 else 4), {32: 16, 64: 8, 128: 8, 256: 4}[c], 2 * c
+    res, kw, wins, taps = c <= 64, 32 if c == 256 else 64, 2 if c == 32 else 1, c != 256
+    nc1, nc2 = (c, 64) if res else (kw, kw)
+    r2p, r1p, p, ldx = _r16((th + 4) * (tw + 4)), _r16((th + 2) * (tw + 2)), th * tw, c + 8
+    slot = max(_a128(c * (kw + 8) * 2), _a128(kw * ldx * 2))
+    w1 = 2 * _a128(c * ldx * 2) if res else 2 * slot
+    w2 = _a128(c * (ch + 8) * 2) + _a128(ch * ldx * 2) if res else 2 * slot
+    parts = [wins * _a128(r2p * ldx * 2), _a128(r2p * (nc1 + 8) * 4), w1,
+             _a128(((9 * c if taps else 0) + 3 * c) * 4), 2 * _a128(r1p * ldx * 2),
+             _a128(p * ldx * 2), _a128(r1p * (nc2 + 8) * 4), _a128(p * (ch + 8) * 2), w2,
+             _a128(((9 * ch if taps else 0) + 2 * ch + c) * 4)]
+    return TileConfig(th, tw, 512, sum(parts))
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockPlan:
     """A block kernel's launch at one shape: ``tiles`` per image, ``blocks``
@@ -283,8 +311,8 @@ def block_plan(kind: str, b: int, h: int, w: int, c: int, resident: int) -> Bloc
     """The launch the C library makes for ``kind`` on x [b, h, w, c], given
     the CTAs the card holds at once (``resident``: the occupancy API's blocks
     per SM times the SMs). K2 spreads them over the b x splits^2 (image,
-    block) pairs and adds its reduction launch; each K3 kernel takes at most
-    one CTA per tile of the call."""
+    block) pairs and adds its reduction launch; each K3 kernel and K3P take
+    at most one CTA per tile of the call."""
     cfg = tile_config(kind, c)
     tiles = _cdiv(h, cfg.th) * _cdiv(w, cfg.tw)
     if kind in ("gram", "attn_gram"):
@@ -305,7 +333,8 @@ def kernel_info(kind: str, c: int) -> Tuple[int, int, int, int, int]:
     """The library's plan of ``kind`` at width c on the current card: (th,
     tw, threads, shared-memory bytes, blocks per SM)."""
     info = (ctypes.c_longlong * 5)()
-    _build.check(_build.library().blle_block_kernel_info(BLOCK_KINDS.index(kind), c, info),
+    index = 4 if kind == PIPE else BLOCK_KINDS.index(kind)
+    _build.check(_build.library().blle_block_kernel_info(index, c, info),
                  f"block kernel info ({kind}, C={c})")
     return tuple(info)
 
@@ -466,9 +495,10 @@ def _apply_pass_pipelined_kernel(x: torch.Tensor, apply: torch.Tensor,
         raise ValueError(f"K3P takes C in {PIPELINED_WIDTHS}, got {x.shape[-1]}")
     args = _apply_pass_args(x, apply, w)
     out = torch.empty_like(x)
+    grid = plan_for(PIPE, *x.shape, x.device.index or 0).ctas
     err = _build.library().blle_apply_pipelined(
         x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
-        *x.shape, _build.stream_of(x),
+        *x.shape, grid, _build.stream_of(x),
     )
     _build.check(err, "fused_block pipelined apply pass")
     apply_pass_pipelined.launches += 1

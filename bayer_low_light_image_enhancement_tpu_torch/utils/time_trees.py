@@ -2,7 +2,7 @@
 card, in turns.
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.time_trees \\
-        ROOT [ROOT ...] [--what bwd,step,scan,block,wgrad] [--turns 2]
+        ROOT [ROOT ...] [--what bwd,step,scan,block,pipe,wgrad] [--turns 2]
 
 Each ROOT is a directory that holds a copy of the package (``.`` for this
 checkout; another commit unpacked by ``git archive`` into an ignored
@@ -36,9 +36,17 @@ kernels. Per root and turn it prints
   per call (``torch.profiler`` over 5 calls), then the RawFormer-S u16
   forward at batch 8 @ 512^2 (20 calls after 5, twice) and one 2832x4240
   frame (3 after 1, twice);
-* ``wgrad``: the weight-grad pass (``weight_grad``) on B2's product at the
-  C >= 96 batch-8 block shapes beside one bf16 ``torch.matmul`` of the same
-  operands, in turns (pass, matmul, matmul, pass; 20 calls after 3 each).
+* ``pipe``: K3P (``apply_pass_pipelined``) beside K3 (``apply_pass``) as
+  whole wrapper calls at the six block shapes of ``block`` (in turns: K3,
+  K3P, K3P, K3, K3, K3P; 20 calls after 3 each), then each one's kernels by
+  device time per call (``torch.profiler`` over 5 calls), and the bisect
+  ladder's rungs of both (``probes.floor.bisect_probe``, stages 1-5) by the
+  device time of their apply kernels;
+* ``wgrad``: the weight-grad pass (``weight_grad``) on every launch the
+  RawFormer-S train step hands it at batch 8 and 16 (C = 128 and 256): B2's
+  product beside one bf16 ``torch.matmul`` of the same operands, B1's three
+  products (one launch) beside three; in turns (pass, matmuls, matmuls,
+  pass; 20 calls after 3 each), then the pass's kernels by device time.
 
 A card is required: there is no CPU fallback.
 """
@@ -91,21 +99,28 @@ def _child(root: str, what: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
-    def split(tag, name, fn):
-        """Each kernel of ``fn`` by its device time per call."""
+    def kernels(fn):
+        """{kernel name: device ms per call of ``fn``} (the profiler over 5
+        calls)."""
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
                 fn()
             torch.cuda.synchronize()
+        out = {}
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
             us = getattr(e, "self_cuda_time_total", 0) if us is None else us
             if us > 0:
                 kernel = re.sub(r"^.*?(\w+_kernel)\b.*$", r"\1", e.key)
-                print(f"{root} {tag}:   {name} kernel {kernel} {us / 1e3 / 5:.4f} ms a call",
-                      flush=True)
+                out[kernel] = out.get(kernel, 0.0) + us / 1e3 / 5
+        return out
+
+    def split(tag, name, fn):
+        """Each kernel of ``fn`` by its device time per call."""
+        for kernel, ms in kernels(fn).items():
+            print(f"{root} {tag}:   {name} kernel {kernel} {ms:.4f} ms a call", flush=True)
 
     if "bwd" in what:
         for shape in BATCH_SHAPES:
@@ -181,25 +196,67 @@ def _child(root: str, what: str) -> None:
               f"2832x4240 frame: {frame[0]:.3f} {frame[1]:.3f} ms", flush=True)
         del model, pred, xf
         torch.cuda.empty_cache()
+    if "pipe" in what:
+        from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+        for shape in BATCH_SHAPES + FULLRES_SHAPES:
+            c = shape[-1]
+            gen = torch.Generator().manual_seed(c)
+            blk = common.TransformerBlock(c, 8, 2, device=dev, compute_dtype=torch.bfloat16)
+            common.reset_parameters_(blk, gen)
+            wts = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
+            x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            tag = f"pipe {list(shape)}"
+            with torch.inference_mode():
+                apply = fb.finalize_attention(*fb.gram_pass_plain(x, wts), wts.temperature,
+                                              wts.wproj, 8)
+                k3 = lambda: fb.apply_pass(x, apply, wts)  # noqa: E731
+                k3p = lambda: fb.apply_pass_pipelined(x, apply, wts)  # noqa: E731
+                t = [cuda_time_ms(k3, 20), cuda_time_ms(k3p, 20), cuda_time_ms(k3p, 20),
+                     cuda_time_ms(k3, 20), cuda_time_ms(k3, 20), cuda_time_ms(k3p, 20)]
+                print(f"{root} {tag}: K3P {t[1]:.4f} {t[2]:.4f} {t[5]:.4f} ms, K3 {t[0]:.4f} "
+                      f"{t[3]:.4f} {t[4]:.4f} ms", flush=True)
+                split(tag, "K3", k3)
+                split(tag, "K3P", k3p)
+                # The bisect ladder's rungs (each kernel cut after stage 1-4,
+                # stage 5 whole) by the device time of their apply kernels.
+                rungs = {kind: [sum(ms for k, ms in kernels(
+                    lambda: pf.bisect_probe(x, apply, wts, stage, kind)).items() if "apply" in k)
+                    for stage in (1, 2, 3, 4, 5)] for kind in ("tiled", "pipelined")}
+                print(f"{root} {tag}: bisect device ms, stages 1-5: K3 "
+                      + " ".join(f"{v:.4f}" for v in rungs["tiled"]) + ", K3P "
+                      + " ".join(f"{v:.4f}" for v in rungs["pipelined"]), flush=True)
+            del x, blk
     if "wgrad" in what:
         from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
 
-        for b, h, w, c in BATCH_SHAPES:
-            if c < 96:
-                continue
-            g = torch.Generator(device=dev).manual_seed(c)
-            a = torch.randn(1, b * h * w, c, generator=g, device=dev).to(torch.bfloat16)
-            bb = (0.05 * torch.randn(1, b * h * w, 3 * c, generator=g, device=dev)).to(
-                torch.bfloat16)
-            with torch.no_grad():
-                t = [cuda_time_ms(lambda: wgk.weight_grad([(a, bb)]), 20),
-                     cuda_time_ms(lambda: torch.matmul(a.mT, bb), 20),
-                     cuda_time_ms(lambda: torch.matmul(a.mT, bb), 20),
-                     cuda_time_ms(lambda: wgk.weight_grad([(a, bb)]), 20)]
-            print(f"{root} weight-grad pass on B2's product (1, {b * h * w}, {c}, {3 * c}): "
-                  f"pass {t[0]:.4f} {t[3]:.4f} ms, torch.matmul bf16 {t[1]:.4f} {t[2]:.4f} ms",
-                  flush=True)
-            del a, bb
+        def operand(g, k, n, gen, scale=1.0):
+            return (scale * torch.randn(g, k, n, generator=gen, device=dev)).to(torch.bfloat16)
+
+        for bs in (8, 16):
+            for _, h, w, c in BATCH_SHAPES:
+                if c < 96:
+                    continue
+                p = bs * h * w
+                gen = torch.Generator(device=dev).manual_seed(c + bs)
+                b2 = [(operand(1, p, c, gen), operand(1, p, 3 * c, gen, 0.05))]
+                b1 = [(operand(bs, h * w, c, gen), operand(bs, h * w, c, gen, 0.05)),
+                      (operand(1, p, c, gen), operand(1, p, 2 * c, gen, 0.05)),
+                      (operand(1, p, 2 * c, gen), operand(1, p, c, gen, 0.05))]
+                for name, pairs in (("B2's product", b2), ("B1's three products", b1)):
+                    dims = ", ".join(f"({a.shape[0]}, {a.shape[1]}, {a.shape[2]}, {b.shape[2]})"
+                                     for a, b in pairs)
+                    mm = lambda: [torch.matmul(a.mT, b) for a, b in pairs]  # noqa: E731
+                    with torch.no_grad():
+                        t = [cuda_time_ms(lambda: wgk.weight_grad(pairs), 20),
+                             cuda_time_ms(mm, 20), cuda_time_ms(mm, 20),
+                             cuda_time_ms(lambda: wgk.weight_grad(pairs), 20)]
+                    print(f"{root} weight-grad pass, batch {bs}, {name} {dims}: pass {t[0]:.4f} "
+                          f"{t[3]:.4f} ms, torch.matmul bf16 {t[1]:.4f} {t[2]:.4f} ms "
+                          f"({len(pairs)} call{'s' if len(pairs) > 1 else ''})", flush=True)
+                    split(f"wgrad batch {bs} {name} {dims}", "pass",
+                          lambda: wgk.weight_grad(pairs))
+                del b1, b2
     if "scan" in what:
         from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
 
@@ -246,7 +303,7 @@ def _child(root: str, what: str) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs="+", help="directories holding a copy of the package")
-    p.add_argument("--what", default="bwd,step", help="any of bwd, step, scan, block, wgrad (comma-separated)")
+    p.add_argument("--what", default="bwd,step", help="any of bwd, step, scan, block, pipe, wgrad (comma-separated)")
     p.add_argument("--turns", type=int, default=2, help="passes over the roots, alternating order")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

@@ -11,8 +11,9 @@ Phases (any failed check raises and the script exits non-zero):
    RawFormer-S serving path gives it (batch 8 @ 512x512 and one 2832x4240
    frame), with the tolerances below; then the backward kernels B1/B2
    against their twins at the training shapes (batch 8 @ 512x512), and the
-   weight-grad pass they call at C >= 96 against its twin on the products
-   B1/B2 hand it there;
+   weight-grad pass they call at C >= 96 (TMA-fed wgmma tiles, K split over
+   thread-block clusters) against its twin on the products B1/B2 hand it
+   there;
 4. serving: RawFormer-S (dim 32, heads 8/8/8/8, FFN 2, seeded random
    weights, bf16 compute) answers 3 requests of 8 uint16 mosaics at 512x512
    through ``Predictor.raw_u16`` and two float frames (2832x4240, 1000x1500)
@@ -27,8 +28,10 @@ Phases (any failed check raises and the script exits non-zero):
    grad leaf must match a twin-path trainer (against a nudged and a bf16
    twin as yardsticks), 20 steps on one batch must lower its loss, and
    ``eval_step`` must give finite PSNRs;
-5. timing with CUDA events after warmup: each kernel against its twin (K2
-   and K3 with their plans: tile, threads, shared memory, CTAs, launches), the
+5. timing with CUDA events after warmup: each kernel against its twin (K2,
+   K3 and K3P with their plans: tile, threads, shared memory, CTAs,
+   launches; the weight-grad pass on B1's three products and B2's one with
+   its plans and beside one bf16 ``torch.matmul`` of B2's product), the
    batch-8 forward, the full-resolution frame, B1 and B2 as whole wrapper
    calls (the weight-grad pass included) at the block shapes of batch 8
    and 16, and the train step at batch 8 and 16 @ 512x512 on the kernel and
@@ -57,8 +60,9 @@ Phases (any failed check raises and the script exits non-zero):
    K3 never per forward, against the twin path) and takes one train step at
    batch 8 @ 512x512 with ``set_apply_kernel(model, "pipelined")`` (K3P in
    the forward, B1/B2 in the backward, first loss against the tiled path's);
-   K3P is timed beside K3, A1 beside the ChannelAttention module, T1 beside
-   the module tail (cuDNN convs, LeakyReLUs, concat, reduce);
+   K3P (one kernel: its two phases on two groups of warps, y handed over
+   on chip) is timed beside K3, A1 beside the ChannelAttention module, T1
+   beside the module tail (cuDNN convs, LeakyReLUs, concat, reduce);
 8. the probe ladders: the floor ladder (load strategies x levels x tile
    heights) at [8,256,256,32] and the bisect ladder (K3 and K3P cut after
    each stage; K3's stages 1-3 cut its first kernel, stage 4 adds its
@@ -292,10 +296,14 @@ def ptxas_summary(build_log: str):
 
 
 def block_plan_line(fb, shape) -> str:
-    """K2's and K3's two kernels' plans at ``shape`` as the wrappers launch
-    them: tile, threads, shared memory, persistent CTAs, launches a call."""
+    """K2's, K3's two kernels' and (at a pipelined width) K3P's plans at
+    ``shape`` as the wrappers launch them: tile, threads, shared memory,
+    persistent CTAs, launches a call."""
     parts = []
-    for kind, name in (("gram", "K2"), ("apply1", "K3 kernel 1"), ("apply2", "K3 kernel 2")):
+    kinds = [("gram", "K2"), ("apply1", "K3 kernel 1"), ("apply2", "K3 kernel 2")]
+    if shape[-1] in fb.PIPELINED_WIDTHS:
+        kinds.append((fb.PIPE, "K3P"))
+    for kind, name in kinds:
         p = fb.plan_for(kind, *shape, 0)
         cfg = p.config
         ctas = (f"{p.ctas} CTAs per image and channel block ({p.blocks} blocks)"
@@ -303,6 +311,14 @@ def block_plan_line(fb, shape) -> str:
         parts.append(f"{name} tile {cfg.th}x{cfg.tw}, {cfg.threads} threads, {cfg.smem} B shared, "
                      f"{ctas}, {p.launches} launch{'es' if p.launches > 1 else ''}")
     return "; ".join(parts)
+
+
+def weight_grad_plan_line(wgk, pairs) -> str:
+    """The weight-grad pass's plan for ``pairs`` as its wrapper launches it:
+    tile width, cluster, CTAs, K slices per product, workspace."""
+    p = wgk.plan_for(tuple((a.shape[0], a.shape[1], a.shape[2], b.shape[2]) for a, b in pairs))
+    return (f"128x{p.tn} tiles, clusters of {p.cluster}, {p.blocks} CTAs, slices "
+            f"{[sp.slices for sp in p.splits]}, {p.ws_floats * 4 / 2 ** 20:.2f} MiB of partials")
 
 
 def u16_to_device(a: np.ndarray) -> torch.Tensor:
@@ -877,7 +893,8 @@ def main() -> int:
             bw, ybw = bound(**weight_grad_counts([(t[0].shape[0], t[0].shape[1], t[0].shape[2],
                                                    t[1].shape[2]) for t in p2_]))
             log(f"time weight-grad pass {shape}: B1's products {w1:.4f} ms, B2's {w2:.4f} ms (twin "
-                f"{pw2:.3f}, torch.matmul bf16 {lw2:.4f}, bound {bw:.4f} by {ybw})")
+                f"{pw2:.3f}, torch.matmul bf16 {lw2:.4f}, bound {bw:.4f} by {ybw}); plans "
+                + "; ".join(weight_grad_plan_line(wgk, ps) for ps in (p1_, p2_)))
             if "weight_grad" not in times:
                 times["weight_grad"] = (w2, pw2)
                 bounds["weight_grad"] = (bw, ybw)

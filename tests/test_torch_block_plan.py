@@ -1,5 +1,6 @@
-"""The plans of K2 and K3 (``kernels/fused_block.tile_config`` /
-``block_plan``, the mirror of ``csrc/block_tiles.cuh``) on the CPU: shared
+"""The plans of K2, K3 and K3P (``kernels/fused_block.tile_config`` /
+``block_plan``, the mirror of ``csrc/block_tiles.cuh`` and
+``csrc/apply_pipelined.cuh``) on the CPU: shared
 memory within an H100 block, tiles that cover the image, every tile walked
 by exactly one CTA, and the gram workspace formula. The card tests hold the
 same plans against the C library (``test_block_plans_match_the_library``)."""
@@ -100,3 +101,43 @@ def test_gram_plan_regimes():
     assert big.ctas == big.tiles
     assert fb.block_plan("gram", 8, 32, 32, 256, H100_SMS).blocks == 4
     assert fb.block_plan("gram", 8, 32, 32, 128, H100_SMS).blocks == 1
+
+
+@pytest.mark.parametrize("c", fb.PIPELINED_WIDTHS)
+def test_pipelined_configs_fit_an_h100_block(c):
+    """K3P: both phases' buffers in one block's 232,448 bytes, so one CTA an
+    SM of 512 threads (two groups of 8 warps); tiles of whole m16 rows, the
+    own pixels of K3's tiles or fewer."""
+    cfg = fb.tile_config(fb.PIPE, c)
+    assert cfg.smem <= fb.SMEM_PER_BLOCK < 2 * (cfg.smem + 1024)
+    assert cfg.threads == 512 and cfg.splits == 1
+    assert (cfg.th * cfg.tw) % 16 == 0
+    k3 = fb.tile_config("apply1", c)
+    assert cfg.th * cfg.tw <= k3.th * k3.tw
+
+
+@pytest.mark.parametrize("c", [16, 48, 96, 192, 512])
+def test_pipelined_configs_refuse_other_widths(c):
+    with pytest.raises(ValueError, match="no K3P"):
+        fb.tile_config(fb.PIPE, c)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("c", fb.PIPELINED_WIDTHS)
+def test_pipelined_plans_cover_the_image_once(c, shape):
+    """K3P's tiles cover H and W with less than one tile to spare; its CTAs
+    (at most one a tile, at most the resident ones) walk runs that partition
+    the call's tiles in order, none idle."""
+    b, h, w = shape
+    for resident in (1, 3, H100_SMS):
+        plan = fb.block_plan(fb.PIPE, b, h, w, c, resident)
+        cfg = plan.config
+        th, tw = cdiv(h, cfg.th), cdiv(w, cfg.tw)
+        assert plan.tiles == th * tw and (plan.blocks, plan.launches) == (1, 1)
+        assert th * cfg.th >= h > (th - 1) * cfg.th and tw * cfg.tw >= w > (tw - 1) * cfg.tw
+        walked = b * plan.tiles
+        assert plan.ctas == min(walked, resident)
+        runs = tile_runs(walked, plan.ctas)
+        assert runs[0][0] == 0 and runs[-1][1] == walked
+        assert all(r0 < r1 for r0, r1 in runs)
+        assert all(a[1] == b_[0] for a, b_ in zip(runs, runs[1:]))

@@ -285,20 +285,115 @@ def test_backward_kernels_are_deterministic(cuda, c):
 
 
 @pytest.mark.parametrize("shapes", [[(2, 1000, 96, 96), (1, 2000, 96, 192), (1, 2000, 192, 96)],
-                                    [(1, 4099, 256, 768)], [(1, 5, 8, 16)]])
+                                    [(1, 4099, 256, 768)], [(1, 5, 8, 16)],
+                                    [(3, 777, 40, 200), (1, 130, 8, 8)]])
 def test_weight_grad_kernel_matches_twin(cuda, shapes):
     """The weight-grad pass (one launch for all products; ragged K, M and N
-    of 96) against its fp32 twin: bf16 products are exact in fp32, so only
-    the order of the sums differs."""
-    gen = torch.Generator().manual_seed(len(shapes))
-    pairs = [(torch.randn(g, k, m, generator=gen).to(cuda, torch.bfloat16),
-              torch.randn(g, k, n, generator=gen).to(cuda, torch.bfloat16))
-             for g, k, m, n in shapes]
+    of 96, off the 64-channel grid) against its fp32 twin: bf16 products
+    are exact in fp32, so only the order of the sums differs."""
+    pairs = weight_grad_pairs(shapes, cuda, seed=len(shapes))
     before = wg.weight_grad.launches
     got = wg.weight_grad(pairs)
     assert wg.weight_grad.launches == before + 1
     for o, r in zip(got, wg.weight_grad_plain(pairs)):
         torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-3)
+
+
+def weight_grad_pairs(shapes, device, seed, scale=1.0):
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.randn(g, k, m, generator=gen).mul_(scale).to(device, torch.bfloat16),
+             torch.randn(g, k, n, generator=gen).mul_(scale).to(device, torch.bfloat16))
+            for g, k, m, n in shapes]
+
+
+def assert_products_close(got, pairs):
+    """Each product within 1e-4 of its twin's largest value: fp32 sums over
+    up to 65536 pixels in two orders (chip_smoke.py's WG_TOL)."""
+    for o, r in zip(got, wg.weight_grad_plain(pairs)):
+        err = (o - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item(), (tuple(r.shape), err)
+
+
+# The launches of the training path: B1's three products and B2's one at the
+# RawFormer-S widths of 128 and 256, batch 8 and 16 @ 512^2.
+MAIN_PATH_PRODUCTS = [
+    [(8, 4096, 128, 128), (1, 32768, 128, 256), (1, 32768, 256, 128)],
+    [(1, 32768, 128, 384)],
+    [(8, 1024, 256, 256), (1, 8192, 256, 512), (1, 8192, 512, 256)],
+    [(1, 8192, 256, 768)],
+    [(16, 4096, 128, 128), (1, 65536, 128, 256), (1, 65536, 256, 128)],
+    [(1, 16384, 256, 768)],
+]
+
+
+@pytest.mark.parametrize("shapes", MAIN_PATH_PRODUCTS + [
+    [(1, 300, 96, 96), (2, 500, 192, 96), (1, 129, 8, 768), (1, 64, 384, 8)]])
+def test_weight_grad_kernel_on_the_launches_b1_b2_make(cuda, shapes):
+    """The 1-, 3- and 4-product launches at full size, G > 1 included."""
+    pairs = weight_grad_pairs(shapes, cuda, seed=sum(s[1] for s in shapes))
+    assert_products_close(wg.weight_grad(pairs), pairs)
+
+
+def forced_plan(regime):
+    """A plan of `regime` in place of wg.plan_for: every tile in one slice
+    ("one_slice"), in one cluster of up to 8 ("one_cluster"), or in
+    clusters of 2 with up to 16 slices ("many_clusters")."""
+
+    def plan_for(shapes):
+        stages = min(-(-k // wg.K_STEP) for _, k, _, _ in shapes)
+        if regime == "one_slice":
+            cl, slices = 1, [1] * len(shapes)
+        elif regime == "one_cluster":
+            cl = max(c for c in wg.CLUSTERS if c <= stages)
+            slices = [cl] * len(shapes)
+        else:
+            cl = 2 if stages >= 2 else 1
+            slices = [max(cl, min(16, -(-k // wg.K_STEP)) // cl * cl) for _, k, _, _ in shapes]
+        return wg.layout(shapes, wg.tile_n(shapes), cl, slices)
+
+    return plan_for
+
+
+@pytest.mark.parametrize("regime", ["one_slice", "one_cluster", "many_clusters"])
+@pytest.mark.parametrize("shapes", [[(2, 1000, 96, 96), (1, 2000, 96, 192), (1, 2000, 192, 96)],
+                                    [(1, 4099, 256, 768)], [(3, 777, 40, 200)]])
+def test_weight_grad_kernel_under_forced_plans(cuda, monkeypatch, regime, shapes):
+    """Any split of K over slices and clusters gives the same function."""
+    monkeypatch.setattr(wg, "plan_for", forced_plan(regime))
+    pairs = weight_grad_pairs(shapes, cuda, seed=7)
+    assert_products_close(wg.weight_grad(pairs), pairs)
+
+
+@pytest.mark.parametrize("shapes", MAIN_PATH_PRODUCTS[:2] + [[(3, 777, 40, 200)]])
+def test_weight_grad_reruns_are_bitwise_equal(cuda, shapes):
+    """Fixed-order sums on chip and across clusters, no atomics."""
+    pairs = weight_grad_pairs(shapes, cuda, seed=11)
+    first, second = wg.weight_grad(pairs), wg.weight_grad(pairs)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tn", wg.TILE_NS)
+def test_weight_grad_plan_matches_the_library(cuda, tn):
+    """The Python mirror against blle_weight_grad_info (shared memory,
+    threads, ring stages; a wave of clusters that shrinks as clusters grow)
+    and blle_weight_grad_workspace_floats on the main path's plans."""
+    import ctypes
+
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+
+    infos = {cl: wg.kernel_info(tn, cl) for cl in wg.CLUSTERS}
+    for cl, (smem, threads, stages, clusters) in infos.items():
+        assert (smem, threads, stages) == (wg.smem_bytes(tn), wg.THREADS, wg.STAGES)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert 1 <= clusters * cl <= sms * (fb.SMEM_PER_SM // smem), (cl, clusters)
+    assert infos[1][3] >= infos[2][3] >= infos[4][3] >= infos[8][3]
+    for shapes in MAIN_PATH_PRODUCTS:
+        p = wg.plan_for(tuple(shapes))
+        rows = [v for (g, k, m, n), sp in zip(shapes, p.splits) for v in (g, k, m, n, sp.slices)]
+        got = _build.library().blle_weight_grad_workspace_floats(
+            (ctypes.c_longlong * len(rows))(*rows), len(shapes), p.cluster)
+        assert got == p.ws_floats
 
 
 def scan_inputs(b, L, d, n, dtype, seed):
@@ -652,6 +747,60 @@ def test_pipelined_apply_kernel_matches_twin(cuda, c):
         tiled = fb.apply_pass(x, apply, w)
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     torch.testing.assert_close(got.float(), tiled.float(), **BF16_TOL)
+
+
+def check_pipelined_kernel(x, params_seed, cuda):
+    """K3P against the apply pass's twin on x, one launch per call; returns
+    its output."""
+    c = x.shape[-1]
+    _, w = folded_block(c, params_seed, cuda)
+    with torch.inference_mode():
+        apply = fb.finalize_attention(*fb.gram_pass_plain(x, w), w.temperature, w.wproj, 8)
+        before = fb.apply_pass_pipelined.launches
+        got = fb.apply_pass_pipelined(x, apply, w)
+        torch.cuda.synchronize()
+        assert fb.apply_pass_pipelined.launches == before + 1
+        want = fb.apply_pass_plain(x, apply, w)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    return got
+
+
+# B = 1 below one tile, a tall narrow image, ragged tiles in both directions
+# across several images.
+@pytest.mark.parametrize("hw", [(1, 3, 5), (1, 40, 7), (3, 11, 29)])
+@pytest.mark.parametrize("c", fb.PIPELINED_WIDTHS)
+def test_pipelined_kernel_on_ragged_shapes(cuda, c, hw):
+    x = torch.randn(*hw, c, generator=torch.Generator().manual_seed(c + 3)).to(cuda, torch.bfloat16)
+    check_pipelined_kernel(x, c + 5, cuda)
+
+
+@pytest.mark.parametrize("regime", ["one", "three", "per_tile"])
+@pytest.mark.parametrize("c", fb.PIPELINED_WIDTHS)
+def test_pipelined_kernel_under_forced_plans(cuda, monkeypatch, c, regime):
+    """One CTA walks every tile (across images and the y ring's wrap), three
+    CTAs, one CTA a tile: any grid gives the same function."""
+    force_block_plan(monkeypatch, regime)
+    x = torch.randn(2, 21, 18, c, generator=torch.Generator().manual_seed(c + 4)).to(
+        cuda, torch.bfloat16)
+    check_pipelined_kernel(x, c + 6, cuda)
+
+
+@pytest.mark.parametrize("c", fb.PIPELINED_WIDTHS)
+def test_pipelined_kernel_reruns_are_bitwise_equal(cuda, c):
+    x = torch.randn(2, 19, 23, c, generator=torch.Generator().manual_seed(c + 7)).to(
+        cuda, torch.bfloat16)
+    assert torch.equal(check_pipelined_kernel(x, c + 8, cuda), check_pipelined_kernel(x, c + 8, cuda))
+
+
+def test_pipelined_plan_matches_the_library(cuda):
+    """K3P's Python plan (fused_block.tile_config(PIPE): tile, threads, shared
+    memory) agrees with blle_block_kernel_info's kind 4 at every pipelined
+    width, and one CTA fits an SM."""
+    for c in fb.PIPELINED_WIDTHS:
+        cfg = fb.tile_config(fb.PIPE, c)
+        th, tw, threads, smem, per_sm = fb.kernel_info(fb.PIPE, c)
+        assert (th, tw, threads, smem) == (cfg.th, cfg.tw, cfg.threads, cfg.smem), c
+        assert per_sm == 1, c
 
 
 def test_pipelined_gate_routes_by_width(cuda):

@@ -58,42 +58,142 @@ def test_regime_by_width():
 
 PLAN_CASES = [
     [(8, 1024, 256, 256), (1, 8192, 256, 512), (1, 8192, 512, 256)],  # B1 at [8,32,32,256]
+    [(8, 4096, 128, 128), (1, 32768, 128, 256), (1, 32768, 256, 128)],  # B1 at [8,64,64,128]
     [(1, 32768, 128, 384)],  # B2 at [8,64,64,128]
+    [(1, 8192, 256, 768)],  # B2 at [8,32,32,256]
+    [(16, 4096, 128, 128), (1, 65536, 128, 256), (1, 65536, 256, 128)],  # B1, batch 16
     [(2, 91, 96, 96), (1, 182, 96, 192), (1, 182, 192, 96)],  # ragged K, M and N of 96
+    [(3, 1000, 8, 96), (1, 4099, 192, 384), (2, 700, 384, 8), (1, 5000, 96, 768)],  # 4 products
     [(1, 1, 8, 8)],
 ]
+
+# The clusters of 1, 2, 4 and 8 CTAs an H100 holds at once with one CTA an
+# SM (132 SMs; an 8-CTA cluster needs 8 free SMs of one GPC); the card's own
+# come from the occupancy API (tests/test_torch_cuda.py holds them there).
+H100_CLUSTERS = {1: 132, 2: 66, 4: 33, 8: 16}
+
+
+def h100(tn, cluster):
+    return H100_CLUSTERS[cluster]
+
+
+def pixels_of(shape, sp, cluster):
+    """Each cluster's slices of one tile: [(k0, k1) per rank] per cluster."""
+    _, k, _, _ = shape
+    bounds = [wg.slice_bounds(k, sp.slices, s) for s in range(sp.slices)]
+    return [bounds[c:c + cluster] for c in range(0, sp.slices, cluster)]
 
 
 @pytest.mark.parametrize("shapes", PLAN_CASES)
 def test_weight_grad_plan_covers_every_pixel_once(shapes):
     """Each product's K slices tile [0, K) exactly (whole 64-pixel stages,
-    the last slice ragged and not empty); partials and blocks are laid out
-    back to back; the plan depends on the shapes alone."""
-    splits, ws, blocks = wg.plan(shapes)
+    the last slice ragged, none empty); partials and CTAs are laid out back
+    to back; the plan depends on the shapes and the residency alone."""
+    p = wg.plan(shapes, h100)
     first = off = 0
-    for (g, k, m, n), sp in zip(shapes, splits):
-        assert sp.kslice % wg.K_STEP == 0 and 1 <= sp.slices <= -(-k // wg.MIN_SLICE)
-        assert (sp.slices - 1) * sp.kslice < k <= sp.slices * sp.kslice
-        assert sp.blocks == g * -(-m // wg.TILE) * -(-n // wg.TILE) * sp.slices
+    for (g, k, m, n), sp in zip(shapes, p.splits):
+        edges = [wg.slice_bounds(k, sp.slices, s) for s in range(sp.slices)]
+        assert edges[0][0] == 0 and edges[-1][1] == k
+        assert all(k0 < k1 and k0 % wg.K_STEP == 0 for k0, k1 in edges)
+        assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+        assert sp.tiles == g * -(-m // wg.TILE_M) * -(-n // p.tn)
+        assert sp.blocks == sp.tiles * sp.slices
         assert (sp.first_block, sp.ws_offset) == (first, off)
-        first, off = first + sp.blocks, off + g * sp.slices * m * n
-    assert (ws, blocks) == (off, first) and wg.plan(shapes) == (splits, ws, blocks)
-    if len(shapes) > 1:
-        assert blocks <= 2 * wg.TARGET_BLOCKS
+        first += sp.blocks
+        off += g * (sp.slices // p.cluster) * m * n if sp.slices > p.cluster else 0
+    assert (p.ws_floats, p.blocks) == (off, first) and wg.plan(shapes, h100) == p
 
 
-@pytest.mark.parametrize("shapes", PLAN_CASES[2:])
+@pytest.mark.parametrize("shapes", PLAN_CASES)
+def test_weight_grad_plan_clusters_hold_contiguous_slices(shapes):
+    """A cluster is `cluster` consecutive CTAs of one tile holding
+    consecutive slices in rank order (the order of the on-chip sum); every
+    product's CTAs start on a cluster boundary; the launch is one wave."""
+    p = wg.plan(shapes, h100)
+    assert p.cluster in wg.CLUSTERS and p.blocks % p.cluster == 0
+    units = sum(sp.tiles for sp in p.splits)
+    assert units > h100(p.tn, p.cluster) or p.blocks <= p.cluster * h100(p.tn, p.cluster)
+    for shape, sp in zip(shapes, p.splits):
+        assert sp.slices % p.cluster == 0 and sp.first_block % p.cluster == 0
+        clusters = pixels_of(shape, sp, p.cluster)
+        assert len(clusters) == sp.slices // p.cluster
+        for ranks in clusters:
+            assert len(ranks) == p.cluster
+            assert all(a[1] == b[0] for a, b in zip(ranks, ranks[1:]))
+        assert [c[0][0] for c in clusters] == sorted(c[0][0] for c in clusters)
+
+
+@pytest.mark.parametrize("shapes", PLAN_CASES)
+def test_weight_grad_workspace_matches_the_kernel_layout(shapes):
+    """The workspace holds [G, slices / cluster, M, N] floats for each
+    product whose K takes more than one cluster, back to back (what
+    blle_weight_grad_workspace_floats counts and the kernel indexes), 16-byte
+    aligned, and an arrival counter per (tile, rank); a product one cluster
+    covers writes its output directly and needs neither."""
+    p = wg.plan(shapes, h100)
+    want, off, counters, count_off = 0, [], 0, []
+    for (g, k, m, n), sp in zip(shapes, p.splits):
+        off.append(want)
+        count_off.append(counters)
+        if sp.slices > p.cluster:
+            want += g * (sp.slices // p.cluster) * m * n
+            counters += sp.tiles * p.cluster  # one per (tile, rank)
+    assert p.ws_floats == want and [sp.ws_offset for sp in p.splits] == off
+    assert p.counters == counters and [sp.count_offset for sp in p.splits] == count_off
+    assert all(o % 4 == 0 for o in off)
+
+
+@pytest.mark.parametrize("mn", [8, 96, 192, 384, 768])
+def test_weight_grad_tile_width(mn):
+    """The output tile is as narrow as covers N in the fewest 256-wide
+    passes: 8 -> 64, 96 -> 128, 192 -> 192, 384 -> 2 x 192, 768 -> 3 x
+    256; a launch takes the widest of its products'."""
+    want = {8: 64, 96: 128, 192: 192, 384: 192, 768: 256}[mn]
+    assert wg.tile_n([(1, 640, 64, mn)]) == want
+    assert wg.tile_n([(1, 640, 64, mn), (1, 640, 64, 8)]) == want
+    assert wg.tile_n([(1, 640, mn, 8)]) == 64
+    p = wg.plan([(2, 700, mn, mn)], h100)
+    assert p.splits[0].tiles == 2 * -(-mn // wg.TILE_M) * -(-mn // want)
+
+
+@pytest.mark.parametrize("products", [1, 2, 3, 4])
+def test_weight_grad_plan_takes_one_to_four_products(products):
+    """1-4 products share a launch; a fifth is refused; a product's split
+    does not depend on the products after it when the wave has room."""
+    shapes = [(1, 777 * (i + 1), 8 * (i + 1), 96) for i in range(products)]
+    p = wg.plan(shapes, h100)
+    assert len(p.splits) == products
+    assert p.blocks == sum(sp.blocks for sp in p.splits)
+    with pytest.raises(ValueError):
+        wg.plan(shapes + [(1, 64, 8, 8)] * (5 - products), h100)
+    with pytest.raises(ValueError):
+        wg.layout(shapes, p.tn, p.cluster, [sp.slices + 1 for sp in p.splits])
+
+
+def test_weight_grad_plan_shrinks_clusters_to_the_wave():
+    """A cluster needs one per tile within a wave: with more tiles than
+    8-CTA clusters fit, the plan takes 4-CTA clusters, then 2, then 1; K
+    shorter than a cluster's slices takes smaller clusters too."""
+    assert wg.plan([(1, 8192, 256, 768)], h100).cluster == 8
+    assert wg.plan([(8, 1024, 256, 256)], h100).cluster == 8
+    assert wg.plan([(20, 1024, 256, 256)], h100).cluster == 2
+    assert wg.plan([(200, 1024, 128, 128)], h100).cluster == 1
+    assert wg.plan([(1, 130, 128, 128)], h100).cluster == 2
+
+
+@pytest.mark.parametrize("shapes", PLAN_CASES[5:])
 def test_weight_grad_split_sums_match_the_product(shapes):
-    """The kernel's arithmetic, slice by slice in the plan's order, in fp32:
-    the fixed-order sum of the K-slice partials is the whole product."""
+    """The kernel's arithmetic, slice by slice in the plan's order (in fp64,
+    so that only the partition is tested): each cluster's ranks summed in
+    order, then the clusters in order, give the whole product."""
     gen = torch.Generator().manual_seed(len(shapes))
-    splits, _, _ = wg.plan(shapes)
-    for (g, k, m, n), sp in zip(shapes, splits):
-        a, b = torch.randn(g, k, m, generator=gen), torch.randn(g, k, n, generator=gen)
-        parts = [torch.einsum("gkm,gkn->gmn", a[:, s * sp.kslice:(s + 1) * sp.kslice],
-                              b[:, s * sp.kslice:(s + 1) * sp.kslice]) for s in range(sp.slices)]
-        torch.testing.assert_close(sum(parts), wg.weight_grad_plain([(a, b)])[0],
-                                   rtol=1e-5, atol=1e-4)
+    p = wg.plan(shapes, h100)
+    for (g, k, m, n), sp in zip(shapes, p.splits):
+        a, b = (torch.randn(g, k, w, generator=gen, dtype=torch.float64) for w in (m, n))
+        parts = [sum(torch.einsum("gkm,gkn->gmn", a[:, k0:k1], b[:, k0:k1]) for k0, k1 in ranks)
+                 for ranks in pixels_of((g, k, m, n), sp, p.cluster)]
+        torch.testing.assert_close(sum(parts), torch.einsum("gkm,gkn->gmn", a, b),
+                                   rtol=1e-10, atol=1e-9)
 
 
 def test_weight_grad_wrapper_runs_twin_on_cpu():
