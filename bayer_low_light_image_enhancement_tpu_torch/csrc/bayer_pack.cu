@@ -11,11 +11,17 @@
 // image's ratio, optionally min(., 1) (the model's input clamp).
 //
 // Bound: memory. 2 bytes read and 2 (bf16) written per mosaic code, a few
-// flops each. Design: each thread owns 4 output pixels of one packed row,
-// i.e. 8 codes of each of the two mosaic rows: two 16-byte loads and (bf16)
-// two 16-byte stores, neighbouring threads on neighbouring addresses. A
-// width that is not a multiple of 8 (or an unaligned pointer) takes the
-// same thread layout with element-wise loads and stores.
+// flops each. Design: a "group" is 4 output pixels of one packed row, i.e.
+// 8 codes of each of its two mosaic rows (two 16-byte loads, two 16-byte
+// bf16 stores). The grid is 2-D: x over column blocks, y over packed rows
+// (row b * H/2 + i reads mosaic rows 2 row and 2 row + 1, so no division
+// by the image height but the one that picks the row's ratio, in 32 bits),
+// with a grid-stride loop in y where the rows exceed the grid's 65535. A
+// thread takes kGroups groups blockDim.x apart in one row and issues all of its
+// loads before any store. blle_bayer_pack_info gives the geometry
+// (kernels/bayer_pack.py `pack_geometry` mirrors it). A width that is not a
+// multiple of 8 (or an unaligned pointer) takes the same geometry with
+// element-wise loads and stores.
 #include "common.cuh"
 
 namespace {
@@ -23,6 +29,10 @@ namespace {
 constexpr float kBlack = 512.0f;
 constexpr float kWhite = 16383.0f;
 constexpr float kScale = (float)(1.0 / (16383.0 - 512.0 + 1e-6));
+constexpr int kGroups = 2;         // groups a thread
+constexpr int kMaxTx = 512;        // threads a row block at most
+constexpr int kBlockThreads = 128;  // the least threads a block (rows stack up to it)
+constexpr int kMaxGridY = 65535;
 
 template <typename OutT>
 __device__ __forceinline__ OutT to_out(float v);
@@ -37,49 +47,89 @@ __device__ __forceinline__ float decode(uint16_t code, float ratio, int clamp01)
   return clamp01 ? fminf(x, 1.0f) : x;
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(256) bayer_pack_kernel(
-    const uint16_t* __restrict__ mosaic, const float* __restrict__ ratio,
-    OutT* __restrict__ out, int B, int H, int W, int clamp01, int vec) {
-  const int H2 = H / 2, W2 = W / 2;
-  const int groups = (W2 + 3) / 4;  // 4 packed pixels per thread
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * H2 * groups) return;
-  const int g = (int)(idx % groups);
-  const long long row = idx / groups;  // b * H2 + i
-  const int i = (int)(row % H2);
-  const int b = (int)(row / H2);
-  const float r = ratio[b];
-  const uint16_t* top = mosaic + ((long long)b * H + 2 * i) * W + 8 * g;
-  const uint16_t* bot = top + W;
-  OutT* o = out + (row * W2 + 4 * g) * 4;
+// The launch over `rows` = B * H/2 packed rows of `groups` groups each:
+// block (tx, ty), grid (gx, gy).
+struct PackGeometry {
+  int tx, ty, gx, gy;
+};
 
-  __align__(16) uint16_t t[8];
-  __align__(16) uint16_t u[8];
-  __align__(16) OutT v[16];
-  const int n = vec ? 4 : min(4, W2 - 4 * g);
-  if (vec) {
-    *reinterpret_cast<uint4*>(t) = *reinterpret_cast<const uint4*>(top);
-    *reinterpret_cast<uint4*>(u) = *reinterpret_cast<const uint4*>(bot);
-  } else {
-    for (int k = 0; k < 2 * n; ++k) {
-      t[k] = top[k];
-      u[k] = bot[k];
+PackGeometry pack_geometry(long long rows, int groups) {
+  const int need = groups > kGroups ? (groups + kGroups - 1) / kGroups : 1;  // threads a row
+  const int gx = (need + kMaxTx - 1) / kMaxTx;
+  const int tx = ((need + gx - 1) / gx + 31) / 32 * 32;
+  const int ty = tx >= kBlockThreads ? 1 : kBlockThreads / tx;
+  const long long gy = (rows + ty - 1) / ty;
+  return {tx, ty, gx, (int)(gy < kMaxGridY ? gy : kMaxGridY)};
+}
+
+template <typename OutT, bool VEC>
+__global__ void __launch_bounds__(kMaxTx) bayer_pack_kernel(
+    const uint16_t* __restrict__ mosaic, const float* __restrict__ ratio,
+    OutT* __restrict__ out, int rows, int H2, int W, int clamp01) {
+  const int W2 = W / 2, groups = (W2 + 3) / 4;
+  const int g0 = blockIdx.x * (kGroups * blockDim.x) + threadIdx.x;
+  // 32-bit unsigned rows: rows < 2^31 and a step < 2^25 never wrap.
+  for (unsigned row = blockIdx.y * blockDim.y + threadIdx.y; row < (unsigned)rows;
+       row += gridDim.y * blockDim.y) {
+    const float r = ratio[row / (unsigned)H2];
+    const uint16_t* top = mosaic + (size_t)row * 2 * W;
+    OutT* o = out + (size_t)row * W2 * 4;
+    __align__(16) uint16_t t[kGroups][8];
+    __align__(16) uint16_t u[kGroups][8];
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const int g = g0 + k * blockDim.x;
+      if (g >= groups) continue;
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(t[k]) = *reinterpret_cast<const uint4*>(top + 8 * g);
+        *reinterpret_cast<uint4*>(u[k]) = *reinterpret_cast<const uint4*>(top + W + 8 * g);
+      } else {
+        const int n = min(8, W - 8 * g);
+        for (int e = 0; e < n; ++e) {
+          t[k][e] = top[8 * g + e];
+          u[k][e] = top[W + 8 * g + e];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const int g = g0 + k * blockDim.x;
+      if (g >= groups) continue;
+      const int n = VEC ? 4 : min(4, W2 - 4 * g);
+      __align__(16) OutT v[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q < n) {
+          v[4 * q + 0] = to_out<OutT>(decode(t[k][2 * q], r, clamp01));      // R
+          v[4 * q + 1] = to_out<OutT>(decode(t[k][2 * q + 1], r, clamp01));  // G1
+          v[4 * q + 2] = to_out<OutT>(decode(u[k][2 * q], r, clamp01));      // G2
+          v[4 * q + 3] = to_out<OutT>(decode(u[k][2 * q + 1], r, clamp01));  // B
+        }
+      }
+      OutT* dst = o + 16 * g;
+      if constexpr (VEC) {
+        constexpr int kVecs = (int)(16 * sizeof(OutT) / sizeof(uint4));
+#pragma unroll
+        for (int e = 0; e < kVecs; ++e)
+          reinterpret_cast<uint4*>(dst)[e] = reinterpret_cast<const uint4*>(v)[e];
+      } else {
+        for (int e = 0; e < 4 * n; ++e) dst[e] = v[e];
+      }
     }
   }
-  for (int q = 0; q < n; ++q) {
-    v[4 * q + 0] = to_out<OutT>(decode(t[2 * q], r, clamp01));      // R
-    v[4 * q + 1] = to_out<OutT>(decode(t[2 * q + 1], r, clamp01));  // G1
-    v[4 * q + 2] = to_out<OutT>(decode(u[2 * q], r, clamp01));      // G2
-    v[4 * q + 3] = to_out<OutT>(decode(u[2 * q + 1], r, clamp01));  // B
-  }
-  if (vec) {
-    constexpr int kVecs = (int)(16 * sizeof(OutT) / sizeof(uint4));
-    for (int k = 0; k < kVecs; ++k)
-      reinterpret_cast<uint4*>(o)[k] = reinterpret_cast<const uint4*>(v)[k];
-  } else {
-    for (int k = 0; k < 4 * n; ++k) o[k] = v[k];
-  }
+}
+
+template <typename OutT>
+cudaError_t pack_launch(const uint16_t* m, const float* r, OutT* o, int B, int H, int W,
+                        int clamp01, bool vec, cudaStream_t s) {
+  const long long rows = (long long)B * (H / 2);
+  const PackGeometry g = pack_geometry(rows, (W / 2 + 3) / 4);
+  const dim3 grid(g.gx, g.gy), block(g.tx, g.ty);
+  if (vec)
+    return launch(bayer_pack_kernel<OutT, true>, grid, block, 0, s, m, r, o, (int)rows, H / 2,
+                  W, clamp01);
+  return launch(bayer_pack_kernel<OutT, false>, grid, block, 0, s, m, r, o, (int)rows, H / 2, W,
+                clamp01);
 }
 
 }  // namespace
@@ -87,19 +137,20 @@ __global__ void __launch_bounds__(256) bayer_pack_kernel(
 extern "C" int blle_bayer_pack(const void* mosaic, const void* ratio, void* out,
                                int B, int H, int W, int out_bf16, int clamp01,
                                void* stream) {
-  const int groups = (W / 2 + 3) / 4;
-  const long long total = (long long)B * (H / 2) * groups;
-  const int vec = (W % 8 == 0) && ((uintptr_t)mosaic % 16 == 0) &&
-                  ((uintptr_t)out % 16 == 0);
-  const dim3 grid((unsigned)((total + 255) / 256));
+  const bool vec = (W % 8 == 0) && ((uintptr_t)mosaic % 16 == 0) && ((uintptr_t)out % 16 == 0);
   cudaStream_t s = (cudaStream_t)stream;
   const uint16_t* m = (const uint16_t*)mosaic;
   const float* r = (const float*)ratio;
-  if (out_bf16)
-    return launch(bayer_pack_kernel<bf16>, grid, dim3(256), 0, s, m, r,
-                  (bf16*)out, B, H, W, clamp01, vec);
-  return launch(bayer_pack_kernel<float>, grid, dim3(256), 0, s, m, r,
-                (float*)out, B, H, W, clamp01, vec);
+  if (out_bf16) return (int)pack_launch(m, r, (bf16*)out, B, H, W, clamp01, vec, s);
+  return (int)pack_launch(m, r, (float*)out, B, H, W, clamp01, vec, s);
+}
+
+// The launch geometry at [B, H, W]: info = threads x, threads y, grid x,
+// grid y, groups a thread.
+extern "C" int blle_bayer_pack_info(int B, int H, int W, long long* info) {
+  const PackGeometry g = pack_geometry((long long)B * (H / 2), (W / 2 + 3) / 4);
+  info[0] = g.tx, info[1] = g.ty, info[2] = g.gx, info[3] = g.gy, info[4] = kGroups;
+  return 0;
 }
 
 extern "C" const char* blle_error_string(int err) {

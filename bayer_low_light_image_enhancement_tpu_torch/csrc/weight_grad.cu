@@ -331,26 +331,6 @@ cudaError_t with_tn(int tn, F&& f) {
 
 bool valid_cl(int cl) { return cl == 1 || cl == 2 || cl == 4 || cl == 8; }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
-// (no link to libcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // X [G, K, W] bf16 as a 3-D tensor map of 64 x 64 boxes (channels fastest),
 // 128-byte swizzle, zeros outside the tensor. The last few maps are kept:
 // a training step hands the pass the same buffers again.
@@ -369,7 +349,7 @@ bool encode(CUtensorMap* map, const void* x, int G, int K, int W) {
       *map = e.map;
       return true;
     }
-  EncodeTiled fn = encoder();
+  TmaEncodeTiled fn = tma_encoder();
   if (!fn || x == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)K, (cuuint64_t)G};
   const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)K * W * 2};

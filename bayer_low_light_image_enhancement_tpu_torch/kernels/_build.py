@@ -42,6 +42,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # mosaic, ratio, out, B, H, W, out_bf16, clamp01, stream
     "blle_bayer_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # B, H, W, info (5 long longs)
+    "blle_bayer_pack_info": [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
     # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, ctas, stream
     "blle_gram_pass": [_P] * 7 + [_I] * 5 + [_P],
     # x, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2, bp2,
@@ -79,8 +81,11 @@ _SIGNATURES = {
     "blle_attn_gram": [_P] * 7 + [_I] * 4 + [_P],
     # x, apply, wv, bv, dwv, bdwv, bproj, out, B, H, W, C, stream
     "blle_attn_apply": [_P] * 8 + [_I] * 4 + [_P],
-    # x, t, wc, bc, wr1, wr2, br, wo, bo, out, B, H, W, C, stream
-    "blle_stage_tail": [_P] * 10 + [_I] * 4 + [_P],
+    # x, t, w1 (taps, wr1, wr2), bc, br, w2 (taps), bo, ybuf, out, B, H, W, C,
+    # grid1, grid2, stream
+    "blle_stage_tail": [_P] * 9 + [_I] * 6 + [_P],
+    # kind, C, info (10 long longs)
+    "blle_stage_tail_info": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
     # x ... bp2, ybuf, out, B, H, W, C, stage, pipelined, stream
     "blle_probe_apply_cut": [_P] * 15 + [_I] * 6 + [_P],
     # x, w, dw, out, B, H, W, C, strategy, level, th, stream

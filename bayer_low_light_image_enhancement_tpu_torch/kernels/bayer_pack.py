@@ -12,6 +12,8 @@ or raises.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
@@ -63,6 +65,48 @@ def bayer_pack_normalize(
     return _bayer_pack_kernel(mosaic, ratio, out_dtype, clamp01)
 
 
+# The launch geometry of csrc/bayer_pack.cu (``pack_geometry`` there): a
+# group is 4 packed pixels of one packed row (8 codes of each of its two
+# mosaic rows); a thread takes GROUPS_PER_THREAD groups ``tx`` apart.
+GROUPS_PER_THREAD, MAX_TX, BLOCK_THREADS, MAX_GRID_Y = 2, 512, 128, 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class PackGeometry:
+    """K1's launch at [B, H, W]: blocks of tx x ty threads (ty packed rows a
+    block), a grid of gx column blocks by gy row blocks; the rows beyond
+    gy * ty are walked by a grid-stride loop."""
+
+    tx: int
+    ty: int
+    gx: int
+    gy: int
+    rows: int    # B * H/2 packed rows
+    groups: int  # groups a packed row: ceil(W/2 / 4)
+
+
+def pack_geometry(b: int, h: int, w: int) -> PackGeometry:
+    """The geometry the C library launches for a [b, h, w] mosaic."""
+    rows, groups = b * (h // 2), (w // 2 + 3) // 4
+    need = -(-groups // GROUPS_PER_THREAD) if groups > GROUPS_PER_THREAD else 1
+    gx = -(-need // MAX_TX)
+    tx = -(-(-(-need // gx)) // 32) * 32
+    ty = 1 if tx >= BLOCK_THREADS else BLOCK_THREADS // tx
+    return PackGeometry(tx, ty, gx, min(-(-rows // ty), MAX_GRID_Y), rows, groups)
+
+
+def pack_rows(geo: PackGeometry, by: int, y: int):
+    """The packed rows thread row y of block row by walks (the kernel's
+    grid-stride loop)."""
+    return range(by * geo.ty + y, geo.rows, geo.gy * geo.ty)
+
+
+def pack_groups(geo: PackGeometry, bx: int, x: int):
+    """The groups thread x of block column bx takes in each of its rows."""
+    g0 = bx * GROUPS_PER_THREAD * geo.tx + x
+    return [g for g in (g0 + k * geo.tx for k in range(GROUPS_PER_THREAD)) if g < geo.groups]
+
+
 def _bayer_pack_kernel(mosaic, ratio, out_dtype, clamp01):
     b, h, w = mosaic.shape
     if mosaic.dtype != torch.uint16:
@@ -71,7 +115,10 @@ def _bayer_pack_kernel(mosaic, ratio, out_dtype, clamp01):
         raise TypeError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
     if not mosaic.is_contiguous():
         raise ValueError("mosaic must be contiguous")
-    ratio = torch.as_tensor(ratio, device=mosaic.device)
+    if b * (h // 2) >= 2 ** 31:
+        raise ValueError(f"mosaic {(b, h, w)} has 2^31 packed rows or more")
+    if type(ratio) is not torch.Tensor:
+        ratio = torch.as_tensor(ratio, device=mosaic.device)
     if ratio.dtype != torch.float32 or ratio.shape != (b,) or ratio.device != mosaic.device:
         raise ValueError(f"ratio must be float32 [{b}] on {mosaic.device}")
     ratio = ratio.contiguous()

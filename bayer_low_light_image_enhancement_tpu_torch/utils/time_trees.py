@@ -2,7 +2,7 @@
 card, in turns.
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.time_trees \\
-        ROOT [ROOT ...] [--what bwd,step,scan,block,pipe,wgrad] [--turns 2]
+        ROOT [ROOT ...] [--what bwd,step,scan,block,pipe,wgrad,pack,tail] [--turns 2]
 
 Each ROOT is a directory that holds a copy of the package (``.`` for this
 checkout; another commit unpacked by ``git archive`` into an ignored
@@ -46,7 +46,19 @@ kernels. Per root and turn it prints
   RawFormer-S train step hands it at batch 8 and 16 (C = 128 and 256): B2's
   product beside one bf16 ``torch.matmul`` of the same operands, B1's three
   products (one launch) beside three; in turns (pass, matmuls, matmuls,
-  pass; 20 calls after 3 each), then the pass's kernels by device time.
+  pass; 20 calls after 3 each), then the pass's kernels by device time;
+* ``pack``: K1 (``bayer_pack_normalize``, bf16 out with the clamp, as
+  ``Predictor.raw_u16`` calls it) at [8,512,512] and [1,2832,4240], seeded
+  codes: whole calls (CUDA events over 20 calls after 3, three times), the
+  host's ms a call (200 calls enqueued back to back: the wrapper, its
+  ``torch.empty`` alone, the C entry point alone) and its kernel by device
+  time per call (``torch.profiler`` over 5 calls), beside the bound by bytes;
+* ``tail``: T1 (``fused_stage_tail``) at the six block shapes of ``block``
+  on a seeded ``ConvTransformer``'s weights, bf16 x and t: whole calls
+  (20 after 3, three times), each of its kernels by device time per call,
+  beside the bf16 module tail (``fused_stage.module_tail``: the module's
+  cuDNN convs, LeakyReLUs, concat and reduce; read where the tree has it)
+  timed the same way, the bound and T1's plan (where the tree has one).
 
 A card is required: there is no CPU fallback.
 """
@@ -90,6 +102,7 @@ def _child(root: str, what: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
     from bayer_low_light_image_enhancement_tpu_torch.models import common, get_model
@@ -116,6 +129,20 @@ def _child(root: str, what: str) -> None:
                 kernel = re.sub(r"^.*?(\w+_kernel)\b.*$", r"\1", e.key)
                 out[kernel] = out.get(kernel, 0.0) + us / 1e3 / 5
         return out
+
+    def host_ms(fn, n=200):
+        """Host ms a call of ``fn`` enqueued n times back to back (best of 3)."""
+        import time
+
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / n * 1e3)
+            torch.cuda.synchronize()
+        return best
 
     def split(tag, name, fn):
         """Each kernel of ``fn`` by its device time per call."""
@@ -257,6 +284,70 @@ def _child(root: str, what: str) -> None:
                     split(f"wgrad batch {bs} {name} {dims}", "pass",
                           lambda: wgk.weight_grad(pairs))
                 del b1, b2
+    if "pack" in what:
+        from bayer_low_light_image_enhancement_tpu_torch.kernels import bayer_pack as bp
+
+        for b, h, w in ((8, 512, 512), (1, 2832, 4240)):
+            g = torch.Generator().manual_seed(h)
+            m = torch.randint(0, 17000, (b, h, w), generator=g, dtype=torch.int32)
+            m = m.to(torch.int16).to(dev).view(torch.uint16)
+            r = torch.full((b,), 100.0, device=dev)
+            fn = lambda: bp.bayer_pack_normalize(m, r, torch.bfloat16, True)  # noqa: E731
+            with torch.inference_mode():
+                k1 = [cuda_time_ms(fn, 20) for _ in "123"]
+            bound = (b * h * w * 4 + 4 * b) / 3.35e12 * 1e3
+            print(f"{root} pack [{b},{h},{w}]: K1 whole call " + " ".join(f"{t:.4f}" for t in k1)
+                  + f" ms, bound {bound:.4f} ms (bytes)", flush=True)
+            # The host's share: ms a call on the host clock over 200 calls
+            # enqueued back to back (the device is faster than the host here),
+            # for the wrapper, its output allocation alone and the C entry
+            # point alone on a preallocated output.
+            out = fn()
+            lib, stream = _build.library(), _build.stream_of(m)
+            ptrs = (m.data_ptr(), r.data_ptr(), out.data_ptr())
+            raw = lambda: lib.blle_bayer_pack(*ptrs, b, h, w, 1, 1, stream)  # noqa: E731
+            empty = lambda: torch.empty(out.shape, dtype=out.dtype, device=dev)  # noqa: E731
+            with torch.inference_mode():
+                host = {name: host_ms(f) for name, f in (("wrapper", fn), ("torch.empty", empty),
+                                                         ("C entry point", raw))}
+            print(f"{root} pack [{b},{h},{w}]: host ms a call, " + ", ".join(
+                f"{k} {v:.4f}" for k, v in host.items()), flush=True)
+            with torch.inference_mode():
+                split(f"pack [{b},{h},{w}]", "K1", fn)
+            del m, out
+    if "tail" in what:
+        from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_stage as fs
+
+        for shape in BATCH_SHAPES + FULLRES_SHAPES:
+            b, h, w, c = shape
+            gen = torch.Generator().manual_seed(c)
+            stage = common.ConvTransformer(c, 8, 2, device=dev, compute_dtype=torch.bfloat16)
+            common.reset_parameters_(stage, gen)
+            params = {k: v.detach() for k, v in stage.state_dict().items()
+                      if not k.startswith("Transformer.")}
+            x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            t = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            x4, t4 = x.permute(0, 3, 1, 2), t.permute(0, 3, 1, 2)
+            tag = f"tail {list(shape)}"
+            fn = lambda: fs.fused_stage_tail(x, t, params)  # noqa: E731
+            mod = getattr(fs, "module_tail", None)
+            with torch.inference_mode():
+                t1 = [cuda_time_ms(fn, 20) for _ in "123"]
+                mt = [cuda_time_ms(lambda: mod(stage, x4, t4), 20) for _ in "123"] if mod else []
+            p = b * h * w  # chip_smoke.py's tail_counts over its peak rates
+            bound = max((3 * p * c * 2 + 22 * c * c * 2 + 12 * c) / 3.35e12,
+                        40.0 * p * c * c / 989e12) * 1e3
+            ms = lambda v: " ".join(f"{t:.4f}" for t in v) if v else "n/a"  # noqa: E731
+            print(f"{root} {tag}: T1 whole call {ms(t1)} ms, bf16 module tail {ms(mt)} ms, bound "
+                  f"{bound:.4f} ms", flush=True)
+            if hasattr(fs, "tail_plan"):
+                plan = fs.plan_for(b, h, w, c, dev.index or 0)
+                print(f"{root} {tag}: plan {plan}", flush=True)
+            with torch.inference_mode():
+                split(tag, "T1", fn)
+                if mod:
+                    split(tag, "module tail", lambda: mod(stage, x4, t4))
+            del x, t, x4, t4, stage
     if "scan" in what:
         from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
 
@@ -303,7 +394,7 @@ def _child(root: str, what: str) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs="+", help="directories holding a copy of the package")
-    p.add_argument("--what", default="bwd,step", help="any of bwd, step, scan, block, pipe, wgrad (comma-separated)")
+    p.add_argument("--what", default="bwd,step", help="any of bwd, step, scan, block, pipe, wgrad, pack, tail (comma-separated)")
     p.add_argument("--turns", type=int, default=2, help="passes over the roots, alternating order")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

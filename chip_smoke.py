@@ -62,7 +62,9 @@ Phases (any failed check raises and the script exits non-zero):
    the forward, B1/B2 in the backward, first loss against the tiled path's);
    K3P (one kernel: its two phases on two groups of warps, y handed over
    on chip) is timed beside K3, A1 beside the ChannelAttention module, T1
-   beside the module tail (cuDNN convs, LeakyReLUs, concat, reduce);
+   (two kernels split at y, printed with their plans) beside the module
+   tail (``fused_stage.module_tail``: cuDNN convs, LeakyReLUs, concat,
+   reduce);
 8. the probe ladders: the floor ladder (load strategies x levels x tile
    heights) at [8,256,256,32] and the bisect ladder (K3 and K3P cut after
    each stage; K3's stages 1-3 cut its first kernel, stage 4 adds its
@@ -319,6 +321,23 @@ def weight_grad_plan_line(wgk, pairs) -> str:
     p = wgk.plan_for(tuple((a.shape[0], a.shape[1], a.shape[2], b.shape[2]) for a, b in pairs))
     return (f"128x{p.tn} tiles, clusters of {p.cluster}, {p.blocks} CTAs, slices "
             f"{[sp.slices for sp in p.splits]}, {p.ws_floats * 4 / 2 ** 20:.2f} MiB of partials")
+
+
+def tail_plan_line(fs, shape) -> str:
+    """T1's two kernels' plans at ``shape`` as the wrapper launches them:
+    tile, threads, shared memory, weights resident or streamed, windows,
+    persistent CTAs."""
+    p = fs.plan_for(*shape, 0)
+    parts = []
+    for name, cfg, ctas in (("conv kernel", p.conv, p.ctas_conv),
+                            ("out kernel", p.out, p.ctas_out)):
+        weights = ("weights resident" if cfg.resident else
+                   f"weights streamed in {cfg.kc}-row chunks through {cfg.slots} slots")
+        parts.append(f"{name} tile {cfg.th}x{cfg.tw}, {cfg.threads} threads, {cfg.smem} B shared, "
+                     f"{weights}, {'wgmma' if cfg.wgmma else 'mma.sync'}, "
+                     f"{cfg.windows} window{'s' if cfg.windows > 1 else ''}"
+                     f"{', conv over the x window' if cfg.vx else ''}, {ctas} CTAs")
+    return f"{p.tiles} tiles; " + "; ".join(parts)
 
 
 def u16_to_device(a: np.ndarray) -> torch.Tensor:
@@ -818,16 +837,11 @@ def main() -> int:
             tp, stg = tail_params(c), tails[c]
             t = fb.fused_transformer_block(x, params, 8)
             t4 = t.permute(0, 3, 1, 2)
-            act = torch.nn.functional.leaky_relu
-
-            def module_tail():
-                conv = act(stg.conv(x4), 0.2)
-                return act(stg.Conv_out(stg.channel_reduce(torch.cat([conv, t4], 1))), 0.2)
-
             k2 = cuda_time_ms(lambda: fs.fused_stage_tail(x, t, tp), n)
             p2 = cuda_time_ms(lambda: fs.fused_stage_tail_plain(x, t, tp), n)
-            m2 = cuda_time_ms(module_tail, n)
+            m2 = cuda_time_ms(lambda: fs.module_tail(stg, x4, t4), n)
             bt, yt = bound(**tail_counts(*shape))
+            log(f"plan T1 {shape}: {tail_plan_line(fs, shape)}")
             log(f"time T1 {shape}: {k2:.3f} ms (twin {p2:.3f}, module tail bf16 {m2:.3f}, bound "
                 f"{bt:.4f} by {yt})")
             times.setdefault("fused_block_apply_pipelined", (kp, pb))
