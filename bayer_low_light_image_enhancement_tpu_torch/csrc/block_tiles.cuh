@@ -1,7 +1,8 @@
 // The tiled passes of the fused TransformerBlock forward, K2 (gram) and K3
 // (apply + FFN), as templates shared by the translation units that
 // instantiate them: fused_block.cu (the production K2 and K3),
-// fused_attention.cu (A1's gram pass: K2 without the LayerNorm) and
+// fused_attention.cu (A1's gram and apply passes: K2 and K3's phase 1
+// without their LayerNorm) and
 // probes_bisect.cu (K3 cut after an earlier stage). fused_block.cu says what
 // the passes compute; this file says how they are laid out on the H100.
 //
@@ -702,7 +703,8 @@ struct Apply1Cfg {
   static_assert(P % 16 == 0 && C % NC == 0 && NC % 16 == 0, "K3 phase 1 geometry");
 };
 
-template <int C, int STAGE>
+// LN false skips LN1: the v 1x1 reads x itself (A1's apply pass, at STAGE 2).
+template <int C, int STAGE, bool LN = true>
 __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 : 1)
     apply1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ apply,
                   const bf16* __restrict__ wv, const float* __restrict__ bv,
@@ -767,8 +769,10 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
       cur_b = t.b;
     }
     cp_async_commit();
-    layernorm_quads<C, NT>(xs, A::LDX, A::R);
-    __syncthreads();
+    if constexpr (LN) {
+      layernorm_quads<C, NT>(xs, A::LDX, A::R);
+      __syncthreads();
+    }
     // v = dw3x3(mask(LN1(x) @ wv + bv)) + bdwv at the own pixels.
     for (int st = 0; st < A::NCH; ++st) {
       const int n0 = st * A::NC;
@@ -1034,8 +1038,9 @@ int apply_grid(Kernel kernel, int threads, int smem, long long total, int want) 
 // K3 (or a cut of it): phase 1 into `out` (STAGE <= 3) or into `ybuf`
 // ([B,H,W,C] bf16), then phase 2 from `ybuf` into `out`, on grid1 / grid2
 // CTAs (<= 0: apply_grid's); p holds the arguments of blle_apply_pass in
-// order.
-template <int C, int STAGE>
+// order (p[0..6] only for STAGE <= 3). LN false: phase 1 without LN1 (A1's
+// apply pass, fused_attention.cu).
+template <int C, int STAGE, bool LN = true>
 cudaError_t apply_tiles(const void* const* p, void* out, void* ybuf, int B, int H, int W,
                         cudaStream_t s, int grid1 = 0, int grid2 = 0) {
   using A1 = Apply1Cfg<C>;
@@ -1043,10 +1048,10 @@ cudaError_t apply_tiles(const void* const* p, void* out, void* ybuf, int B, int 
   constexpr int S1 = STAGE < 3 ? STAGE : 3;
   {
     const long long total = apply_tiles_total<A1>(B, H, W);
-    const int grid = apply_grid(apply1_kernel<C, S1>, A1::NT, A1::SMEM, total, grid1);
+    const int grid = apply_grid(apply1_kernel<C, S1, LN>, A1::NT, A1::SMEM, total, grid1);
     if (grid < 1) return grid1 > 0 ? cudaErrorInvalidValue : cudaErrorInvalidConfiguration;
     cudaError_t err = launch(
-        apply1_kernel<C, S1>, dim3(grid), dim3(A1::NT), A1::SMEM, s, (const bf16*)p[0],
+        apply1_kernel<C, S1, LN>, dim3(grid), dim3(A1::NT), A1::SMEM, s, (const bf16*)p[0],
         (const bf16*)p[1], (const bf16*)p[2], (const float*)p[3], (const float*)p[4],
         (const float*)p[5], (const float*)p[6], (bf16*)(STAGE <= 3 ? out : ybuf), H, W,
         cdiv(H, A1::TH), cdiv(W, A1::TW), total);
@@ -1067,7 +1072,8 @@ cudaError_t apply_tiles(const void* const* p, void* out, void* ybuf, int B, int 
 // Shape of the plan of one of the block kernels at width C (kernels/
 // fused_block.py `tile_config` mirrors it): kind 0 K2, 1 K3 phase 1, 2 K3
 // phase 2, 3 A1's gram (K2 without LayerNorm) -> info = TH, TW, threads,
-// shared-memory bytes, blocks per SM (the occupancy API's).
+// shared-memory bytes, blocks per SM (the occupancy API's). Kinds 4 (K3P) and
+// 5 (A1's apply pass) are answered by their own sources (fused_block.cu).
 template <int C>
 cudaError_t block_kernel_info(int kind, long long* info) {
   switch (kind) {

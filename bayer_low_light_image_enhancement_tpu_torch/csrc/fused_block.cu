@@ -57,12 +57,15 @@ extern "C" long long blle_gram_workspace_floats(int B, int H, int W, int C) {
 }
 
 extern "C" int blle_apply_pipelined_info(int C, long long* info);  // fused_block_pipelined.cu
+extern "C" int blle_attn_apply_info(int C, long long* info);       // fused_attention.cu
 
 // The plan of block kernel `kind` at width C (block_kernel_info,
-// block_tiles.cuh; kind 4: K3P, apply_pipelined.cuh) -> info[0..4] = TH, TW,
+// block_tiles.cuh; kind 4: K3P, apply_pipelined.cuh; kind 5: A1's apply pass,
+// K3's phase 1 without LN1, fused_attention.cu) -> info[0..4] = TH, TW,
 // threads, shared-memory bytes, blocks per SM.
 extern "C" int blle_block_kernel_info(int kind, int C, long long* info) {
   if (kind == 4) return blle_apply_pipelined_info(C, info);
+  if (kind == 5) return blle_attn_apply_info(C, info);
   switch (C) {
 #define BLLE_INFO(c) case c: return (int)block_kernel_info<c>(kind, info);
     BLLE_WIDTHS(BLLE_INFO)

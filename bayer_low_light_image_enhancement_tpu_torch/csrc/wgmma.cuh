@@ -2,8 +2,9 @@
 // weight-grad pass (weight_grad.cu) and T1 (fused_stage.cu, A from registers)
 // use: bf16 operands, fp32 accumulators, m64nNk16 for N = 64, 128, 192, 256;
 // and the TMA loads (with the host's tensor-map encoder) and transaction
-// barriers (mbarrier) that feed it. Built for sm_90a only (wgmma does not
-// exist on plain sm_90).
+// barriers (mbarrier) that feed it, which the floor ladder's `tma` rung
+// (probes_floor.cu) also uses for its windows. Built for sm_90a only (wgmma
+// does not exist on plain sm_90).
 //
 // Operand layout. Both operands are MN-major (the [pixels, channels]
 // products read A and B with the channels contiguous; the instruction's
@@ -342,6 +343,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, 
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
+// TMA: the box of the 4-D tensor map `map` at coordinates (c0, c1, c2, c3)
+// into shared memory at dst; its bytes complete transactions on bar. Box
+// elements outside the tensor (negative coordinates included) arrive as
+// zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0, int c1, int c2,
+                                            int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(
+          static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar)))
       : "memory");
 }

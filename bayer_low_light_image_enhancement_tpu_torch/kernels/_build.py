@@ -77,10 +77,12 @@ _SIGNATURES = {
     # x ... bp2, out, B, H, W, C, grid, stream (blle_apply_pass without ybuf,
     # one grid)
     "blle_apply_pipelined": [_P] * 14 + [_I] * 5 + [_P],
-    # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, stream
-    "blle_attn_gram": [_P] * 7 + [_I] * 4 + [_P],
-    # x, apply, wv, bv, dwv, bdwv, bproj, out, B, H, W, C, stream
-    "blle_attn_apply": [_P] * 8 + [_I] * 4 + [_P],
+    # x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, ctas, stream
+    "blle_attn_gram": [_P] * 7 + [_I] * 5 + [_P],
+    # sums, temperature, wproj, apply, B, C, heads, stream
+    "blle_attn_finalize": [_P] * 4 + [_I] * 3 + [_P],
+    # x, apply, wv, bv, dwv, bdwv, bproj, out, B, H, W, C, grid, stream
+    "blle_attn_apply": [_P] * 8 + [_I] * 5 + [_P],
     # x, t, w1 (taps, wr1, wr2), bc, br, w2 (taps), bo, ybuf, out, B, H, W, C,
     # grid1, grid2, stream
     "blle_stage_tail": [_P] * 9 + [_I] * 6 + [_P],

@@ -197,11 +197,13 @@ def finalize_attention(
 # The kernels' plans (csrc/block_tiles.cuh)
 # ----------------------------------------------------------------------------
 
-# The block kernels at every width, in the order of blle_block_kernel_info's
-# kind: K2, K3's two kernels (up to y, from y), A1's gram pass (K2 without
-# LayerNorm); then K3P ("pipe", kind 4) at PIPELINED_WIDTHS.
-BLOCK_KINDS = ("gram", "apply1", "apply2", "attn_gram")
+# The block kernels at every width: K2, K3's two kernels (up to y, from y),
+# A1's gram pass (K2 without LayerNorm) and A1's apply pass (K3's first
+# kernel without LayerNorm, at its stage 2); then K3P ("pipe") at
+# PIPELINED_WIDTHS. _INFO_KIND is each one's kind in blle_block_kernel_info.
+BLOCK_KINDS = ("gram", "apply1", "apply2", "attn_gram", "attn_apply")
 PIPE = "pipe"
+_INFO_KIND = {"gram": 0, "apply1": 1, "apply2": 2, "attn_gram": 3, PIPE: 4, "attn_apply": 5}
 SMEM_PER_SM, SMEM_PER_BLOCK = 233472, 232448  # bytes, one H100 SM / block
 
 
@@ -232,10 +234,11 @@ class TileConfig:
 
 def tile_config(kind: str, c: int) -> TileConfig:
     """``GramCfg`` / ``Apply1Cfg`` / ``Apply2Cfg`` of block_tiles.cuh at width
-    c: weights resident in shared memory at c <= 64, else streamed through two
-    chunk slots; the depthwise taps and the biases resident; 256 threads
-    where two CTAs fit an SM, else 512. "pipe" is ``PipeCfg`` of
-    apply_pipelined.cuh (``_pipe_config``)."""
+    c (A1's two passes have K2's and K3 phase 1's): weights resident in
+    shared memory at c <= 64, else streamed through two chunk slots; the
+    depthwise taps and the biases resident; 256 threads where two CTAs fit
+    an SM, else 512. "pipe" is ``PipeCfg`` of apply_pipelined.cuh
+    (``_pipe_config``)."""
     if kind == PIPE:
         return _pipe_config(c)
     if kind not in BLOCK_KINDS:
@@ -252,7 +255,7 @@ def tile_config(kind: str, c: int) -> TileConfig:
         slot = _a128(c * ((n2 if res else nc) + 8) * 2)
         parts = [2 * _a128(rp * ldx * 2), slot if res else 2 * slot, _a128(rp * (nc + 8) * 4),
                  _a128(p * (n2 + 8) * 2), _a128(11 * n2 * 4)]
-    elif kind == "apply1":
+    elif kind in ("apply1", "attn_apply"):
         th, tw = 4 if c == 256 else 8, 16 if c <= 48 else 8
         nc = c if c <= 96 else 64
         p, rp = th * tw, _r16((th + 2) * (tw + 2))
@@ -333,8 +336,7 @@ def kernel_info(kind: str, c: int) -> Tuple[int, int, int, int, int]:
     """The library's plan of ``kind`` at width c on the current card: (th,
     tw, threads, shared-memory bytes, blocks per SM)."""
     info = (ctypes.c_longlong * 5)()
-    index = 4 if kind == PIPE else BLOCK_KINDS.index(kind)
-    _build.check(_build.library().blle_block_kernel_info(index, c, info),
+    _build.check(_build.library().blle_block_kernel_info(_INFO_KIND[kind], c, info),
                  f"block kernel info ({kind}, C={c})")
     return tuple(info)
 

@@ -22,7 +22,6 @@ plans; ``module_tail`` is the library path T1 is timed beside.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
@@ -32,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+from bayer_low_light_image_enhancement_tpu_torch.kernels.arg_cache import ArgCache
 from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
     KERNEL_WIDTHS,
     SMEM_PER_BLOCK,
@@ -229,35 +229,23 @@ def fused_stage_tail(x: torch.Tensor, t: torch.Tensor,
     return _fused_stage_tail_kernel(x, t, params)
 
 
-# The kernel arguments made from a tail's weights, per (id, _version) of the
-# six source tensors; an entry holds its sources, so no id is reused while it
-# lives. A weight changed in place bumps its _version. Inference tensors
-# (made under torch.inference_mode) keep no version counter: their arguments
-# are made on every call.
-_ARGS_CACHE: "collections.OrderedDict" = collections.OrderedDict()
-_ARGS_CACHE_SIZE = 16
+# T1's kernel arguments, made once per version of the six source tensors.
+_ARGS = ArgCache()
 
 
 def _kernel_args(params: Mapping[str, torch.Tensor]):
     """[w1, bc, br, w2, bo] as T1 takes them: w1 the [11 C, C] bf16 rows of
     conv's taps [9, C, C], then the reduce weight's halves wr1 and wr2; w2
-    Conv_out's taps [9 C, C] bf16; fp32 biases. Made once per weight version."""
-    src = tuple(params[k] for k in _TAIL_KEYS)
-    cacheable = not any(v.is_inference() for v in src)
-    key = tuple((id(v), v._version) for v in src) if cacheable else None
-    hit = _ARGS_CACHE.get(key) if cacheable else None
-    if hit is not None:
-        _ARGS_CACHE.move_to_end(key)
-        return hit[1]
-    w = tail_weights(params)
-    c = w.bc.shape[0]
-    w1 = bf16(torch.cat([w.wc.reshape(9 * c, c), w.wr1, w.wr2]))
-    args = [w1, f32(w.bc), f32(w.br), bf16(w.wo.reshape(9 * c, c)), f32(w.bo)]
-    if cacheable:
-        _ARGS_CACHE[key] = (src, args)
-        if len(_ARGS_CACHE) > _ARGS_CACHE_SIZE:
-            _ARGS_CACHE.popitem(last=False)
-    return args
+    Conv_out's taps [9 C, C] bf16; fp32 biases. Made once per weight version
+    (``arg_cache``)."""
+
+    def make():
+        w = tail_weights(params)
+        c = w.bc.shape[0]
+        w1 = bf16(torch.cat([w.wc.reshape(9 * c, c), w.wr1, w.wr2]))
+        return [w1, f32(w.bc), f32(w.br), bf16(w.wo.reshape(9 * c, c)), f32(w.bo)]
+
+    return _ARGS.get([params[k] for k in _TAIL_KEYS], make)
 
 
 def _fused_stage_tail_kernel(x, t, params):

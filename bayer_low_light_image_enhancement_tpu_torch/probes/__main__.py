@@ -2,11 +2,12 @@
 
     python -m bayer_low_light_image_enhancement_tpu_torch.probes \
         [--ladder floor,bisect] [--shape 8,256,256,32] [--th 4,8,16] \
-        [--strategies plain,center,async,async4] [--levels c,m,v] \
+        [--strategies plain,center,async,async4,tma] [--levels c,m,v] \
         [--widths 32,64,128,256] [--apply_kernels tiled,pipelined] \
         [--stages 1,2,3,4,5] [--iters 20]
 
-The floor ladder runs at --shape (C must be 32); the bisect ladder at
+The floor ladder runs at --shape (C must be 32), with ``Tensor.copy_`` of
+the same tensor beside level c; the bisect ladder at
 batch and size --shape's B and H x W for C = 32, halving H and W for each
 doubling of C (the RawFormer-S levels). The last line is the rows as JSON.
 Exits with 2 on a bad argument or without a card.
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 
 import torch
@@ -26,6 +28,7 @@ from bayer_low_light_image_enhancement_tpu_torch.probes.floor import (
     STAGES,
     STRATEGIES,
     TILE_HEIGHTS,
+    copy_ms,
     run_bisect_ladder,
     run_floor_ladder,
 )
@@ -89,6 +92,12 @@ def main(argv=None) -> int:
             print(f"floor {r['strategy']:7s} {r['level']} th={r['th']:2d}: {r['ms']:.4f} ms "
                   f"{r['gbs']:7.1f} GB/s  err {err}", flush=True)
             rows.append({"ladder": "floor", **r})
+        if "c" in args.levels:
+            ms = copy_ms(args.shape, args.iters)
+            gbs = 4 * math.prod(args.shape) / (ms * 1e-3) / 1e9
+            print(f"floor copy_   c: {ms:.4f} ms {gbs:7.1f} GB/s", flush=True)
+            rows.append({"ladder": "floor", "strategy": "copy_", "level": "c", "ms": ms,
+                         "gbs": gbs})
     if "bisect" in args.ladder:
         b, h, w, _ = args.shape
         shapes = [(b, h * 32 // c, w * 32 // c, c) for c in args.widths]

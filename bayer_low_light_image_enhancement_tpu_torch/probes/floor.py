@@ -10,9 +10,13 @@ Port of the JAX package's TPU probes ``benchmarks/probe_floor.py``,
   strategies "plain" (thread loads of the halo window, one tile per block),
   "center" (the own pixels only: a movement yardstick, not a valid result at
   level "v"), "async" / "async4" (a persistent grid with a 2- or 4-deep
-  cp.async window ring); levels "c" (copy the own pixels out), "m" (+ 6
-  chained [pixels, C] x [C, C] products), "v" (product, dw3x3, 3 products,
-  dw3x3, GELU, 2 products).
+  cp.async window ring), "tma" (a persistent grid, each window one TMA box
+  of a 4-D tensor map over x, zeros past the image, in a 4-slot ring on
+  mbarriers fed by one producer thread: the counterpart of the TPU rung
+  "dma"); levels "c" (copy the own pixels out), "m" (+ 6 chained
+  [pixels, C] x [C, C] products), "v" (product, dw3x3, 3 products, dw3x3,
+  GELU, 2 products). ``copy_ms`` times the one PyTorch call of level "c"'s
+  function, ``Tensor.copy_``, the card's practical copy rate.
 * The bisect ladder (``bisect_probe``, ``csrc/probes_bisect.cu``) cuts the
   production apply kernels, K3 or K3P, after stage 1-4 (``STAGES``); stage 5
   is the production kernel. Each stage's tensor at every pixel is the
@@ -56,7 +60,7 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
     select_apply_pass,
 )
 
-STRATEGIES = ("plain", "center", "async", "async4")
+STRATEGIES = ("plain", "center", "async", "async4", "tma")
 LEVELS = ("c", "m", "v")
 TILE_HEIGHTS = (4, 8, 16)
 STAGES = (1, 2, 3, 4, 5)
@@ -118,10 +122,12 @@ def floor_probe(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor, strategy: st
         STRATEGIES.index(strategy), LEVELS.index(level), th, _build.stream_of(x))
     _build.check(err, f"floor probe {strategy}/{level} th={th}")
     floor_probe.launches += 1
+    floor_probe.launches_by_strategy[strategy] += 1
     return out
 
 
 floor_probe.launches = 0
+floor_probe.launches_by_strategy = dict.fromkeys(STRATEGIES, 0)
 
 
 # ----------------------------------------------------------------------------
@@ -215,6 +221,15 @@ def run_floor_ladder(shape=(8, 256, 256, FLOOR_C), strategies: Iterable[str] = S
                 rows.append(dict(strategy=strategy, level=level, th=th, ms=ms,
                                  gbs=2 * x.numel() * 2 / (ms * 1e-3) / 1e9, err=err))
     return rows
+
+
+def copy_ms(shape=(8, 256, 256, FLOOR_C), iters: int = 20, seed: int = 0) -> float:
+    """ms of ``out.copy_(x)`` on a bf16 x of ``shape`` on the card (CUDA
+    events): the library call of level "c"'s function."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+    out = torch.empty_like(x)
+    return cuda_time_ms(lambda: out.copy_(x), iters)
 
 
 def block_weights(c: int, seed: int, device) -> BlockWeights:

@@ -2,7 +2,8 @@
 card, in turns.
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.time_trees \\
-        ROOT [ROOT ...] [--what bwd,step,scan,block,pipe,wgrad,pack,tail] [--turns 2]
+        ROOT [ROOT ...] [--what bwd,step,scan,block,pipe,wgrad,pack,tail,attn,floor] \
+        [--turns 2]
 
 Each ROOT is a directory that holds a copy of the package (``.`` for this
 checkout; another commit unpacked by ``git archive`` into an ignored
@@ -58,7 +59,19 @@ kernels. Per root and turn it prints
   (20 after 3, three times), each of its kernels by device time per call,
   beside the bf16 module tail (``fused_stage.module_tail``: the module's
   cuDNN convs, LeakyReLUs, concat and reduce; read where the tree has it)
-  timed the same way, the bound and T1's plan (where the tree has one).
+  timed the same way, the bound and T1's plan (where the tree has one);
+* ``attn``: A1 (``fused_channel_attention``, 8 heads) at the six block
+  shapes of ``block`` on a seeded ``ChannelAttention``'s weights, bf16 x:
+  whole calls (20 after 3, three times), the host's ms a call (200 calls
+  enqueued back to back) and each of its kernels by device time per call,
+  beside the bf16 ``ChannelAttention`` module on the NCHW
+  view of x (as ``chip_smoke.py`` builds it), timed the same way, and the
+  bound;
+* ``floor``: the floor ladder's level-c rungs (``probes.floor.floor_probe``)
+  of every strategy the tree has at tile heights 4, 8 and 16 on a seeded
+  [8,256,256,32] bf16 x, whole calls (20 after 3, three times) and by
+  device time per call, beside ``out.copy_(x)`` (the one PyTorch call of
+  level c's function) timed the same way, and the bound by bytes.
 
 A card is required: there is no CPU fallback.
 """
@@ -348,6 +361,55 @@ def _child(root: str, what: str) -> None:
                 if mod:
                     split(tag, "module tail", lambda: mod(stage, x4, t4))
             del x, t, x4, t4, stage
+    if "attn" in what:
+        from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_attention as fa
+
+        for shape in BATCH_SHAPES + FULLRES_SHAPES:
+            b, h, w, c = shape
+            gen = torch.Generator().manual_seed(c)
+            amod = common.ChannelAttention(c, 8, device=dev, compute_dtype=torch.bfloat16)
+            common.reset_parameters_(amod, gen)
+            params = {k: v.detach() for k, v in amod.state_dict().items()}
+            x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            x4 = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor (channels_last)
+            tag = f"attn {list(shape)}"
+            fn = lambda: fa.fused_channel_attention(x, params, 8)  # noqa: E731
+            with torch.inference_mode():
+                a1 = [cuda_time_ms(fn, 20) for _ in "123"]
+                mod = [cuda_time_ms(lambda: amod(x4), 20) for _ in "123"]
+            p = b * h * w  # chip_smoke.py's attention_counts at 8 heads over its peak rates
+            bound = max((2 * p * c * 2 + b * c * c * 2 + 8 * c * c) / 3.35e12,
+                        (8.0 + 2.0 / 8) * p * c * c / 989e12, 60.0 * p * c / 67e12) * 1e3
+            ms = lambda v: " ".join(f"{t:.4f}" for t in v)  # noqa: E731
+            with torch.inference_mode():
+                host = host_ms(fn)
+            print(f"{root} {tag}: A1 whole call {ms(a1)} ms (host {host:.4f} ms a call), bf16 "
+                  f"ChannelAttention module {ms(mod)} ms, bound {bound:.4f} ms", flush=True)
+            with torch.inference_mode():
+                split(tag, "A1", fn)
+                split(tag, "module", lambda: amod(x4))
+            del x, x4, amod
+    if "floor" in what:
+        from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+        shape = (8, 256, 256, 32)
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        w = (torch.randn(32, 32, generator=g) / 32 ** 0.5).to(dev, torch.bfloat16)
+        dw = (torch.randn(9, 32, generator=g) / 3.0).to(dev)
+        out = torch.empty_like(x)
+        bound = 2 * x.numel() * 2 / 3.35e12 * 1e3
+        rungs = [(f"{s} th={th}", lambda s=s, th=th: pf.floor_probe(x, w, dw, s, "c", th))
+                 for th in (4, 8, 16) for s in pf.STRATEGIES]
+        for name, fn in rungs + [("copy_", lambda: out.copy_(x))]:
+            with torch.no_grad():
+                t = [cuda_time_ms(fn, 20) for _ in "123"]
+                dev_ms = sum(kernels(fn).values())
+            gbs = 2 * x.numel() * 2 / (min(t) * 1e-3) / 1e9
+            print(f"{root} floor {list(shape)} c {name}: whole call "
+                  + " ".join(f"{v:.4f}" for v in t) + f" ms ({gbs:.0f} GB/s at the best), "
+                  f"device {dev_ms:.4f} ms a call, bound {bound:.4f} ms (bytes)", flush=True)
+        del x, out
     if "scan" in what:
         from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
 
@@ -394,7 +456,9 @@ def _child(root: str, what: str) -> None:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs="+", help="directories holding a copy of the package")
-    p.add_argument("--what", default="bwd,step", help="any of bwd, step, scan, block, pipe, wgrad, pack, tail (comma-separated)")
+    p.add_argument("--what", default="bwd,step",
+                   help="any of bwd, step, scan, block, pipe, wgrad, pack, tail, attn, floor "
+                        "(comma-separated)")
     p.add_argument("--turns", type=int, default=2, help="passes over the roots, alternating order")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

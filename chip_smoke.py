@@ -52,9 +52,11 @@ Phases (any failed check raises and the script exits non-zero):
    too; S1's plan (chunks, launches a call) is printed at every scan shape,
    S2's plan and the resident warps per SM of both.
 7. the pipelined apply pass K3P and the retired kernels A1 (standalone
-   channel attention) and T1 (stage tail, on the stage's own t from
-   ``fused_transformer_block``) against their twins at the block shapes of
-   phase 3 (inside phase 3); RawFormer-S serves 3 batch-8 @ 512x512 uint16
+   channel attention: its gram pass, finalise kernel and apply pass) and T1
+   (stage tail, on the stage's own t from ``fused_transformer_block``)
+   against their twins at the block shapes of phase 3 (inside phase 3; A1
+   also at C = 48, 96, 192, and its finalise kernel alone against
+   ``finalize_attention`` at every width and 1, 2, 4 and 8 heads); RawFormer-S serves 3 batch-8 @ 512x512 uint16
    requests and one 2832x4240 uint16 frame through
    ``Predictor(model, apply_kernel="pipelined").raw_u16`` (K3P 7 times and
    K3 never per forward, against the twin path) and takes one train step at
@@ -65,8 +67,9 @@ Phases (any failed check raises and the script exits non-zero):
    (two kernels split at y, printed with their plans) beside the module
    tail (``fused_stage.module_tail``: cuDNN convs, LeakyReLUs, concat,
    reduce);
-8. the probe ladders: the floor ladder (load strategies x levels x tile
-   heights) at [8,256,256,32] and the bisect ladder (K3 and K3P cut after
+8. the probe ladders: the floor ladder (load strategies, the TMA window
+   ring included, x levels x tile heights) at [8,256,256,32], with
+   ``Tensor.copy_`` of the same tensor beside level c, and the bisect ladder (K3 and K3P cut after
    each stage; K3's stages 1-3 cut its first kernel, stage 4 adds its
    second cut after the FFN expand) at the four RawFormer-S block shapes,
    every rung that computes a result against its twin, ms and effective
@@ -147,6 +150,11 @@ WFB_GRAD_FLOOR, WFB_GRAD_MEDIAN_TOL, WFB_BN_TOL = 2e-2, 2e-2, 1e-2
 # that computes a result (all but "center" at level "v") within PROBE_TOL of
 # its twin's max (bf16 rounding between chained products).
 PROBE_TOL = 3e-2
+# A1's finalise kernel (bf16 apply) vs finalize_attention (fp32): one bf16
+# rounding of the value, at most one bf16 step (2^-8 of it) where the two
+# fp32 sums fall on either side of a rounding boundary; FINALIZE_ATOL for
+# values near zero.
+FINALIZE_RTOL, FINALIZE_ATOL = 2.0 ** -8, 1e-6
 # WFB-48 at batch 2 @ 512^2: the scan's (b, L, d_inner) at stages 1-4
 # (stages 5-7 repeat 3-1); b = 3 high bands x 2 images, N = 32.
 SCAN_SHAPES = [(6, 16384, 96), (6, 4096, 192), (6, 1024, 384), (6, 256, 768)]
@@ -213,13 +221,15 @@ def tail_counts(b: int, h: int, w: int, c: int) -> dict:
                 fp32=6.0 * p * c)
 
 
-def attention_counts(b: int, h: int, w: int, c: int) -> dict:
-    """A1 at [b, h, w, c] bf16: x read once, the output written once; the
-    qkv 1x1, the gram and the apply on the tensor cores, the depthwise conv
-    of 3C channels in fp32."""
+def attention_counts(b: int, h: int, w: int, c: int, heads: int = 8) -> dict:
+    """A1 at [b, h, w, c] bf16 with ``heads`` heads: x read once, the output
+    written once, the bf16 apply [b, C, C]; the qkv 1x1 (6 p C^2), the
+    heads' diagonal gram blocks (2 p C^2 / heads: the head mask drops the
+    rest) and the apply (2 p C^2) on the tensor cores, the depthwise conv of
+    3C channels in fp32."""
     p = b * h * w
-    return dict(nbytes=2 * p * c * 2 + b * c * c * 4 + 8 * c * c,
-                tc=10.0 * p * c * c, fp32=60.0 * p * c)
+    return dict(nbytes=2 * p * c * 2 + b * c * c * 2 + 8 * c * c,
+                tc=(8.0 + 2.0 / heads) * p * c * c, fp32=60.0 * p * c)
 
 
 def stage_counts(stage: int, b: int, h: int, w: int, c: int) -> dict:
@@ -493,6 +503,35 @@ def main() -> int:
                     "fused_stage_tail": fs.fused_stage_tail.launches}
     check(min(aux_launches.values()) == len(BATCH_SHAPES + FULLRES_SHAPES),
           f"A1 / T1 did not launch once per shape: {aux_launches}")
+    # A1 at the widths the block shapes skip, and its finalise kernel against
+    # finalize_attention at every width and head count 1-8 (random q, k).
+    with torch.inference_mode():
+        for c in (48, 96, 192):
+            amod = common.ChannelAttention(c, 8, device=dev)
+            common.reset_parameters_(amod, gen)
+            ap = {k: v.detach() for k, v in amod.state_dict().items()}
+            x = torch.randn(2, 40, 60, c, generator=gen).to(dev, torch.bfloat16)
+            held_to_block_rule("fused_attention", f"A1 attention [2, 40, 60, {c}]",
+                               fa.fused_channel_attention(x, ap, 8),
+                               fa.fused_channel_attention_plain(x, ap, 8))
+        fin_err = 0.0
+        for c in fb.KERNEL_WIDTHS:
+            q, k = (torch.randn(2, 64, c, generator=gen).to(dev) for _ in "qk")
+            gram, qss, kss = torch.einsum("bpc,bpd->bcd", q, k), (q * q).sum(1), (k * k).sum(1)
+            sums = torch.cat([gram.reshape(2, c * c), qss, kss], dim=1).contiguous()
+            wproj = (torch.randn(c, c, generator=gen) / c ** 0.5).to(dev)
+            for heads in (1, 2, 4, 8):
+                temp = torch.empty(heads).uniform_(0.5, 3.0, generator=gen).to(dev)
+                got = fa.attention_finalize(sums, temp, wproj, heads).float()
+                want = fb.finalize_attention(gram, qss, kss, temp, wproj, heads)
+                d = (got - want).abs()
+                bad = (d > FINALIZE_ATOL + FINALIZE_RTOL * want.abs()).sum().item()
+                check(bad == 0, f"A1 finalise C={c} heads={heads}: {bad} elements outside "
+                      f"rtol={FINALIZE_RTOL} atol={FINALIZE_ATOL}")
+                fin_err = max(fin_err, d.max().item())
+        log(f"A1 finalise at C in {fb.KERNEL_WIDTHS}, heads 1/2/4/8: max abs err {fin_err:.3e} "
+            f"(rtol {FINALIZE_RTOL}, atol {FINALIZE_ATOL})")
+        del x, q, k, gram, sums
 
     def backward_leaves(x, dy, wts, run):
         """dx2, d_apply, dx and every folded-weight grad of B1 -> finalize
@@ -1205,6 +1244,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for fn in (probes.floor_probe, probes.bisect_probe, fb.apply_pass, fb.apply_pass_pipelined):
         fn.launches = 0
+    probes.floor_probe.launches_by_strategy = dict.fromkeys(probes.STRATEGIES, 0)
     t0 = time.perf_counter()
     floor_rows = probes.run_floor_ladder(BATCH_SHAPES[0], iters=10)
     for r in floor_rows:
@@ -1222,8 +1262,13 @@ def main() -> int:
             f"{r['ms']:.4f} ms, {r['gbs']:.1f} GB/s, err {r['err']:.2e} (bound {bs_:.4f} by "
             f"{bys_})")
         check(r["err"] <= PROBE_TOL, f"bisect probe {r} disagrees with its twin")
-    probe_launches = {"probe_floor": probes.floor_probe.launches,
-                      "probe_bisect": probes.bisect_probe.launches}
+    copy_ms = probes.copy_ms(BATCH_SHAPES[0], iters=10)
+    log(f"probe floor {list(BATCH_SHAPES[0])} copy_  c: {copy_ms:.4f} ms, "
+        f"{4 * np.prod(BATCH_SHAPES[0]) / (copy_ms * 1e-3) / 1e9:.1f} GB/s (Tensor.copy_, the "
+        f"library call of level c)")
+    floor_tma = probes.floor_probe.launches_by_strategy["tma"]
+    probe_launches = {"probe_floor": probes.floor_probe.launches - floor_tma,
+                      "probe_floor_tma": floor_tma, "probe_bisect": probes.bisect_probe.launches}
     log(f"probe ladders in {time.perf_counter() - t0:.1f} s; launches {probe_launches} (stage 5 "
         f"rungs: K3 {fb.apply_pass.launches}, K3P {fb.apply_pass_pipelined.launches})")
     with torch.no_grad():  # the twins' times for the table's rows
@@ -1236,14 +1281,21 @@ def main() -> int:
         apply = fb.finalize_attention(*fb.gram_pass_plain(x, wts), wts.temperature, wts.wproj, 8)
         bisect_twin = cuda_time_ms(lambda: probes.bisect_probe_plain(x, apply, wts, 1), 10)
         del x, apply
-    floor_row = next(r for r in floor_rows if (r["strategy"], r["level"], r["th"]) == ("plain", "c", 8))
+    # probe_floor: the plain/c/th=8 rung, as before the tma rung came;
+    # probe_floor_tma: the tma/c/th=8 rung. Each row's error is its own
+    # strategy's largest over the ladder.
+    for name, strategy in (("probe_floor", "plain"), ("probe_floor_tma", "tma")):
+        floor_row = next(r for r in floor_rows
+                         if (r["strategy"], r["level"], r["th"]) == (strategy, "c", 8))
+        times[name] = (floor_row["ms"], floor_twin)
+        errs[name] = max(r["err"] for r in floor_rows
+                         if r["err"] is not None and (r["strategy"] == "tma") == (strategy == "tma"))
+        bounds[name] = bound(**floor_counts("c", *BATCH_SHAPES[0]))
+        library[name] = copy_ms
     bisect_row = next(r for r in bisect_rows if r["shape"] == BATCH_SHAPES[0]
                       and (r["apply_kernel"], r["stage"]) == ("tiled", 1))
-    times["probe_floor"] = (floor_row["ms"], floor_twin)
     times["probe_bisect"] = (bisect_row["ms"], bisect_twin)
-    errs["probe_floor"] = max(r["err"] for r in floor_rows if r["err"] is not None)
     errs["probe_bisect"] = max(r["err"] for r in bisect_rows)
-    bounds["probe_floor"] = bound(**floor_counts("c", *BATCH_SHAPES[0]))
     bounds["probe_bisect"] = bound(**stage_counts(1, *BATCH_SHAPES[0]))
 
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
@@ -1277,8 +1329,9 @@ def main() -> int:
          wfb_train_launches["selective_scan_bwd"]),
         ("fused_block_apply_pipelined", PKG + "csrc/apply_pipelined.cuh", TPU + "fused_block.py:494",
          pipe_launches["apply_pass_pipelined"]),
-        ("fused_attention", PKG + "csrc/fused_attention.cu", "attic/fused_attention.py:67",
-         aux_launches["fused_attention"]),
+        ("fused_attention", PKG + "csrc/fused_attention.cu (attn_finalize_kernel), " + PKG
+         + "csrc/block_tiles.cuh (gram_kernel, gram_reduce_kernel, apply1_kernel)",
+         "attic/fused_attention.py:67", aux_launches["fused_attention"]),
         ("fused_stage_tail", PKG + "csrc/fused_stage.cu", "attic/fused_stage.py:75",
          aux_launches["fused_stage_tail"]),
         ("probe_floor", PKG + "csrc/probes_floor.cu",
@@ -1286,12 +1339,16 @@ def main() -> int:
          "benchmarks/exp_dma_floor.py:125, benchmarks/exp_dma_floor.py:147, "
          "benchmarks/exp_dma_bw.py:83",
          probe_launches["probe_floor"]),
+        ("probe_floor_tma", PKG + "csrc/probes_floor.cu (floor_tma_kernel)",
+         "benchmarks/exp_dma_floor.py:147", probe_launches["probe_floor_tma"]),
         ("probe_bisect", PKG + "csrc/probes_bisect.cu", "benchmarks/bisect_b5.py:106",
          probe_launches["probe_bisect"]),
     ]
     log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_*, "
         "fused_attention, fused_stage_tail and the probes at [8,256,256,32] bf16 (probe_floor: "
-        "the plain/c/th=8 rung; probe_bisect: K3 cut after stage 1), ssm_scan_fwd and "
+        "the plain/c/th=8 rung, launches of its plain/center/async/async4 rungs; "
+        "probe_floor_tma: the tma/c/th=8 rung, launches of its tma rungs; probe_bisect: K3 "
+        "cut after stage 1), ssm_scan_fwd and "
         "ssm_scan_bwd at [6,16384,96,32] bf16 (ssm_scan_fwd without states), "
         "ssm_scan_fwd_states at [24,16384,96,32] bf16; launches of K1-K3 from RawFormer-S "
         "serving, of K3P from its pipelined serving, of B1/B2 from its training, of "
@@ -1302,7 +1359,8 @@ def main() -> int:
         "of B1/B2 on dx2 / dx, of ssm_scan_fwd(_states) on y, of ssm_scan_bwd on du, of the "
         "probes and "
         "weight_grad relative to the twin's max; library_ms: weight_grad beside torch.matmul "
-        "(bf16); no single PyTorch call computes any other of these functions (null)")
+        "(bf16), probe_floor and probe_floor_tma beside Tensor.copy_ (level c's function); no single PyTorch call "
+        "computes any other of these functions (null)")
     log(card)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": l,

@@ -138,3 +138,40 @@ def test_wrappers_run_twins_on_cpu():
     got = fs.fused_stage_tail(x.bfloat16(), t.bfloat16(), tsd)
     assert got.dtype == torch.bfloat16
     assert (fa.fused_channel_attention.launches, fs.fused_stage_tail.launches) == before
+
+
+def finalize_by_head(gram, qss, kss, temperature, wproj, heads):
+    """The finalise as A1's kernel computes it (fp32): per head only its
+    ch x ch diagonal block of the gram, each row's softmax, then
+    apply[c', d] = sum over the head's c of attn[c, c'] wproj[c, d]."""
+    b, c, _ = gram.shape
+    ch = c // heads
+    qinv = 1.0 / torch.sqrt(qss).clamp_min(1e-12)
+    kinv = 1.0 / torch.sqrt(kss).clamp_min(1e-12)
+    apply = torch.zeros(b, c, c)
+    for h in range(heads):
+        s = slice(h * ch, (h + 1) * ch)
+        logits = gram[:, s, s] * qinv[:, s, None] * kinv[:, None, s] * temperature[h]
+        apply[:, s] = torch.softmax(logits, dim=-1).transpose(1, 2) @ wproj[s]
+    return apply
+
+
+@pytest.mark.parametrize("heads", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [32, 48, 64, 96, 128, 192, 256])
+def test_head_blockwise_finalise_equals_finalize_attention(c, heads):
+    """Reading only the heads' diagonal blocks of the gram (the masked
+    columns skipped outright) computes finalize_attention's apply."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
+        finalize_attention,
+    )
+
+    g = np.random.default_rng(c + heads)
+    q = g.standard_normal((2, 40, c)).astype(np.float32)
+    k = g.standard_normal((2, 40, c)).astype(np.float32)
+    gram = torch.from_numpy(np.einsum("bpc,bpd->bcd", q, k))
+    qss, kss = torch.from_numpy((q * q).sum(1)), torch.from_numpy((k * k).sum(1))
+    temperature = torch.from_numpy(g.uniform(0.5, 2.0, heads).astype(np.float32))
+    wproj = torch.from_numpy((g.standard_normal((c, c)) / np.sqrt(c)).astype(np.float32))
+    torch.testing.assert_close(finalize_by_head(gram, qss, kss, temperature, wproj, heads),
+                               finalize_attention(gram, qss, kss, temperature, wproj, heads),
+                               rtol=1e-6, atol=1e-6)

@@ -1,4 +1,4 @@
-"""The plans of K2, K3 and K3P (``kernels/fused_block.tile_config`` /
+"""The plans of K2, K3, K3P and A1 (``kernels/fused_block.tile_config`` /
 ``block_plan``, the mirror of ``csrc/block_tiles.cuh`` and
 ``csrc/apply_pipelined.cuh``) on the CPU: shared
 memory within an H100 block, tiles that cover the image, every tile walked
@@ -43,6 +43,17 @@ def test_gram_and_attention_gram_share_a_plan():
         assert fb.tile_config("gram", c) == fb.tile_config("attn_gram", c)
 
 
+def test_attention_apply_has_the_plan_of_k3_phase_one():
+    """A1's apply pass is K3's first kernel without LN1: the same tile,
+    threads and shared memory, and the same plan at every shape."""
+    for c in fb.KERNEL_WIDTHS:
+        assert fb.tile_config("attn_apply", c) == fb.tile_config("apply1", c)
+        for b, h, w in SHAPES:
+            for resident in (1, 3, H100_SMS, 2 * H100_SMS):
+                assert fb.block_plan("attn_apply", b, h, w, c, resident) == \
+                    fb.block_plan("apply1", b, h, w, c, resident)
+
+
 def test_tile_configs_reject_unknown_kinds_and_widths():
     with pytest.raises(ValueError, match="kind"):
         fb.tile_config("bwd", 32)
@@ -51,7 +62,7 @@ def test_tile_configs_reject_unknown_kinds_and_widths():
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("kind", ["gram", "apply1", "apply2"])
+@pytest.mark.parametrize("kind", ["gram", "apply1", "apply2", "attn_apply"])
 def test_plans_cover_the_image_once(kind, shape):
     """At every width and at one and two CTAs per SM: the tiles cover H and
     W with less than one tile to spare, the CTAs' runs partition the tiles

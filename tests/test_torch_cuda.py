@@ -911,6 +911,147 @@ def test_attention_and_stage_tail_kernels_match_twins(cuda, c):
     torch.testing.assert_close(s.float(), s0, **BF16_TOL)
 
 
+def attention_case(c, shape, seed, device):
+    """A seeded dim-c ChannelAttention's weights (8 heads, temperatures off
+    1) and bf16 x of ``shape``."""
+    gen = torch.Generator().manual_seed(seed)
+    attn = common.ChannelAttention(c, 8, device=device)
+    common.reset_parameters_(attn, gen)
+    sd = {k: v.detach() for k, v in attn.state_dict().items()}
+    with torch.no_grad():
+        sd["temperature"].add_(torch.empty(8, 1, 1).uniform_(-0.3, 0.3, generator=gen).to(device))
+    x = torch.randn(*shape, c, generator=gen).to(device, torch.bfloat16)
+    return x, sd
+
+
+def check_attention(x, sd, heads=8):
+    """A1 against its twin (bf16 kernel vs fp32 twin, the block rule), one
+    launch a call."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_attention as fa
+
+    before = fa.fused_channel_attention.launches
+    with torch.inference_mode():
+        got = fa.fused_channel_attention(x, sd, heads)
+        torch.cuda.synchronize()
+        want = fa.fused_channel_attention_plain(x, sd, heads)
+    assert fa.fused_channel_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want, **BF16_TOL)
+    return got
+
+
+# The finalise's bf16 apply against the fp32 twin: one bf16 rounding of the
+# value (at most one bf16 step, 2^-8 of it, where the two fp32 sums fall on
+# either side of a rounding boundary), and 1e-6 for values near zero.
+FINALIZE_TOL = dict(rtol=2.0 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_attention_finalise_kernel_matches_twin(cuda, c, b):
+    """A1's finalise kernel (the heads' diagonal blocks of the gram only, a
+    softmax row's max and sum first, column blocks of wproj) against
+    finalize_attention at 1, 2, 4 and 8 heads (ch = C down to C / 8)."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_attention as fa
+
+    g = np.random.default_rng(c + b)
+    q = torch.from_numpy(g.standard_normal((b, 64, c)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(g.standard_normal((b, 64, c)).astype(np.float32)).to(cuda)
+    gram = torch.einsum("bpc,bpd->bcd", q, k)
+    qss, kss = (q * q).sum(1), (k * k).sum(1)
+    sums = torch.cat([gram.reshape(b, c * c), qss, kss], dim=1).contiguous()
+    wproj = torch.from_numpy((g.standard_normal((c, c)) / np.sqrt(c)).astype(np.float32)).to(cuda)
+    for heads in (1, 2, 4, 8):
+        temperature = torch.from_numpy(g.uniform(0.5, 3.0, heads).astype(np.float32)).to(cuda)
+        got = fa.attention_finalize(sums, temperature, wproj, heads)
+        want = fb.finalize_attention(gram, qss, kss, temperature, wproj, heads)
+        assert got.dtype == torch.bfloat16 and got.shape == (b, c, c)
+        torch.testing.assert_close(got.float(), want, **FINALIZE_TOL, msg=f"heads {heads}")
+
+
+# 1 x 1, 1 x W, an image below one tile, ragged tiles over two images,
+# several tiles a CTA.
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 1, 37), (1, 5, 9), (2, 19, 13), (1, 40, 70)])
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_attention_kernel_at_every_width(cuda, c, shape):
+    x, sd = attention_case(c, shape, c + len(shape), cuda)
+    check_attention(x, sd)
+
+
+@pytest.mark.parametrize("regime", ["one", "three", "per_tile"])
+@pytest.mark.parametrize("c", [32, 48, 96, 192, 256])
+def test_attention_kernel_under_forced_plans(cuda, monkeypatch, c, regime):
+    """A1's gram and apply kernels walk runs of tiles (the apply pass across
+    images): any grid gives the same function."""
+    force_block_plan(monkeypatch, regime)
+    x, sd = attention_case(c, (3, 21, 35), c + 5, cuda)
+    check_attention(x, sd)
+
+
+@pytest.mark.parametrize("c", [32, 128, 256])
+def test_attention_reruns_are_bitwise_equal(cuda, c):
+    """No atomics: the gram partials are summed in a fixed order."""
+    x, sd = attention_case(c, (2, 33, 50), c + 7, cuda)
+    assert torch.equal(check_attention(x, sd), check_attention(x, sd))
+
+
+def test_attention_weights_are_remade_after_an_in_place_update(cuda):
+    """A1's kernel arguments are cached per tensor and _version: an in-place
+    change of a weight is seen by the next call."""
+    x, sd = attention_case(64, (1, 20, 20), 3, cuda)
+    before = check_attention(x, sd)
+    with torch.no_grad():
+        sd["project_out.weight"].mul_(-1.0)
+    after = check_attention(x, sd)
+    assert not torch.equal(before, after)
+
+
+def test_attention_kernel_on_weights_made_in_inference_mode(cuda):
+    """Inference tensors keep no version counter: A1 remakes their
+    arguments on every call, so an in-place update is still seen."""
+    with torch.inference_mode():
+        x, sd = attention_case(128, (1, 20, 30), 5, cuda)
+        before = check_attention(x, sd)
+        sd["qkv.weight"].mul_(-1.0)
+        after = check_attention(x, sd)
+    assert not torch.equal(before, after)
+
+
+def test_attention_plans_match_the_library(cuda):
+    """A1's apply plan (K3 phase 1's geometry, blle_block_kernel_info's kind
+    5) and its gram workspace agree with the C library."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+
+    for c in fb.KERNEL_WIDTHS:
+        cfg = fb.tile_config("attn_apply", c)
+        th, tw, threads, smem, per_sm = fb.kernel_info("attn_apply", c)
+        assert (th, tw, threads, smem) == (cfg.th, cfg.tw, cfg.threads, cfg.smem), c
+        assert per_sm >= 1 and per_sm == fb.kernel_info("apply1", c)[4], c
+    lib = _build.library()
+    for b, h, w, c in [(8, 256, 256, 32), (8, 32, 32, 256), (1, 177, 265, 256), (2, 19, 13, 48)]:
+        plan = fb.plan_for("attn_gram", b, h, w, c, 0)
+        assert fb.gram_workspace_floats(b, h, w, c, plan) == \
+            lib.blle_attn_gram_workspace_floats(b, h, w, c)
+
+
+@pytest.mark.parametrize("level", ["c", "m", "v"])
+def test_tma_floor_rung_matches_twin(cuda, level):
+    """The floor ladder's TMA rung at every tile height on an image whose
+    tiles outnumber the resident CTAs several times over (each CTA's walk
+    wraps the 4-slot window ring), ragged in both directions."""
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(4, 300, 301, 32, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(32, 32, generator=g) / 32 ** 0.5).to(cuda, torch.bfloat16)
+    dw = (torch.randn(9, 32, generator=g) / 3).to(cuda)
+    ref = pf.floor_probe_plain(x, w, dw, level)
+    for th in pf.TILE_HEIGHTS:
+        out = pf.floor_probe(x, w, dw, "tma", level, th).float()
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        assert err <= (0 if level == "c" else 3e-2), (level, th, err)
+
+
 def stage_tail_case(c, shape, seed, device):
     """A seeded dim-c ConvTransformer's weights and bf16 x, t of ``shape``."""
     gen = torch.Generator().manual_seed(seed)

@@ -93,6 +93,16 @@ def test_cli_help():
         assert flag in out.stdout
 
 
+def test_tma_strategy_is_accepted_and_its_twin_is_the_plain_one():
+    """The "tma" rung is a strategy of the wrapper and of the CLI; on the CPU
+    every strategy's result is the whole-image twin at every level."""
+    assert cli.parser().parse_args(["--strategies", "plain,tma"]).strategies == ["plain", "tma"]
+    x, w, dw = floor_inputs(2)
+    for level in pf.LEVELS:
+        assert torch.equal(pf.floor_probe(x, w, dw, "tma", level, 4),
+                           pf.floor_probe(x, w, dw, "plain", level, 4))
+
+
 @pytest.mark.parametrize("argv", [["--th", "5"], ["--shape", "8,256,256,64"],
                                   ["--strategies", "plain,dma"], ["--levels", ""],
                                   ["--stages", "0"], ["--widths", "48"], ["--ladder", "roof"],
