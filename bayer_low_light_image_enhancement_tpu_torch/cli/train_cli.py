@@ -4,20 +4,27 @@
         --dataset synthetic --model_size S --patch_size 512 --batch_size 16
     ... --model rawformer_wfb --batch_size 8          # RawFormer-WFB
     ... --device cpu                                  # no card
+    ... --dataset SID --data_root <root> --cache_dir <npz cache>
 
 The argparse surface of ``bayer_low_light_image_enhancement_tpu/cli/
-train_cli.py``, with its training semantics: epoch loop, per-epoch
+train_cli.py``, with its training semantics: SID (``<data_root>/Sony/
+{short,long}``, ARW through ``data.raw``'s npz cache), MCR
+(``<data_root>/Mono_Colored_RAW_Paired_DATASET/random_path_list/
+{train,test}/*.npy`` path lists) or synthetic data; the batch producer
+(``--loader``: the native C++ engine when the training split is in RAM,
+with compact 16-bit batches decoded on the device unless
+``--no_compact_h2d``, else the Python ``Loader``); epoch loop, per-epoch
 validation PSNR on the uint8 grid, best and every-``save_every``-epochs
 checkpoints, ``--resume``, text log + TensorBoard scalars under
-``<save_dir>/<dataset>/``. What this slice does not have yet exits with a
-message: the SID / MCR loaders, the C++ batch engine (``--loader native``)
-and more than one device. It trains on the card unless ``--device cpu``
-asks for the CPU, and exits with a message when no card is present.
+``<save_dir>/<dataset>/``. More than one device exits with a message. It
+trains on the card unless ``--device cpu`` asks for the CPU, and exits
+with a message when no card is present.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -25,9 +32,14 @@ import torch
 
 from bayer_low_light_image_enhancement_tpu_torch.data import (
     Loader,
+    MCRDataset,
+    SIDDataset,
     SyntheticBayerDataset,
+    discover_sid_pairs,
     prefetch_to_device,
 )
+from bayer_low_light_image_enhancement_tpu_torch.data import native
+from bayer_low_light_image_enhancement_tpu_torch.data.pipeline import to_device
 from bayer_low_light_image_enhancement_tpu_torch.models import RawFormer, RawFormerConfig, get_model
 from bayer_low_light_image_enhancement_tpu_torch.train.checkpoint import (
     BestTracker,
@@ -66,22 +78,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_every", type=int, default=1)
     p.add_argument("--save_every", type=int, default=50)
     p.add_argument("--loader", default="auto", choices=["auto", "python", "native"],
-                   help="training batch producer (the port has the Python thread-pool Loader)")
+                   help="training batch producer: the C++ engine (native) when the training "
+                   "split is in RAM (auto), or the Python thread-pool Loader")
     p.add_argument("--device_prefetch", type=int, default=2,
                    help="batches staged on the device ahead of the step (0 = synchronous)")
     p.add_argument("--no_compact_h2d", action="store_true",
-                   help="accepted for the JAX CLI's surface; the Python loader ships fp32")
+                   help="ship fp32 batches instead of the 16-bit compact transfer (uint16 "
+                   "mosaic codes + ratio + uint16 GT decoded on the device; native loader only)")
     return p
 
 
 def check_supported(args) -> None:
-    """Exit with a message for what this slice of the port does not have."""
-    if args.dataset in ("SID", "MCR"):
-        raise SystemExit(f"--dataset {args.dataset}: the SID/MCR loaders are not ported yet "
-                         "(a later slice); use --dataset synthetic")
-    if args.loader == "native":
-        raise SystemExit("--loader native: the C++ batch engine is not ported yet; "
-                         "use --loader python")
+    """Exit with a message for what the port does not have (more than one
+    device) or cannot do here (no card)."""
     if args.num_chips not in (-1, 1) or args.tensor_chips != 1:
         raise SystemExit("the port trains on one device: --num_chips and --tensor_chips "
                          "other than 1 come with multi-GPU training (a later slice)")
@@ -90,21 +99,69 @@ def check_supported(args) -> None:
                          "train on the CPU")
 
 
-def build_datasets(args):
-    train = SyntheticBayerDataset(
-        num_images=16, full_size=(args.patch_size * 2, args.patch_size * 2 + 64),
-        patch_size=args.patch_size, training=True,
-    )
-    val = SyntheticBayerDataset(
+MCR_LISTS = "Mono_Colored_RAW_Paired_DATASET/random_path_list"
+
+
+def build_split(args, training: bool):
+    """The training (``training``) or test split of ``args.dataset``;
+    exits with a message when a SID / MCR split is empty."""
+    split = "train" if training else "test"
+    if args.dataset == "SID":
+        shorts, longs = discover_sid_pairs(args.data_root, split)
+        if not shorts:
+            ids = "0*, 2*" if training else "1*"
+            raise SystemExit(f"--dataset SID: no SID {split} pairs under "
+                             f"{args.data_root}/Sony/short ({ids}_00_0.1s.ARW)")
+        return SIDDataset(shorts, longs, args.patch_size, training, args.cache_dir)
+    if args.dataset == "MCR":
+        lists = f"{args.data_root}/{MCR_LISTS}/{split}/{split}"
+        if not os.path.exists(f"{lists}_c_path.npy"):
+            raise SystemExit(f"--dataset MCR: no {split} path list {lists}_c_path.npy")
+        raws = np.load(f"{lists}_c_path.npy", allow_pickle=True).tolist()
+        rgbs = np.load(f"{lists}_rgb_path.npy", allow_pickle=True).tolist()
+        return MCRDataset(raws, rgbs, args.patch_size, training)
+    if training:
+        return SyntheticBayerDataset(
+            num_images=16, full_size=(args.patch_size * 2, args.patch_size * 2 + 64),
+            patch_size=args.patch_size, training=True,
+        )
+    return SyntheticBayerDataset(
         num_images=4, full_size=(args.patch_size, args.patch_size),
         patch_size=args.patch_size, training=False, seed=1,
     )
-    return train, val
 
 
-def build_model(args, device):
+def build_datasets(args):
+    """(train, val) datasets of ``args.dataset``."""
+    return build_split(args, True), build_split(args, False)
+
+
+def build_train_loader(args, train_ds):
+    """The training batch producer and its kind: "native-compact" (the C++
+    engine's ``(raw_u16, ratio, gt_u16)`` triples), "native" (its fp32
+    ``(raw, gt)`` pairs) or "python" (``Loader``'s ``(mosaic, gt, ratio)``).
+    ``--loader auto`` takes the engine where it can build and the training
+    split is in RAM; ``--loader native`` exits with a message where not."""
+    if args.loader in ("auto", "native"):
+        compact = not args.no_compact_h2d
+        sampler = native.sampler_for_dataset(train_ds, seed=args.seed, compact=compact)
+        if sampler is not None:
+            loader = native.NativeLoader(train_ds, sampler, args.batch_size, seed=args.seed)
+            return loader, "native-compact" if compact else "native"
+        if args.loader == "native":
+            why = native._build_error or ("it takes a RAM-resident SID or synthetic training "
+                                          "split with frames of at least patch_size + 2")
+            raise SystemExit(f"--loader native: the C++ batch engine is unavailable ({why})")
+    return Loader(train_ds, args.batch_size, shuffle=True, seed=args.seed), "python"
+
+
+LOADER_LABELS = {"native-compact": "native (compact 16-bit H2D)", "native": "native",
+                 "python": "python"}
+
+
+def build_model(args, device, seed: int):
     dtype = torch.float32 if args.fp32 else torch.bfloat16
-    gen = torch.Generator().manual_seed(args.seed)
+    gen = torch.Generator().manual_seed(seed)
     if args.model:
         return get_model(args.model, device=device, generator=gen, dtype=dtype)
     return RawFormer(RawFormerConfig.from_size(args.model_size, dtype=dtype), device=device,
@@ -117,13 +174,13 @@ def main(argv=None):
     device = torch.device(args.device)
 
     train_ds, val_ds = build_datasets(args)
-    train_loader = Loader(train_ds, args.batch_size, shuffle=True, seed=args.seed)
-    print("training batch producer: python")
-    val_loader = Loader(val_ds, min(args.batch_size, len(val_ds)), shuffle=False,
+    train_loader, loader_kind = build_train_loader(args, train_ds)
+    print(f"training batch producer: {LOADER_LABELS[loader_kind]}")
+    val_loader = Loader(val_ds, max(1, min(args.batch_size, len(val_ds))), shuffle=False,
                         drop_last=False)
     steps_per_epoch = max(1, len(train_loader))
 
-    model = build_model(args, device)
+    model = build_model(args, device, args.seed)
     trainer = Trainer(model, TrainConfig(
         base_lr=args.base_lr, total_epochs=args.epochs, steps_per_epoch=steps_per_epoch,
         loss=args.loss, remat=args.remat, fused_blocks=not args.no_fused_train,
@@ -150,11 +207,16 @@ def main(argv=None):
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
         losses = []
-        batches = ((inp, gt) for inp, gt, _ in train_loader)
+        if loader_kind == "python":
+            batches = ((inp, gt) for inp, gt, _ in train_loader)
+        else:
+            # The engine's (raw, gt) pairs, or its compact triples, which
+            # Trainer.train_step decodes on the device: handed over whole.
+            batches = iter(train_loader)
         if args.device_prefetch > 0:
             batches = prefetch_to_device(batches, device, size=args.device_prefetch)
         else:
-            batches = (tuple(torch.from_numpy(a).to(device) for a in b) for b in batches)
+            batches = (tuple(to_device(a, device) for a in b) for b in batches)
         for batch in batches:
             losses.append(trainer.train_step(batch))
         epoch_loss = float(torch.stack(losses).sum()) if losses else 0.0

@@ -117,6 +117,17 @@ def _copy(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).pin_memory().view(torch.uint16)
+    return t.pin_memory()
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> tensor on ``device`` (uint16 moved as its int16 bits)."""
+    return _copy(to_tensor(a), torch.device(device))
+
+
 def prefetch_to_device(iterator: Iterable, device="cuda", size: int = 2
                        ) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Yield each numpy batch of ``iterator`` as a tuple of tensors on
@@ -137,7 +148,7 @@ def prefetch_to_device(iterator: Iterable, device="cuda", size: int = 2
             batch = next(it)
         except StopIteration:
             return False
-        host = [to_tensor(a).pin_memory() for a in batch]
+        host = [_pinned(to_tensor(a)) for a in batch]
         with torch.cuda.stream(copy_stream):
             dev = [_copy(h, device) for h in host]
             done = torch.cuda.Event()

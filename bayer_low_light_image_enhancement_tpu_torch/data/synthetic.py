@@ -3,20 +3,19 @@
 As ``bayer_low_light_image_enhancement_tpu/data/synthetic.py`` (numpy, the
 same samples for the same seed): a smooth random RGB scene, mosaicked
 through an RGGB CFA, darkened by the exposure ratio, with Gaussian read
-noise, quantised to the SID uint14 code range.
+noise, quantised to the SID uint14 code range. ``write_sid_tree`` writes
+such pairs to disk in the SID layout, for the SID loaders and the CLIs.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from bayer_low_light_image_enhancement_tpu_torch.data import augment
-
-# SID Sony A7S2 black and white levels (14-bit codes).
-BLACK_LEVEL = 512.0
-WHITE_LEVEL = 16383.0
+from bayer_low_light_image_enhancement_tpu_torch.data.sid import BLACK_LEVEL, WHITE_LEVEL
 
 
 def synth_scene(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -85,3 +84,39 @@ class SyntheticBayerDataset:
         m = np.clip(mosaic.astype(np.float32), BLACK_LEVEL, WHITE_LEVEL)
         m = (m - BLACK_LEVEL) / (WHITE_LEVEL - BLACK_LEVEL + 1e-6) * self.ratio
         return m[..., None], gt, np.float32(self.ratio)
+
+
+def write_sid_tree(root: str, cache_dir: str, shapes: Dict[str, Sequence[Tuple[int, int]]],
+                   rng: np.random.Generator) -> Dict[str, Tuple[List[str], List[str]]]:
+    """Write synthetic pairs in the SID layout: empty placeholder ARWs
+    ``<root>/Sony/short/<id>_00_0.1s.ARW`` and ``<root>/Sony/long/<id>_00_
+    {10,30}s.ARW`` (ratio 100 / 300, alternating), with their decodes in the
+    npz cache (``data.raw``: ``mosaic`` uint16 [H, W] codes in [512, 16383],
+    ``rgb`` uint16 [H, W, 3]). ``shapes`` maps "train" (ids 0xxxx) and
+    "test" (ids 1xxxx) to the frames' (H, W). Returns (shorts, longs) per
+    split, in ``discover_sid_pairs``' order."""
+    for d in ("Sony/short", "Sony/long"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    os.makedirs(cache_dir, exist_ok=True)
+    out = {}
+    for split, frames in shapes.items():
+        shorts, longs = [], []
+        for k, (h, w) in enumerate(frames):
+            sid = f"{0 if split == 'train' else 1}{k:04d}"
+            exposure, ratio = ("10s", 100.0) if k % 2 == 0 else ("30s", 300.0)
+            short = os.path.join(root, "Sony/short", f"{sid}_00_0.1s.ARW")
+            long = os.path.join(root, "Sony/long", f"{sid}_00_{exposure}.ARW")
+            gt = synth_scene(rng, h, w)
+            dark = mosaic_rggb(gt) / ratio
+            code = dark * (WHITE_LEVEL - BLACK_LEVEL) + BLACK_LEVEL
+            code += rng.normal(0, 0.5, dark.shape).astype(np.float32)
+            mosaic = np.clip(np.round(code), BLACK_LEVEL, WHITE_LEVEL).astype(np.uint16)
+            for path in (short, long):
+                open(path, "wb").close()
+            np.savez(os.path.join(cache_dir, os.path.basename(short) + ".npz"), mosaic=mosaic)
+            np.savez(os.path.join(cache_dir, os.path.basename(long) + ".npz"),
+                     rgb=np.round(gt * 65535.0).astype(np.uint16))
+            shorts.append(short)
+            longs.append(long)
+        out[split] = (shorts, longs)
+    return out

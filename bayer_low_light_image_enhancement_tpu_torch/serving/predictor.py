@@ -8,9 +8,14 @@ Port of ``bayer_low_light_image_enhancement_tpu/serving/predictor.py``:
 * ``raw_u16`` takes the production input, a uint16 RGGB mosaic ([H,W] or
   [B,H,W]) and its exposure ratio, through the fused pack kernel and the
   prepacked model entry (RawFormer; a model without one raises TypeError);
+* ``codes`` takes integer sensor codes in ``__call__``'s frame shapes and
+  decodes them on the device, for any model: SID uint16 mosaics and their
+  ratio as ``raw_u16`` does where the model has a prepacked entry, else
+  through ``ops.bayer.normalize_sid``; MCR uint8 codes and their
+  amplification through ``normalize_mcr``;
 * weights come from a ``state_dict``, another module, a reference ``.pth``
-  (``from_torch``) or the JAX package's RawFormer params tree
-  (``from_jax_params``).
+  (``from_torch``) or the JAX package's variables (``from_jax_params``:
+  RawFormer params, or RawFormer-WFB params and batch_stats).
 
 The model runs on ``device``, the card unless the caller asks for the CPU.
 Inputs and outputs are numpy arrays (outputs NHWC fp32). On CUDA every
@@ -34,6 +39,7 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.bayer_pack import (
     make_raw_u16_forward,
 )
 from bayer_low_light_image_enhancement_tpu_torch.models.common import set_apply_kernel
+from bayer_low_light_image_enhancement_tpu_torch.ops.bayer import normalize_mcr, normalize_sid
 
 
 class Predictor:
@@ -55,6 +61,7 @@ class Predictor:
         self.pad_to = pad_to
         set_apply_kernel(model, apply_kernel)
         self.model = model.to(self.device).eval()
+        self._prepacked = "prepacked" in inspect.signature(self.model.forward).parameters
         self._u16_forward = make_raw_u16_forward(self.model, dtype=model.config.dtype)
 
     # ------------------------------------------------------------------
@@ -69,11 +76,19 @@ class Predictor:
 
     @classmethod
     def from_jax_params(cls, model: nn.Module, params_np: Mapping[str, Any], **kw) -> "Predictor":
-        """Load the JAX package's RawFormer params tree (numpy leaves)."""
+        """Load the JAX package's variables (numpy leaves): a RawFormer params
+        tree, or for a ``RawFormerWFB`` model its ``{"params",
+        "batch_stats"}``."""
         from bayer_low_light_image_enhancement_tpu_torch.compat.jax_params import (
             state_dict_from_jax,
+            wfb_state_dict_from_jax,
         )
+        from bayer_low_light_image_enhancement_tpu_torch.models.wfb import RawFormerWFB
 
+        if isinstance(model, RawFormerWFB):
+            if "batch_stats" not in params_np:
+                raise ValueError('RawFormer-WFB loads its {"params", "batch_stats"} variables')
+            return cls(model, wfb_state_dict_from_jax(params_np), **kw)
         return cls(model, state_dict_from_jax(params_np), **kw)
 
     # ------------------------------------------------------------------
@@ -86,20 +101,58 @@ class Predictor:
         y = y.float().cpu().numpy()
         return y[0] if squeeze else y
 
+    @staticmethod
+    def _frames(a: np.ndarray):
+        """[H,W], [H,W,1] or [B,H,W,1] -> ([B,H,W,1], whether to squeeze)."""
+        squeeze = a.ndim < 4
+        x = a[..., None] if a.ndim == 2 else a
+        x = x[None] if x.ndim == 3 else x
+        if x.ndim != 4 or x.shape[-1] != 1:
+            raise ValueError(f"expected [H,W], [H,W,1] or [B,H,W,1], got {a.shape}")
+        return np.ascontiguousarray(x), squeeze
+
+    def _padded(self, x: torch.Tensor) -> torch.Tensor:
+        """[B,H,W,1] on the device -> [B,1,H',W'] zero-padded to ``pad_to``."""
+        ph, pw = self._pads(*x.shape[1:3])
+        return F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph))
+
     def __call__(self, raw: np.ndarray) -> np.ndarray:
         """RAW mosaic in [0,1]*ratio -> RGB in [0,1]; shape-preserving."""
-        x = torch.from_numpy(np.asarray(raw, np.float32))
-        squeeze = x.dim() < 4
-        if x.dim() == 2:
-            x = x[..., None]
-        if x.dim() == 3:
-            x = x[None]
-        if x.dim() != 4 or x.shape[-1] != 1:
-            raise ValueError(f"expected [H,W], [H,W,1] or [B,H,W,1], got {np.shape(raw)}")
+        x, squeeze = self._frames(np.asarray(raw, np.float32))
         h, w = x.shape[1:3]
-        ph, pw = self._pads(h, w)
-        x = F.pad(x.to(self.device).permute(0, 3, 1, 2), (0, pw, 0, ph))
+        x = self._padded(torch.from_numpy(x).to(self.device))
         with torch.inference_mode():
+            y = self.model(x)
+        return self._finish(y, h, w, squeeze)
+
+    def codes(self, codes: np.ndarray, scale, decode: str = "sid") -> np.ndarray:
+        """Integer sensor codes in ``__call__``'s frame shapes + per-image
+        scale (scalar or [B]) -> RGB in [0,1], decoded on the device:
+        ``decode="sid"`` takes uint16 mosaic codes and the exposure ratio
+        (through ``raw_u16``'s pack kernel where the model has a prepacked
+        entry, else ``normalize_sid``), ``"mcr"`` uint8 codes and the
+        amplification (``normalize_mcr``). The codes are zero-padded to
+        ``pad_to`` (code 0 decodes to 0 in all three) and the output cropped
+        back."""
+        dtypes = {"sid": np.uint16, "mcr": np.uint8}
+        if decode not in dtypes:
+            raise ValueError(f"decode must be one of {sorted(dtypes)}, got {decode!r}")
+        c = np.asarray(codes)
+        if c.dtype != dtypes[decode]:
+            raise TypeError(f"{decode} codes must be {np.dtype(dtypes[decode])}, got {c.dtype}")
+        x, squeeze = self._frames(c)
+        if decode == "sid" and self._prepacked:
+            return self._packed_forward(x[..., 0], scale, squeeze)
+        b, h, w = x.shape[:3]
+        s = torch.as_tensor(np.asarray(scale, np.float32).reshape(-1)).to(self.device)
+        s = s.expand(b).reshape(b, 1, 1, 1)
+        with torch.inference_mode():
+            if decode == "sid":
+                # uint16 tensors support few ops: move and pad the codes as int16 bits.
+                t = self._padded(torch.from_numpy(x.view(np.int16)).to(self.device))
+                x = normalize_sid(t.to(torch.int32) & 0xFFFF, s)
+            else:
+                x = normalize_mcr(self._padded(torch.from_numpy(x).to(self.device)), s)
             y = self.model(x)
         return self._finish(y, h, w, squeeze)
 
@@ -110,7 +163,7 @@ class Predictor:
         The mosaic is zero-padded to a multiple of ``pad_to`` (code 0
         decodes to black) and the output cropped back. Raises TypeError for
         a model without a prepacked entry (RawFormer-WFB)."""
-        if "prepacked" not in inspect.signature(self.model.forward).parameters:
+        if not self._prepacked:
             raise TypeError(f"{type(self.model).__name__} has no prepacked entry: raw_u16 serves "
                             "RawFormer; serve this model through __call__")
         m = np.asarray(mosaic)
@@ -121,6 +174,11 @@ class Predictor:
             m = m[None]
         if m.ndim != 3:
             raise ValueError(f"expected [H,W] or [B,H,W], got {np.shape(mosaic)}")
+        return self._packed_forward(m, ratio, squeeze)
+
+    def _packed_forward(self, m: np.ndarray, ratio, squeeze: bool) -> np.ndarray:
+        """uint16 [B,H,W] + ratio -> RGB through the pack kernel and the
+        prepacked model."""
         b, h, w = m.shape
         r = torch.as_tensor(np.asarray(ratio, np.float32).reshape(-1)).to(self.device)
         r = r.expand(b).contiguous() if r.numel() == 1 else r

@@ -5,7 +5,7 @@ Port of ``bayer_low_light_image_enhancement_tpu/utils/logging.py``:
   * TensorBoard scalars through ``torch.utils.tensorboard`` when it imports
     (it needs the ``tensorboard`` package); otherwise a warning, once, and
     the text log goes on.
-(The per-image PSNR/SSIM CSV comes with the evaluation CLI.)
+  * the evaluation CLI's per-image PSNR/SSIM CSV (``write_metrics_csv``).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import datetime
 import os
 import warnings
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 
 class MetricsLogger:
@@ -54,6 +54,14 @@ class MetricsLogger:
             for name, value in scalars.items():
                 self._tb.add_scalar(name, float(value), step)
             self._tb.flush()
+
+    def write_metrics_csv(self, path: str, psnr_values: Sequence[float],
+                          ssim_values: Sequence[float]) -> None:
+        """One ``psnr,ssim`` row per image (4 decimals); makes the directory."""
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            for p, s in zip(psnr_values, ssim_values):
+                f.write(f"{p:.4f},{s:.4f}\n")
 
     def close(self) -> None:
         if self._log_f:

@@ -73,7 +73,26 @@ Phases (any failed check raises and the script exits non-zero):
    each stage; K3's stages 1-3 cut its first kernel, stage 4 adds its
    second cut after the FFN expand) at the four RawFormer-S block shapes,
    every rung that computes a result against its twin, ms and effective
-   GB/s per rung.
+   GB/s per rung;
+9. the real-data path: SID-layout trees written from a seed
+   (``data.synthetic.write_sid_tree``: 8 training pairs at 1424x2128, 2
+   test pairs at 2832x4240, a second tree with one ragged 2838x4250 frame;
+   npz cache, codes in [512, 16383], uint16 GT); the train CLI on RawFormer-S
+   with ``--loader native`` at batch 8 @ 512x512 (compact 16-bit triples
+   through the kernel path, validation at full frame): K2 / K3 7 times a
+   step and a validation forward, B1 / B2 7 and the weight-grad pass 6 times
+   a step, K1 never; the eval CLI from its checkpoint, compact (K1 once an
+   image) and ``--no_compact_h2d`` (K1 never), K2 / K3 7 times an image, one
+   CSV row an image, the two runs' per-image PSNR within EVAL_PSNR_TOL and
+   SSIM within EVAL_SSIM_TOL; on one frame ``Predictor.raw_u16`` against
+   ``__call__`` of the frame decoded on the host in K1's expression within
+   DECODE_TOL, a doubled ratio moving the output by more than DECODE_SEEN,
+   and both forwards' device time; the MCR device decode of two dark
+   in-memory uint8 frames (the two amplifications) against the host decode,
+   held the same way; the eval CLI on WFB-48 over the ragged
+   frame (S1 7 times, pad 32). Host seconds per image and forward device
+   ms are printed beside the card's name and power limit; without
+   ``imageio`` no JPEG is written, and a line says so.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -89,6 +108,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -164,6 +184,21 @@ SCAN_TRAIN_SHAPES = [(24, 16384, 96), (24, 4096, 192), (24, 1024, 384), (24, 256
 # taken in another order than the fp32 twin's): within WG_TOL of each
 # product's max.
 WG_TOL = 1e-4
+
+# The real-data phase (9): the eval CLI's compact run (K1 packs in bf16 with
+# the model's clamp folded in) against its host-decode run (numpy fp32
+# decode, the model's clamp and bf16 cast): the same function up to the
+# decode's fp32 rounding, so per-image PSNR on the uint8 grid within
+# EVAL_PSNR_TOL dB and SSIM within EVAL_SSIM_TOL.
+EVAL_PSNR_TOL, EVAL_SSIM_TOL = 0.1, 2e-3
+# raw_u16 and Predictor.codes against __call__ of the frame decoded on the
+# host in the device's own fp32 expression: the model sees the same bf16
+# input either way, so the outputs agree to DECODE_TOL; a doubled ratio or
+# amplification must move the output by more than DECODE_SEEN, or the
+# comparison could not see one.
+DECODE_TOL, DECODE_SEEN = 1e-6, 1e-3
+REAL_TRAIN_FRAME, REAL_TEST_FRAME = (1424, 2128), (2832, 4240)
+REAL_RAGGED_FRAME, REAL_MCR_FRAME = (2838, 4250), (1024, 1280)
 
 BATCH_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128), (8, 32, 32, 256)]
 FULLRES_SHAPES = [(1, 1416, 2120, 32), (1, 177, 265, 256)]
@@ -361,6 +396,167 @@ def mosaics(rng, shape) -> np.ndarray:
     hot = rng.random(shape) < 1e-3
     m[hot] = rng.integers(32768, 65536, int(hot.sum()), dtype=np.uint16)
     return m
+
+
+def real_data_phase(dev, card, counters) -> None:
+    """Phase 9: the train and eval CLIs on SID-layout trees at full frame
+    size, WFB-48 on a ragged frame, the MCR device decode."""
+    import importlib.util
+    import tempfile
+
+    from bayer_low_light_image_enhancement_tpu_torch.cli import test_cli, train_cli
+    from bayer_low_light_image_enhancement_tpu_torch.data.synthetic import (
+        mosaic_rggb,
+        synth_scene,
+        write_sid_tree,
+    )
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
+    from bayer_low_light_image_enhancement_tpu_torch.train.checkpoint import CheckpointManager
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms
+
+    def run(what, fn):
+        """fn() with every counter at 0 just before; -> (its result, the
+        counts just after)."""
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters}
+        log(f"{what}: {time.perf_counter() - t0:.2f} s; launches {got}")
+        return out, got
+
+    rng = np.random.default_rng(9)
+    have_imageio = importlib.util.find_spec("imageio") is not None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sid_") as tmp:
+        root, ragged = f"{tmp}/sid", f"{tmp}/sid_ragged"
+        t0 = time.perf_counter()
+        write_sid_tree(root, f"{root}/cache",
+                       {"train": [REAL_TRAIN_FRAME] * 8, "test": [REAL_TEST_FRAME] * 2}, rng)
+        write_sid_tree(ragged, f"{ragged}/cache", {"test": [REAL_RAGGED_FRAME]}, rng)
+        log(f"real data: SID trees written in {time.perf_counter() - t0:.1f} s (8 training pairs "
+            f"at {REAL_TRAIN_FRAME}, 2 test pairs at {REAL_TEST_FRAME}, one ragged at "
+            f"{REAL_RAGGED_FRAME}; npz cache, codes in [512, 16383], uint16 GT)")
+
+        # The train CLI: compact native batches through the kernel path, then
+        # validation at full frame (2 frames, one forward an epoch).
+        save = f"{tmp}/run"
+        _, tl = run("train CLI, SID, native loader, batch 8 @ 512^2, 2 epochs", lambda: (
+            train_cli.main(["--dataset", "SID", "--data_root", root, "--cache_dir",
+                            f"{root}/cache", "--loader", "native", "--batch_size", "8",
+                            "--patch_size", "512", "--epochs", "1", "--model_size", "S",
+                            "--save_dir", save])))
+        steps, val_forwards = 2, 2
+        check(tl["gram_pass"] == tl["apply_pass"] == 7 * (steps + val_forwards),
+              "K2 / K3 did not run 7 times per train step and validation forward")
+        check(tl["bwd1"] == tl["bwd2"] == 7 * steps and tl["weight_grad"] == 6 * steps,
+              "B1 / B2 / the weight-grad pass did not run on every train step")
+        check(tl["bayer_pack_normalize"] == 0, "K1 ran in training (compact batches decode "
+              "in the trainer)")
+        with open(f"{save}/SID/log.txt") as f:
+            check("Epoch 1/1" in f.read(), "train CLI wrote no epoch line")
+
+        # The eval CLI from that checkpoint, compact (K1) and not.
+        ckpt = f"{save}/SID/weights"
+        base = ["--dataset", "SID", "--data_root", root, "--cache_dir", f"{root}/cache",
+                "--ckpt", ckpt]
+        if not have_imageio:
+            log("imageio is not installed: no JPEG or PNG is written")
+        runs = {}
+        for name, extra in (("compact", ["--save_images"] if have_imageio else []),
+                            ("host", ["--no_compact_h2d"])):
+            out, el = run(f"eval CLI, SID, {name} decode, 2 x {REAL_TEST_FRAME}", lambda: (
+                test_cli.main(base + extra + ["--save_dir", f"{tmp}/eval_{name}"])))
+            with open(f"{tmp}/eval_{name}/SID/csv/test_metrics.csv") as f:
+                rows = f.read().splitlines()
+            check(len(rows) == 2, f"eval CLI ({name}) wrote {len(rows)} CSV rows, not 2")
+            check(el["bayer_pack_normalize"] == (2 if name == "compact" else 0),
+                  f"K1 did not run once per image in the {name} run")
+            check(el["gram_pass"] == el["apply_pass"] == 14, f"K2 / K3 did not run 7 times per "
+                  f"image in the {name} eval run")
+            check(all(np.isfinite(out["psnr"])), f"eval CLI ({name}) PSNR not finite")
+            log(f"eval CLI ({name}): PSNR {out['psnr']}, SSIM {out['ssim']}, host seconds per "
+                f"image {[round(t, 3) for t in out['seconds']]} ({card})")
+            runs[name] = out
+        dp = np.abs(np.subtract(runs["compact"]["psnr"], runs["host"]["psnr"])).max()
+        ds = np.abs(np.subtract(runs["compact"]["ssim"], runs["host"]["ssim"])).max()
+        log(f"eval CLI compact vs host decode: max PSNR difference {dp:.4f} dB (tol "
+            f"{EVAL_PSNR_TOL}), max SSIM difference {ds:.2e} (tol {EVAL_SSIM_TOL})")
+        check(dp <= EVAL_PSNR_TOL and ds <= EVAL_SSIM_TOL, "compact eval disagrees with host decode")
+        if have_imageio:
+            check(len(os.listdir(f"{tmp}/eval_compact/SID/images")) == 4, "eval CLI wrote no JPEGs")
+
+        # One frame: raw_u16 (K1 + the prepacked model) against __call__ of the
+        # frame decoded on the host in K1's own fp32 expression, so that both
+        # paths feed the model the same bf16 planes; and both forwards' device
+        # time. The frame's codes are dark (the scene over the ratio), so the
+        # decode stays below the clamp and a doubled ratio must show.
+        model = get_model("rawformer_s", device=dev, dtype=torch.bfloat16)
+        state, _ = CheckpointManager(ckpt).restore(map_location=dev)
+        pred = Predictor(model, state["trainer"]["model"], device=dev)
+        with np.load(f"{root}/cache/10000_00_0.1s.ARW.npz") as z:
+            m = z["mosaic"]
+        host = (np.clip(m.astype(np.float32), 512.0, 16383.0) - np.float32(512.0)) * np.float32(
+            1.0 / (16383.0 - 512.0 + 1e-6)) * np.float32(100.0)
+        y_u16, y_host = pred.raw_u16(m, 100.0), pred(host)
+        d = np.abs(y_u16 - y_host)
+        moved = float(np.abs(pred.raw_u16(m, 200.0) - y_u16).max())
+        unclamped = float((host < 1.0).mean())
+        log(f"raw_u16 vs __call__ of the host-decoded {REAL_TEST_FRAME} frame: max abs err "
+            f"{d.max():.3e} (tol {DECODE_TOL}); input below the clamp {unclamped:.1%}; a doubled "
+            f"ratio moves the output by {moved:.3e} (must exceed {DECODE_SEEN}); output mean "
+            f"{y_host.mean():.4f}, max {y_host.max():.4f}")
+        check(y_u16.shape == m.shape + (3,) and d.max() <= DECODE_TOL,
+              "raw_u16 disagrees with the host-decoded frame")
+        check(unclamped >= 0.9 and moved > DECODE_SEEN,
+              "the comparison would not see a wrong ratio: the input is clamped or the output "
+              "does not depend on it")
+        m_dev, r_dev = u16_to_device(m)[None], torch.full((1,), 100.0, device=dev)
+        x_dev = torch.from_numpy(host).to(dev)[None, None]
+        with torch.inference_mode():
+            ms_u16 = cuda_time_ms(lambda: pred._u16_forward(m_dev, r_dev), 5, warmup=1)
+            ms_f32 = cuda_time_ms(lambda: pred.model(x_dev), 5, warmup=1)
+        log(f"time RawFormer-S forward, one {REAL_TEST_FRAME} frame on the device: from uint16 "
+            f"(K1) {ms_u16:.3f} ms, from the host-decoded fp32 frame {ms_f32:.3f} ms ({card})")
+
+        # MCR: two dark uint8 frames (a scene over each image's amplification,
+        # the two of mcr_amplification: 12287 and 1023 over exposure 0x00FF)
+        # decoded on the device against the same expression on the host.
+        amp = np.array([12287 / 0x00FF, 1023 / 0x00FF], np.float32)
+        scenes = [mosaic_rggb(synth_scene(rng, *REAL_MCR_FRAME)) for _ in amp]
+        raw8 = np.stack([np.clip(np.round(sc * 255.0 / a), 0, 255) for sc, a in zip(scenes, amp)])
+        raw8 = raw8.astype(np.uint8)[..., None]
+        host = raw8.astype(np.float32) / 255.0 * amp[:, None, None, None]
+        y_mcr, ml = run(f"MCR device decode, two {REAL_MCR_FRAME} uint8 frames",
+                        lambda: pred.codes(raw8, amp, "mcr"))
+        d = np.abs(y_mcr - pred(host))
+        moved = float(np.abs(pred.codes(raw8, 2 * amp, "mcr") - y_mcr).max())
+        unclamped = float((host < 1.0).mean())
+        log(f"MCR codes vs host decode: max abs err {d.max():.3e} (tol {DECODE_TOL}); input "
+            f"below the clamp {unclamped:.1%}, codes up to {raw8.max()}; a doubled "
+            f"amplification moves the output by {moved:.3e} (must exceed {DECODE_SEEN})")
+        check(ml["gram_pass"] == ml["apply_pass"] == 7 and ml["bayer_pack_normalize"] == 0,
+              "the MCR decode did not run K2 / K3 7 times, or ran K1")
+        check(d.max() <= DECODE_TOL, "the MCR device decode disagrees with the host decode")
+        check(unclamped >= 0.9 and moved > DECODE_SEEN,
+              "the MCR comparison would not see a wrong amplification")
+        del pred, model, state, m_dev, x_dev
+        torch.cuda.empty_cache()
+
+        # WFB-48 (seeded random weights) on the ragged frame: compact SID
+        # codes through normalize_sid on the device, pad to 32.
+        out, wl = run(f"eval CLI, WFB-48, one ragged {REAL_RAGGED_FRAME} frame", lambda: (
+            test_cli.main(["--dataset", "SID", "--data_root", ragged, "--cache_dir",
+                           f"{ragged}/cache", "--model", "rawformer_wfb",
+                           "--save_dir", f"{tmp}/eval_wfb"])))
+        check(out["pad_to"] == 32, "WFB eval did not pad to 32")
+        check(wl["selective_scan_fwd"] == 7 and sum(wl.values()) == 7,
+              "S1 did not run 7 times for the WFB image, or another kernel ran")
+        check(all(np.isfinite(out["psnr"])), "WFB eval PSNR not finite")
+        log(f"eval CLI (WFB-48, ragged): PSNR {out['psnr']}, SSIM {out['ssim']}, host seconds "
+            f"{[round(t, 3) for t in out['seconds']]} ({card})")
 
 
 def main() -> int:
@@ -1297,6 +1493,10 @@ def main() -> int:
     times["probe_bisect"] = (bisect_row["ms"], bisect_twin)
     errs["probe_bisect"] = max(r["err"] for r in bisect_rows)
     bounds["probe_bisect"] = bound(**stage_counts(1, *BATCH_SHAPES[0]))
+
+    # 9. the real-data path ---------------------------------------------------
+    torch.cuda.empty_cache()
+    real_data_phase(dev, card, counters)
 
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),

@@ -1218,3 +1218,56 @@ def test_pipelined_serving_and_training(cuda):
     (lp, pp), (lt, pt) = runs
     np.testing.assert_allclose(lp, lt, rtol=2e-2)
     torch.testing.assert_close(pp, pt, rtol=0, atol=5e-4)
+
+
+def test_compact_native_batches_decode_on_the_card(cuda):
+    """The native engine's compact triples through ``prefetch_to_device``
+    (uint16 pinned and moved as int16 bits) decode on the card to the CPU
+    decode of the same triple (the same fp32 expressions; tolerance 1e-6)."""
+    from bayer_low_light_image_enhancement_tpu_torch.data import SyntheticBayerDataset, native
+    from bayer_low_light_image_enhancement_tpu_torch.data.pipeline import (
+        prefetch_to_device,
+        to_tensor,
+    )
+    from bayer_low_light_image_enhancement_tpu_torch.train.trainer import decode_batch
+
+    ds = SyntheticBayerDataset(num_images=4, full_size=(72, 80), patch_size=64)
+    sampler = native.sampler_for_dataset(ds, seed=2, compact=True)
+    loader = native.NativeLoader(ds, sampler, 2, seed=2)
+    host = list(loader)
+    loader._epoch = 0
+    moved = list(prefetch_to_device(iter(loader), cuda))
+    assert len(host) == len(moved) == 2
+    for h, d in zip(host, moved):
+        assert d[0].dtype == d[2].dtype == torch.uint16 and d[0].is_cuda
+        for got, want in zip(decode_batch(d), decode_batch([to_tensor(a) for a in h])):
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("decode", ["sid", "mcr"])
+def test_predictor_codes_on_the_card_match_host_decode(cuda, decode):
+    """``Predictor.codes`` (integer codes decoded on the card, zero codes in
+    the pad) against ``__call__`` of the host-decoded frame, RawFormer-S
+    bf16 on a frame off the 16-pixel grid: the serving tolerance of
+    ``chip_smoke.py`` (max 5e-2, mean 5e-3 on RGB in [0, 1])."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+
+    g = np.random.default_rng(21)
+    model = get_model("rawformer_s", device=cuda, dtype=torch.bfloat16)
+    pred = Predictor(model, device=cuda)
+    if decode == "sid":
+        codes = g.integers(0, 17000, (2, 90, 132, 1), dtype=np.uint16)
+        scale = np.array([100.0, 300.0], np.float32)
+        host = (np.clip(codes.astype(np.float32), 512.0, 16383.0) - 512.0) / (
+            16383.0 - 512.0 + 1e-6) * scale[:, None, None, None]
+    else:
+        codes = g.integers(0, 256, (2, 90, 132, 1), dtype=np.uint8)
+        scale = np.array([48.18, 15.98], np.float32)
+        host = codes.astype(np.float32) / 255.0 * scale[:, None, None, None]
+    before, k1 = fb.gram_pass.launches, bp.bayer_pack_normalize.launches
+    got = pred.codes(codes, scale, decode)
+    assert fb.gram_pass.launches == before + 7 and got.shape == (2, 90, 132, 3)
+    # RawFormer's SID codes go through K1 and the prepacked entry
+    assert bp.bayer_pack_normalize.launches == k1 + (decode == "sid")
+    d = np.abs(got - pred(host))
+    assert d.max() <= 5e-2 and d.mean() <= 5e-3, (d.max(), d.mean())

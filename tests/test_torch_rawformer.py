@@ -180,6 +180,10 @@ def test_port_imports_no_jax():
         "import bayer_low_light_image_enhancement_tpu_torch.data\n"
         "import bayer_low_light_image_enhancement_tpu_torch.utils.logging\n"
         "import bayer_low_light_image_enhancement_tpu_torch.cli.train_cli\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.cli.test_cli\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.data.native\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.data.mcr\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.data.raw\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'bayer_low_light_image_enhancement_tpu']\n"
         "assert not bad, bad\n"
