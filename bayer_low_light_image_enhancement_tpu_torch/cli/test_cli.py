@@ -4,6 +4,7 @@
         --dataset SID --data_root <root> --cache_dir <npz cache> \\
         --ckpt <train save_dir>/SID/weights --save_dir result --save_images
     ... --pth RawFormer_S_SID.pth       # a reference checkpoint instead
+    ... --model flca_rawformer          # another family of the registry
     ... --device cpu                    # no card
 
 Port of ``bayer_low_light_image_enhancement_tpu/cli/test_cli.py`` (the
@@ -63,7 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate RawFormer on SID/MCR (PyTorch, one GPU)")
     p.add_argument("--dataset", default="SID", choices=["SID", "MCR", "synthetic"])
     p.add_argument("--model_size", default="S", choices=["S", "B", "L"])
-    p.add_argument("--model", default=None, help="registry model name; overrides --model_size")
+    p.add_argument("--model", default=None,
+                   help="registry model name (rawformer_s|b|l, rawformer_wfb, flca_rawformer, "
+                   "multilvl_flca_rawformer, truecolor_rawformer, bayertorgb_rawformer); "
+                   "overrides --model_size")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="evaluate on the card (default) or on the CPU")
     p.add_argument("--batch_size", type=int, default=1)

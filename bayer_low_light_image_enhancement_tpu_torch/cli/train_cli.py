@@ -3,6 +3,7 @@
     python -m bayer_low_light_image_enhancement_tpu_torch.cli.train_cli \\
         --dataset synthetic --model_size S --patch_size 512 --batch_size 16
     ... --model rawformer_wfb --batch_size 8          # RawFormer-WFB
+    ... --model truecolor_rawformer                   # or flca_rawformer, ...
     ... --device cpu                                  # no card
     ... --dataset SID --data_root <root> --cache_dir <npz cache>
 
@@ -41,6 +42,7 @@ from bayer_low_light_image_enhancement_tpu_torch.data import (
 from bayer_low_light_image_enhancement_tpu_torch.data import native
 from bayer_low_light_image_enhancement_tpu_torch.data.pipeline import to_device
 from bayer_low_light_image_enhancement_tpu_torch.models import RawFormer, RawFormerConfig, get_model
+from bayer_low_light_image_enhancement_tpu_torch.models.registry import is_raw_domain
 from bayer_low_light_image_enhancement_tpu_torch.train.checkpoint import (
     BestTracker,
     CheckpointManager,
@@ -54,8 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", default="SID", choices=["SID", "MCR", "synthetic"])
     p.add_argument("--model_size", default="S", choices=["S", "B", "L"])
     p.add_argument("--model", default=None,
-                   help="registry model name (e.g. rawformer_b, rawformer_wfb); overrides "
-                   "--model_size")
+                   help="registry model name (rawformer_s|b|l, rawformer_wfb, flca_rawformer, "
+                   "multilvl_flca_rawformer, truecolor_rawformer, bayertorgb_rawformer); "
+                   "overrides --model_size")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="train on the card (default) or on the CPU")
     p.add_argument("--batch_size", type=int, default=16)
@@ -160,9 +163,21 @@ LOADER_LABELS = {"native-compact": "native (compact 16-bit H2D)", "native": "nat
 
 
 def build_model(args, device, seed: int):
+    """The model ``--model`` names (through the registry), else RawFormer of
+    ``--model_size``; exits with the JAX CLI's message for a raw-domain
+    (enhancement-domain) model."""
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     gen = torch.Generator().manual_seed(seed)
     if args.model:
+        if is_raw_domain(args.model):
+            raise SystemExit(
+                f"model {args.model!r} is an enhancement-domain model "
+                "(packed Bayer planes -> enhanced planes, [B,H,W,4] -> "
+                "[B,H,W,4]); the RAW->RGB train/eval protocol does not "
+                "apply — the reference only smoke-tests these "
+                "(Transformer_FLCA_UNet.py:265-273). Use a RAW->RGB model "
+                "or drive it via the Python API."
+            )
         return get_model(args.model, device=device, generator=gen, dtype=dtype)
     return RawFormer(RawFormerConfig.from_size(args.model_size, dtype=dtype), device=device,
                      generator=gen)

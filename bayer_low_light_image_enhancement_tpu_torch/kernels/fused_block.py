@@ -29,7 +29,8 @@ CTAs, launches; ``gram_workspace_floats``): the CPU tests check them at every
 width, the card tests against the library's ``blle_block_kernel_info``.
 
 ``params`` is the state dict of ``models.common.TransformerBlock`` (the
-reference's names: ``norm1.body.weight``, ``attn.qkv.weight``, ...).
+reference's names: ``norm1.body.weight``, ``attn.qkv.weight``, ``attn.temperature``
+or ``attn.log_temperature``, ...).
 """
 
 from __future__ import annotations
@@ -86,9 +87,20 @@ class BlockWeights:
         return [getattr(self, f.name) for f in dataclasses.fields(self)]
 
 
+def attention_temperature(params: Mapping[str, torch.Tensor], prefix: str = "") -> torch.Tensor:
+    """The per-head temperature of a ChannelAttention's params (names under
+    ``prefix``): ``temperature`` as stored, or ``exp(log_temperature)``,
+    differentiable in either. Shape as stored ([heads, 1, 1])."""
+    t = params.get(f"{prefix}temperature")
+    return params[f"{prefix}log_temperature"].exp() if t is None else t
+
+
 def fold_block_params(params: Mapping[str, torch.Tensor]) -> BlockWeights:
     """Fold the LN affines into the consuming 1x1 convs (exact in fp32):
-    ``(xhat * w + b) @ W + bias == xhat @ (diag(w) W) + (b @ W + bias)``."""
+    ``(xhat * w + b) @ W + bias == xhat @ (diag(w) W) + (b @ W + bias)``.
+    A block with ``attn.log_temperature`` gets its exponential here, in
+    torch, so that the block's autograd.Function carries the temperature's
+    gradient on to ``log_temperature``."""
     p = {k: v.float() for k, v in params.items()}
     c = p["attn.project_out.weight"].shape[0]
     wqkv = p["attn.qkv.weight"][:, :, 0, 0].t()  # [C, 3C]
@@ -110,7 +122,7 @@ def fold_block_params(params: Mapping[str, torch.Tensor]) -> BlockWeights:
         bdwv=bdw[2 * c :],
         wproj=p["attn.project_out.weight"][:, :, 0, 0].t(),
         bproj=p["attn.project_out.bias"],
-        temperature=p["attn.temperature"].reshape(-1),
+        temperature=attention_temperature(p, "attn.").reshape(-1),
         wp1=ln2w[:, None] * wp1,
         bp1=ln2b @ wp1 + p["ffn.pointwise1.bias"],
         dwf=p["ffn.depthwise.weight"].reshape(ch, 9).t(),

@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
+    attention_temperature,
     check_apply_kernel,
     fused_transformer_block,
 )
@@ -85,14 +86,20 @@ class LayerNorm2d(nn.Module):
 class ChannelAttention(nn.Module):
     """Transposed (channel) attention: qkv 1x1 -> 3x3 depthwise -> per-head
     L2-normalised [c,c] gram -> softmax * temperature -> apply to v -> 1x1
-    projection."""
+    projection.
 
-    def __init__(self, dim: int, num_heads: int = 8,
+    ``log_temperature=True`` stores log(T) as ``log_temperature`` (zeros at
+    init) and exponentiates it, as the BayerTORGB reference does; otherwise
+    T is stored as ``temperature`` (ones at init)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, log_temperature: bool = False,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
         self.num_heads = num_heads
-        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1, device=device, dtype=dtype))
+        t = torch.zeros if log_temperature else torch.ones
+        name = "log_temperature" if log_temperature else "temperature"
+        setattr(self, name, nn.Parameter(t(num_heads, 1, 1, device=device, dtype=dtype)))
         self.qkv = Conv2d(dim, dim * 3, 1, **kw)
         self.qkv_dwconv = Conv2d(dim * 3, dim * 3, 3, groups=dim * 3, **kw)
         self.project_out = Conv2d(dim, dim, 1, **kw)
@@ -100,7 +107,8 @@ class ChannelAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = self.qkv_dwconv(self.qkv(x)).permute(0, 2, 3, 1)
         q, k, v = qkv.chunk(3, dim=-1)
-        out = channel_attention(q, k, v, self.temperature, self.num_heads)
+        temperature = attention_temperature(self._parameters)
+        out = channel_attention(q, k, v, temperature, self.num_heads)
         return self.project_out(out.permute(0, 3, 1, 2))
 
 
@@ -122,7 +130,8 @@ class ConvFFN(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN residual block: ``x + attn(norm1(x))`` then ``+ ffn(norm2(.))``.
+    """Pre-LN residual block: ``x + attn(norm1(x))`` then ``+ ffn(norm2(.))``
+    (``log_temperature``: see ChannelAttention).
 
     Blocks with C <= FUSE_CMAX call the fused-block wrapper (kernels K2/K3
     on CUDA, their fp32 twins on the CPU; with grad enabled its
@@ -133,13 +142,14 @@ class TransformerBlock(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int = 8, ffn_expansion: int = 2,
+                 log_temperature: bool = False,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
         self.norm1 = LayerNorm2d(dim, device=device, dtype=dtype)
-        self.attn = ChannelAttention(dim, num_heads, **kw)
+        self.attn = ChannelAttention(dim, num_heads, log_temperature, **kw)
         self.norm2 = LayerNorm2d(dim, device=device, dtype=dtype)
         self.ffn = ConvFFN(dim, dim * ffn_expansion, **kw)
         self.fused = True

@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bayer_low_light_image_enhancement_tpu_torch.compat import jax_params
 from bayer_low_light_image_enhancement_tpu_torch.models.common import (
     Conv2d,
     Downsample,
@@ -164,6 +165,9 @@ class RawFormerWFBConfig:
 
 
 class RawFormerWFB(nn.Module):
+    # Takes the JAX {"params", "batch_stats"} variables, not params alone.
+    state_dict_from_jax = staticmethod(jax_params.wfb_state_dict_from_jax)
+
     def __init__(self, config: RawFormerWFBConfig = RawFormerWFBConfig(), device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

@@ -3,13 +3,14 @@
 Port of the single-chip path of
 ``bayer_low_light_image_enhancement_tpu/ops/conv.py``: NHWC input, HWIO
 kernel, torch ``padding=(eff_k-1)//2`` semantics (symmetric zero padding,
-also for strided convs). The halo-exchange paths for spatially sharded
-execution are not ported.
+also for strided convs), and the global reductions ``global_mean`` /
+``global_max``. The halo-exchange paths and cross-device reductions for
+spatially sharded execution are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,3 +41,13 @@ def conv2d(
         stride=stride, padding=pad, dilation=dilation, groups=groups,
     )
     return y.permute(0, 2, 3, 1)
+
+
+def global_mean(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    """Mean over ``dims``, kept as size-1 dims (x's dtype)."""
+    return x.mean(dim=dims, keepdim=True)
+
+
+def global_max(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    """Max over ``dims``, kept as size-1 dims."""
+    return x.amax(dim=dims, keepdim=True)

@@ -3,11 +3,14 @@
 Port of ``bayer_low_light_image_enhancement_tpu/serving/predictor.py``:
 
 * ``__call__`` takes frames of any size ([H,W], [H,W,1] or [B,H,W,1], RAW in
-  [0,1]*ratio), pads to a multiple of ``pad_to`` (16 for RawFormer, 32 for
-  RawFormer-WFB), crops the output back and clips it to [0, 1];
+  [0,1]*ratio), pads to a multiple of ``pad_to`` (16 for RawFormer and the
+  FLCA / TrueColor families, 32 for RawFormer-WFB) with zeros, which enter
+  the FLCA / TrueColor models' global statistics as in the JAX package,
+  crops the output back and clips it to [0, 1];
 * ``raw_u16`` takes the production input, a uint16 RGGB mosaic ([H,W] or
   [B,H,W]) and its exposure ratio, through the fused pack kernel and the
-  prepacked model entry (RawFormer; a model without one raises TypeError);
+  prepacked model entry (RawFormer; a model without one, every other
+  family, raises TypeError);
 * ``codes`` takes integer sensor codes in ``__call__``'s frame shapes and
   decodes them on the device, for any model: SID uint16 mosaics and their
   ratio as ``raw_u16`` does where the model has a prepacked entry, else
@@ -15,7 +18,8 @@ Port of ``bayer_low_light_image_enhancement_tpu/serving/predictor.py``:
   amplification through ``normalize_mcr``;
 * weights come from a ``state_dict``, another module, a reference ``.pth``
   (``from_torch``) or the JAX package's variables (``from_jax_params``:
-  RawFormer params, or RawFormer-WFB params and batch_stats).
+  RawFormer, FLCA-RawFormer, multi-level FLCA and TrueColor / BayerTORGB
+  params, or RawFormer-WFB params and batch_stats).
 
 The model runs on ``device``, the card unless the caller asks for the CPU.
 Inputs and outputs are numpy arrays (outputs NHWC fp32). On CUDA every
@@ -76,20 +80,15 @@ class Predictor:
 
     @classmethod
     def from_jax_params(cls, model: nn.Module, params_np: Mapping[str, Any], **kw) -> "Predictor":
-        """Load the JAX package's variables (numpy leaves): a RawFormer params
-        tree, or for a ``RawFormerWFB`` model its ``{"params",
-        "batch_stats"}``."""
-        from bayer_low_light_image_enhancement_tpu_torch.compat.jax_params import (
-            state_dict_from_jax,
-            wfb_state_dict_from_jax,
-        )
-        from bayer_low_light_image_enhancement_tpu_torch.models.wfb import RawFormerWFB
+        """Load the JAX package's variables (numpy leaves) of the model's
+        family: a RawFormer, FLCA-RawFormer, multi-level FLCA or TrueColor
+        (BayerTORGB) params tree, or for a ``RawFormerWFB`` model its
+        ``{"params", "batch_stats"}``."""
+        from bayer_low_light_image_enhancement_tpu_torch.compat import jax_params as jp
 
-        if isinstance(model, RawFormerWFB):
-            if "batch_stats" not in params_np:
-                raise ValueError('RawFormer-WFB loads its {"params", "batch_stats"} variables')
-            return cls(model, wfb_state_dict_from_jax(params_np), **kw)
-        return cls(model, state_dict_from_jax(params_np), **kw)
+        # Each family names its importer; RawFormer's is the default.
+        carry = getattr(type(model), "state_dict_from_jax", jp.state_dict_from_jax)
+        return cls(model, carry(params_np), **kw)
 
     # ------------------------------------------------------------------
     def _pads(self, h: int, w: int):
@@ -162,10 +161,10 @@ class Predictor:
 
         The mosaic is zero-padded to a multiple of ``pad_to`` (code 0
         decodes to black) and the output cropped back. Raises TypeError for
-        a model without a prepacked entry (RawFormer-WFB)."""
+        a model without a prepacked entry (every model but RawFormer)."""
         if not self._prepacked:
             raise TypeError(f"{type(self.model).__name__} has no prepacked entry: raw_u16 serves "
-                            "RawFormer; serve this model through __call__")
+                            "RawFormer; serve this model through __call__ or codes")
         m = np.asarray(mosaic)
         if m.dtype != np.uint16:
             raise TypeError(f"mosaic must be uint16, got {m.dtype}")

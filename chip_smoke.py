@@ -92,7 +92,21 @@ Phases (any failed check raises and the script exits non-zero):
    held the same way; the eval CLI on WFB-48 over the ragged
    frame (S1 7 times, pad 32). Host seconds per image and forward device
    ms are printed beside the card's name and power limit; without
-   ``imageio`` no JPEG is written, and a line says so.
+   ``imageio`` no JPEG is written, and a line says so;
+10. the FLCA / TrueColor family: ``flca_rawformer``,
+   ``multilvl_flca_rawformer``, ``truecolor_rawformer`` and
+   ``bayertorgb_rawformer`` at dim 48 (heads 8/8/8/8, FFN 2, seeded random
+   weights, fp32 params, bf16 compute) each serve a batch-2 @ 512x512 float
+   request through ``Predictor.__call__`` on the kernel path and on the
+   module path (``set_fused_blocks(model, False)``), held to E2E_MAX_TOL /
+   E2E_MEAN_TOL (the RGB, and the head's input relative to its largest
+   magnitude), with K2 and K3 6 times a forward (the C = 48, 96, 192
+   blocks; the C = 384 one takes the module path) and no other kernel;
+   both paths' forward device ms are printed; ``raw_u16`` raises TypeError
+   (no prepacked entry); ``flca_rawformer`` and
+   ``bayertorgb_rawformer`` also serve a 2832x4240 SID uint16 frame
+   through ``Predictor.codes`` (the same counts), its forward's device ms
+   and the peak memory printed beside the card's name and power limit.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -127,6 +141,10 @@ K2_COS_TOL = 2e-2
 # |err| <= atol + rtol * |ref| as in tests/test_fused_block.py.
 BLOCK_RTOL = BLOCK_ATOL = 2.5e-2
 # End to end, kernel path vs twin path (both with bf16 convs): RGB in [0, 1].
+# Phase 10 also holds the head's input (``conv_out``'s output, before the
+# activation) to these fractions of its largest magnitude, and moves the
+# TrueColor models' colour correction off saturation first
+# (``spread_color_correction``), so that their RGB sees the blocks.
 E2E_MAX_TOL, E2E_MEAN_TOL = 5e-2, 5e-3
 # B1/B2, each output leaf (dx2, d_apply, dx, every folded-weight grad): the
 # kernel's max error relative to the fp32 twin's leaf max must be within
@@ -398,6 +416,17 @@ def mosaics(rng, shape) -> np.ndarray:
     return m
 
 
+def counted(counters, fn):
+    """fn() with every counter at 0 just before; -> (its result, the counts
+    just after)."""
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in counters}
+
+
 def real_data_phase(dev, card, counters) -> None:
     """Phase 9: the train and eval CLIs on SID-layout trees at full frame
     size, WFB-48 on a ragged frame, the MCR device decode."""
@@ -416,15 +445,8 @@ def real_data_phase(dev, card, counters) -> None:
     from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms
 
     def run(what, fn):
-        """fn() with every counter at 0 just before; -> (its result, the
-        counts just after)."""
-        torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
         t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        got = {c.__name__: c.launches for c in counters}
+        out, got = counted(counters, fn)
         log(f"{what}: {time.perf_counter() - t0:.2f} s; launches {got}")
         return out, got
 
@@ -559,6 +581,145 @@ def real_data_phase(dev, card, counters) -> None:
             f"{[round(t, 3) for t in out['seconds']]} ({card})")
 
 
+ZOO = ("flca_rawformer", "multilvl_flca_rawformer", "truecolor_rawformer",
+       "bayertorgb_rawformer")
+ZOO_FRAME_MODELS = ("flca_rawformer", "bayertorgb_rawformer")
+ZOO_BATCH = (2, 512, 512)
+# The K2 / K3 block shapes of the family at dim 48: stages 1-3 at batch 2 @
+# 512^2 and on the 2832x4240 frame (checked in phase 3 on log_temperature
+# blocks, as BayerTORGB stores them).
+ZOO_BLOCK_SHAPES = [(2, 256, 256, 48), (2, 128, 128, 96), (2, 64, 64, 192),
+                    (1, 1416, 2120, 48), (1, 708, 1060, 96), (1, 354, 530, 192)]
+
+
+def spread_color_correction(model, run) -> None:
+    """Move BayerTORGB's bounded colour correction off saturation (no-op for
+    other models). At a seeded init the head's output is small, so the
+    colour transform is near a constant below 0: the RGB clips to 0
+    everywhere and would not see the blocks. On the input ``run()`` feeds
+    the colour correction, shift the bias of the colour transform's last
+    layer so that each channel's mean is 0.5. Only a bias moves: the map
+    keeps the model's own gain from the head to the RGB. (TrueColor's
+    plain correction is not clipped at init: its sigmoid tone curve is
+    flat, and its RGB varies by ~2e-3.)"""
+    cc = getattr(model, "color_correction", None)
+    if cc is None or not cc.bounded:
+        return
+    seen = []
+    hook = cc.register_forward_pre_hook(lambda m, a: seen.append(a[0].clone()))
+    run()
+    hook.remove()
+    with torch.no_grad():
+        gamma = torch.nn.functional.softplus(cc.gamma_param) + 1e-6
+        xg = seen[0].float().clamp(0.0, 1.0).pow(1.0 / gamma.float())
+        ct = cc.color_transform
+        ct[2].bias.add_(0.5 - ct[2](ct[1](ct[0](xg))).float().mean((0, 2, 3)))
+
+
+def zoo_phase(dev, card, counters) -> dict:
+    """Phase 10: the FLCA / TrueColor family at dim 48 through ``Predictor``;
+    returns each forward's launches by model."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.common import set_fused_blocks
+    from bayer_low_light_image_enhancement_tpu_torch.ops.bayer import normalize_sid
+    from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import profile
+
+    def check_counts(got, what):
+        check(got["gram_pass"] == got["apply_pass"] == 6 and sum(got.values()) == 12,
+              f"{what}: K2 / K3 did not run 6 times each, or another kernel ran ({got})")
+
+    def both_paths(model, fn, what):
+        """fn() on the kernel path, then on the module path; checks the
+        launches, the output and the head's input of the two -> (the kernel
+        path's output, its launches, its peak memory in GiB)."""
+        heads = []
+        hook = model.conv_out.register_forward_hook(lambda m, i, o: heads.append(o.float()))
+        torch.cuda.reset_peak_memory_stats()
+        y, got = counted(counters, fn)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_counts(got, what)
+        set_fused_blocks(model, False)
+        y0, got0 = counted(counters, fn)
+        set_fused_blocks(model, True)
+        hook.remove()
+        check(sum(got0.values()) == 0, f"{what}: a kernel ran on the module path ({got0})")
+        check(y.shape == y0.shape and bool(np.isfinite(y).all()),
+              f"{what}: output not finite of shape {y0.shape}")
+        d = np.abs(y - y0)
+        dh, scale = (heads[0] - heads[1]).abs(), float(heads[1].abs().max())
+        log(f"{what}: kernel path vs module path max abs err {d.max():.3e} (tol {E2E_MAX_TOL}), "
+            f"mean {d.mean():.3e} (tol {E2E_MEAN_TOL}); output mean {y.mean():.4f}, std "
+            f"{y.std():.4f}, {(y <= 0).mean():.4f} of it at 0 and {(y >= 1).mean():.4f} at 1; "
+            f"the head's input: max abs err {float(dh.max()):.3e}, mean {float(dh.mean()):.3e} "
+            f"against its largest magnitude {scale:.3e} (tol {E2E_MAX_TOL} / {E2E_MEAN_TOL} of "
+            f"it); launches {got}")
+        check(d.max() <= E2E_MAX_TOL and d.mean() <= E2E_MEAN_TOL,
+              f"{what}: kernel path disagrees with the module path")
+        check(float(dh.max()) <= E2E_MAX_TOL * scale and float(dh.mean()) <= E2E_MEAN_TOL * scale,
+              f"{what}: the head's input on the kernel path disagrees with the module path")
+        return y, got, peak
+
+    def timed(model, fn, steps):
+        """torch.profiler over fn() on each path, after one warmup call:
+        (host ms, device ms, busy %) a call. Each profile costs ~1-3 s of
+        host time in the profiler itself, so steps stay few."""
+        with torch.inference_mode():
+            r = profile(fn, steps, warmup=1)
+            set_fused_blocks(model, False)
+            r0 = profile(fn, steps, warmup=1)
+            set_fused_blocks(model, True)
+        return [(q["host_ms"], q["device_ms"], 100 * q["busy"]) for q in (r, r0)]
+
+    rng = np.random.default_rng(10)
+    x = rng.uniform(0.0, 1.5, ZOO_BATCH + (1,)).astype(np.float32)
+    # A dark SID frame: codes up to 160 above black, [0, 1] at ratio 100.
+    frame = (512 + rng.integers(0, 160, REAL_TEST_FRAME)).astype(np.uint16)
+    t_phase = time.perf_counter()
+    launches = {}
+    for name in ZOO:
+        t0 = time.perf_counter()
+        model = get_model(name, device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(10))
+        pred = Predictor(model, device=dev)
+        set_fused_blocks(model, False)
+        spread_color_correction(model, lambda: pred(x))
+        set_fused_blocks(model, True)
+        _, launches[name], _ = both_paths(model, lambda: pred(x),
+                                          f"{name} dim 48, {ZOO_BATCH} float mosaics")
+        xb = pred._padded(torch.from_numpy(x).to(dev))
+        (h, d, busy), (h0, d0, busy0) = timed(model, lambda: pred.model(xb), 3)
+        log(f"time {name} dim 48 forward, {ZOO_BATCH} float mosaics (torch.profiler, after "
+            f"warmup): kernel path {h:.3f} ms host clock, {d:.3f} ms device ({busy:.1f}% busy); "
+            f"module path {h0:.3f} ms host clock, {d0:.3f} ms device ({busy0:.1f}% busy) ({card})")
+        try:
+            pred.raw_u16(frame[:32, :32], 100.0)
+        except TypeError:
+            pass
+        else:
+            check(False, f"{name}: raw_u16 served a model without a prepacked entry")
+        if name in ZOO_FRAME_MODELS:
+            yf, got, peak = both_paths(
+                model, lambda: pred.codes(frame, 100.0, "sid"),
+                f"{name} dim 48, one {REAL_TEST_FRAME} SID uint16 frame through Predictor.codes")
+            check(yf.shape == REAL_TEST_FRAME + (3,),
+                  f"{name}: frame output not of shape {REAL_TEST_FRAME + (3,)}")
+            codes = torch.from_numpy(frame.view(np.int16)).to(dev)[None, None]
+            xf = normalize_sid(codes.to(torch.int32) & 0xFFFF, 100.0)
+            (h, d, busy), (h0, d0, busy0) = timed(model, lambda: pred.model(xf), 2)
+            log(f"time {name} dim 48 forward, one {REAL_TEST_FRAME} SID uint16 frame "
+                f"(torch.profiler, after warmup): kernel path {h:.3f} ms host clock, {d:.3f} ms "
+                f"device ({busy:.1f}% busy); module path {h0:.3f} ms host clock, {d0:.3f} ms "
+                f"device ({busy0:.1f}% busy); peak memory of the kernel path's "
+                f"Predictor.codes {peak:.2f} GiB; launches {got} "
+                f"({torch.cuda.get_device_name(0)}; nvidia-smi: {card})")
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+        del pred, model
+        torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -621,6 +782,29 @@ def main() -> int:
         if name:
             errs[name] = max(errs[name], d.max().item())
 
+    def check_gram_apply(shape, x, params, wts, what=""):
+        """K2, K3 and the K2+K3 block against their twins on x; -> (K3's
+        attention input, K3's twin output, the block's output)."""
+        g, qs, ks = fb.gram_pass(x, wts)
+        g0, qs0, ks0 = fb.gram_pass_plain(x, wts)
+        cos = g / torch.sqrt(qs[:, :, None] * ks[:, None, :])
+        cos0 = g0 / torch.sqrt(qs0[:, :, None] * ks0[:, None, :])
+        e_cos = (cos - cos0).abs().max().item()
+        e_ss = max(((qs - qs0).abs() / qs0).max().item(), ((ks - ks0).abs() / ks0).max().item())
+        log(f"K2 gram {shape}{what}: cosine max abs err {e_cos:.3e} (tol {K2_COS_TOL}); "
+            f"sum-of-squares rel err {e_ss:.3e} (tol {K2_COS_TOL})")
+        check(e_cos <= K2_COS_TOL and e_ss <= K2_COS_TOL, f"K2 disagrees with its twin at {shape}")
+        errs["fused_block_gram"] = max(errs["fused_block_gram"], e_cos)
+
+        apply = fb.finalize_attention(g0, qs0, ks0, wts.temperature, wts.wproj, 8)
+        ref = fb.apply_pass_plain(x, apply, wts)
+        held_to_block_rule("fused_block_apply", f"K3 apply {shape}{what}",
+                           fb.apply_pass(x, apply, wts), ref)
+        full = fb.fused_transformer_block(x, params, 8)
+        held_to_block_rule(None, f"K2+K3 block {shape}{what}", full,
+                           fb.fused_transformer_block_plain(x, params, 8))
+        return apply, ref, full
+
     def attn_params(c):
         return {k.removeprefix("attn."): v for k, v in blocks[c].named_parameters()
                 if k.startswith("attn.")}
@@ -665,25 +849,7 @@ def main() -> int:
             params = dict(blocks[c].named_parameters())
             wts = fb.fold_block_params(params)
             x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
-
-            g, qs, ks = fb.gram_pass(x, wts)
-            g0, qs0, ks0 = fb.gram_pass_plain(x, wts)
-            cos = g / torch.sqrt(qs[:, :, None] * ks[:, None, :])
-            cos0 = g0 / torch.sqrt(qs0[:, :, None] * ks0[:, None, :])
-            e_cos = (cos - cos0).abs().max().item()
-            e_ss = max(((qs - qs0).abs() / qs0).max().item(), ((ks - ks0).abs() / ks0).max().item())
-            log(f"K2 gram {shape}: cosine max abs err {e_cos:.3e} (tol {K2_COS_TOL}); "
-                f"sum-of-squares rel err {e_ss:.3e} (tol {K2_COS_TOL})")
-            check(e_cos <= K2_COS_TOL and e_ss <= K2_COS_TOL, f"K2 disagrees with its twin at {shape}")
-            errs["fused_block_gram"] = max(errs["fused_block_gram"], e_cos)
-
-            apply = fb.finalize_attention(g0, qs0, ks0, wts.temperature, wts.wproj, 8)
-            ref = fb.apply_pass_plain(x, apply, wts)
-            held_to_block_rule("fused_block_apply", f"K3 apply {shape}",
-                               fb.apply_pass(x, apply, wts), ref)
-            full = fb.fused_transformer_block(x, params, 8)
-            held_to_block_rule(None, f"K2+K3 block {shape}", full,
-                               fb.fused_transformer_block_plain(x, params, 8))
+            apply, ref, full = check_gram_apply(shape, x, params, wts)
             held_to_block_rule("fused_block_apply_pipelined", f"K3P apply {shape}",
                                fb.apply_pass_pipelined(x, apply, wts), ref)
             held_to_block_rule("fused_attention", f"A1 attention {shape}",
@@ -693,12 +859,28 @@ def main() -> int:
             held_to_block_rule("fused_stage_tail", f"T1 stage tail {shape}",
                                fs.fused_stage_tail(x, t, tail_params(c)),
                                fs.fused_stage_tail_plain(x, t, tail_params(c)))
-            del x, g, g0, ref, full, t
+            del x, ref, full, t
         torch.cuda.synchronize()
     aux_launches = {"fused_attention": fa.fused_channel_attention.launches,
                     "fused_stage_tail": fs.fused_stage_tail.launches}
     check(min(aux_launches.values()) == len(BATCH_SHAPES + FULLRES_SHAPES),
           f"A1 / T1 did not launch once per shape: {aux_launches}")
+    # K2 / K3 at the FLCA / TrueColor family's block shapes, on blocks that
+    # store log_temperature (BayerTORGB's), with non-trivial LN affines.
+    with torch.inference_mode():
+        for shape in ZOO_BLOCK_SHAPES:
+            c = shape[-1]
+            blk = common.TransformerBlock(c, 8, 2, log_temperature=True, device=dev)
+            common.reset_parameters_(blk, gen)
+            with torch.no_grad():
+                for name, p in blk.named_parameters():
+                    if "norm" in name or "temperature" in name:
+                        p.add_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen).to(dev))
+            params = dict(blk.named_parameters())
+            x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            check_gram_apply(shape, x, params, fb.fold_block_params(params), ", log_temperature")
+            del x, blk, params
+        torch.cuda.synchronize()
     # A1 at the widths the block shapes skip, and its finalise kernel against
     # finalize_attention at every width and head count 1-8 (random q, k).
     with torch.inference_mode():
@@ -1497,6 +1679,12 @@ def main() -> int:
     # 9. the real-data path ---------------------------------------------------
     torch.cuda.empty_cache()
     real_data_phase(dev, card, counters)
+
+    # 10. the FLCA / TrueColor family -------------------------------------------
+    torch.cuda.empty_cache()
+    zoo_launches = zoo_phase(dev, card, counters)
+    log("phase 10 launches per forward (FLCA / TrueColor family at dim 48, 2 x 512^2): "
+        + json.dumps(zoo_launches))
 
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),

@@ -1271,3 +1271,70 @@ def test_predictor_codes_on_the_card_match_host_decode(cuda, decode):
     assert bp.bayer_pack_normalize.launches == k1 + (decode == "sid")
     d = np.abs(got - pred(host))
     assert d.max() <= 5e-2 and d.mean() <= 5e-3, (d.max(), d.mean())
+
+
+@pytest.mark.parametrize("c", [48, 96, 192])
+def test_log_temperature_block_kernels_match_twin(cuda, c):
+    """K2 / K3 on a block that stores ``attn.log_temperature`` (the BayerTORGB
+    blocks' widths at dim 48) against the twin, and against a block storing
+    ``temperature`` = exp(log_temperature) with the same other weights."""
+    blk = common.TransformerBlock(c, 8, 2, log_temperature=True, device=cuda)
+    common.reset_parameters_(blk, torch.Generator().manual_seed(c + 1))
+    with torch.no_grad():
+        blk.attn.log_temperature.uniform_(-0.5, 0.5)
+    params = dict(blk.named_parameters())
+    plain = dict(params)
+    plain["attn.temperature"] = plain.pop("attn.log_temperature").exp()
+    x = torch.randn(2, 19, 13, c, device=cuda).to(torch.bfloat16)
+    before = (fb.gram_pass.launches, fb.apply_pass.launches)
+    with torch.inference_mode():
+        got = fb.fused_transformer_block(x, params, 8).float()
+        same = fb.fused_transformer_block(x, plain, 8).float()
+        want = fb.fused_transformer_block_plain(x, params, 8).float()
+    torch.cuda.synchronize()
+    assert (fb.gram_pass.launches, fb.apply_pass.launches) == (before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(got, want, **BF16_TOL)
+    torch.testing.assert_close(got, same, rtol=0, atol=0)
+
+
+ZOO = ["flca_rawformer", "multilvl_flca_rawformer", "truecolor_rawformer",
+       "bayertorgb_rawformer"]
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_flca_truecolor_serving_kernel_path_matches_module_path(cuda, name):
+    """Each FLCA / TrueColor model at dim 48 (bf16) through Predictor on 2 x
+    64x64: K2 and K3 6 times a forward (C = 48, 96, 192; the C = 384 block
+    takes the module path), K1 never; the RGB at the serving bar of
+    ``chip_smoke.py`` and the head's input within the same fractions of its
+    largest magnitude, against ``set_fused_blocks(model, False)``, after
+    BayerTORGB's colour correction is moved off saturation as
+    ``chip_smoke.py`` does; ``raw_u16`` raises TypeError."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from chip_smoke import spread_color_correction
+
+    model = get_model(name, device=cuda, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(4))
+    pred = Predictor(model)
+    x = np.random.default_rng(12).uniform(0, 1.5, (2, 64, 64, 1)).astype(np.float32)
+    common.set_fused_blocks(model, False)
+    spread_color_correction(model, lambda: pred(x))
+    common.set_fused_blocks(model, True)
+    heads = []
+    model.conv_out.register_forward_hook(lambda m, i, o: heads.append(o.float()))
+    before = (fb.gram_pass.launches, fb.apply_pass.launches, bp.bayer_pack_normalize.launches)
+    got = pred(x)
+    assert (fb.gram_pass.launches, fb.apply_pass.launches,
+            bp.bayer_pack_normalize.launches) == (before[0] + 6, before[1] + 6, before[2])
+    common.set_fused_blocks(model, False)
+    want = pred(x)
+    assert fb.gram_pass.launches == before[0] + 6
+    assert got.shape == (2, 64, 64, 3) and np.isfinite(got).all()
+    d = np.abs(got - want)
+    assert d.max() <= 5e-2 and d.mean() <= 5e-3, (d.max(), d.mean())
+    if hasattr(model, "color_correction"):  # the TrueColor RGB is not clipped
+        assert (want <= 0).mean() + (want >= 1).mean() < 1e-2
+    dh, scale = (heads[0] - heads[1]).abs(), float(heads[1].abs().max())
+    assert float(dh.max()) <= 5e-2 * scale and float(dh.mean()) <= 5e-3 * scale
+    with pytest.raises(TypeError, match="no prepacked entry"):
+        pred.raw_u16(np.zeros((64, 64), np.uint16), 100.0)

@@ -158,7 +158,9 @@ def test_from_torch_pth_round_trip(tmp_path):
 
 
 def test_registry_and_seeded_init():
-    assert list_models() == ["rawformer_b", "rawformer_l", "rawformer_s", "rawformer_wfb"]
+    assert list_models() == ["bayertorgb_rawformer", "flca_rawformer", "multilvl_flca_rawformer",
+                             "rawformer_b", "rawformer_l", "rawformer_s", "rawformer_wfb",
+                             "truecolor_rawformer"]
     a = get_model("rawformer_s", generator=torch.Generator().manual_seed(0))
     b = get_model("rawformer_s", generator=torch.Generator().manual_seed(0))
     assert a.config.dim == 32 and get_model("rawformer_l").config.dim == 64
@@ -184,6 +186,12 @@ def test_port_imports_no_jax():
         "import bayer_low_light_image_enhancement_tpu_torch.data.native\n"
         "import bayer_low_light_image_enhancement_tpu_torch.data.mcr\n"
         "import bayer_low_light_image_enhancement_tpu_torch.data.raw\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.ops.luma\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.ops.flca\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.ops.isp\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.models.flca_rawformer\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.models.multilvl_flca\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.models.truecolor\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'bayer_low_light_image_enhancement_tpu']\n"
         "assert not bad, bad\n"
