@@ -2,22 +2,26 @@
 
 The inverses of the JAX package's ``compat/torch_import.
 import_rawformer_state_dict``, ``import_wfb_state_dict``,
-``import_flca_state_dict``, ``import_multilvl_flca_state_dict`` and
-``import_truecolor_state_dict``: they take the JAX variables as numpy
-arrays and return a ``state_dict`` in the reference's PyTorch names, which
-the port's RawFormer, RawFormerWFB, FLCARawFormer, MultiLvlFLCARawFormer
-and TrueColorRawFormer load.
+``import_flca_state_dict``, ``import_multilvl_flca_state_dict``,
+``import_truecolor_state_dict``, ``import_luma_mhsa_state_dict`` and
+``import_wavkan_state_dict``: they take the JAX variables as numpy arrays
+and return a ``state_dict`` in the reference's PyTorch names, which the
+port's RawFormer, RawFormerWFB, FLCARawFormer, MultiLvlFLCARawFormer,
+TrueColorRawFormer, LumaMHSARawFormer and WavKANRawFormer load.
 
 * conv kernel HWIO (kh, kw, I/g, O)        -> OIHW (O, I/g, kh, kw)
   (depthwise (3, 3, 1, C) -> (C, 1, 3, 3) by the same transpose)
 * Upsample2x 1x1 kernel (1, 1, I, 4O), column o*4 + di*2 + dj
                                              -> ConvTranspose2d (I, O, 2, 2)
 * attention temperature or log_temperature (heads,) -> (heads, 1, 1)
+  (WavKAN's as ``attn.scale``)
 * FLCA balances alpha / beta / gamma ()     -> () (likewise the colour
   correction's gamma, ``gamma_param`` in BayerTORGB)
 * LayerNorm weight / bias                   -> ``norm*.body.*``
 * Dense kernel (I, O)                       -> Linear weight (O, I)
 * Mamba conv1d kernel (d_conv, 1, D)        -> Conv1d weight (D, 1, d_conv)
+* KANLinear scale / translation / wavelet_weights / weight (out, in)
+                                             -> the same (out, in)
 * BatchNorm scale / bias + batch_stats mean / var
                                              -> ``bn.weight`` / ``bn.bias`` /
                                                 ``bn.running_mean`` / ``bn.running_var``
@@ -109,12 +113,17 @@ def _skeleton(p: Mapping[str, Any], out: Dict[str, torch.Tensor],
     _conv(p["embedding"], "embedding", out)
     for j in range(1, 4):
         _conv(p[f"down{j}"]["conv"], f"down{j}.{down}", out)
-        up = np.asarray(p[f"up{j}"]["kernel"])  # (1, 1, I, 4O)
-        i, o4 = up.shape[2], up.shape[3]
-        out[f"up{j}.weight"] = _t(up.reshape(i, o4 // 4, 2, 2))
-        out[f"up{j}.bias"] = _t(p[f"up{j}"]["bias"])
+        _upsample(p[f"up{j}"], f"up{j}", out)
         _conv(p[f"channel_reduce{j}"], f"channel_reduce{j}", out)
     _conv(p["conv_out"], "conv_out", out)
+
+
+def _upsample(p: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """Upsample2x's 1x1 kernel (1, 1, I, 4O) -> ConvTranspose2d (I, O, 2, 2)."""
+    up = np.asarray(p["kernel"])
+    i, o4 = up.shape[2], up.shape[3]
+    out[f"{prefix}.weight"] = _t(up.reshape(i, o4 // 4, 2, 2))
+    out[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def _dense(p: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
@@ -171,12 +180,16 @@ def _gated_ffn(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
     for name in ("project_in", "dwconv", "project_out"):
         _conv(p[name], f"{prefix}.{name}", out)
     for name in ("rep_conv1", "rep_conv2"):
-        base, bn, st = f"{prefix}.{name}", p[name]["bn"], stats[name]["bn"]
-        _conv(p[name]["c"], f"{base}.c", out)
-        out[f"{base}.bn.weight"], out[f"{base}.bn.bias"] = _t(bn["scale"]), _t(bn["bias"])
-        out[f"{base}.bn.running_mean"] = _t(st["mean"])
-        out[f"{base}.bn.running_var"] = _t(st["var"])
-        out[f"{base}.bn.num_batches_tracked"] = torch.tensor(0)
+        _conv(p[name]["c"], f"{prefix}.{name}.c", out)
+        _batchnorm(p[name]["bn"], stats[name]["bn"], f"{prefix}.{name}.bn", out)
+
+
+def _batchnorm(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
+               out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"], out[f"{prefix}.bias"] = _t(p["scale"]), _t(p["bias"])
+    out[f"{prefix}.running_mean"] = _t(stats["mean"])
+    out[f"{prefix}.running_var"] = _t(stats["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
 
 def _wmb(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
@@ -304,4 +317,83 @@ def truecolor_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, tor
     _skeleton(p, out)
     bounded = "res_proj_0" in p["conv_tran1"]["FLCA"]
     _color_correction(p["color_correction"], "color_correction", out, bounded)
+    return out
+
+
+def _luma_mhsa(p: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """A LuminanceAwareMHSA: ``to_qkv``, ``luma_cond.net.0`` / ``.net.2`` /
+    ``gamma`` / ``beta``, the scalar ``alpha``, ``proj``."""
+    _conv(p["to_qkv"], f"{prefix}.to_qkv", out)
+    for ours, ref in (("net0", "net.0"), ("net1", "net.2"), ("gamma", "gamma"), ("beta", "beta")):
+        _conv(p["luma_cond"][ours], f"{prefix}.luma_cond.{ref}", out)
+    out[f"{prefix}.alpha"] = _t(np.asarray(p["alpha"]).reshape(()))
+    _conv(p["proj"], f"{prefix}.proj", out)
+
+
+def luma_mhsa_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX LumaMHSARawFormer params -> the port's
+    ``models.luma_variants.LumaMHSARawFormer`` ``state_dict`` (the
+    reference's names: ``attn.luma_cond.net.0`` / ``.net.2``, ``attn.alpha``,
+    ``output.0``)."""
+    p = params_np.get("params", params_np)
+    out: Dict[str, torch.Tensor] = {}
+    _conv(p["embedding"], "embedding", out)
+    for name in ("enc1", "enc2", "enc3", "bottleneck", "dec1", "dec2", "dec3"):
+        blk = p[name]
+        _layernorm2d(blk["norm1"], f"{name}.norm1", out)
+        _luma_mhsa(blk["attn"], f"{name}.attn", out)
+        _layernorm2d(blk["norm2"], f"{name}.norm2", out)
+        for ffn in ("pointwise1", "depthwise", "pointwise2"):
+            _conv(blk["ffn"][ffn], f"{name}.ffn.{ffn}", out)
+    for j in range(1, 4):
+        _conv(p[f"down{j}"]["conv"], f"down{j}.body.0", out)
+        _upsample(p[f"up{j}"], f"up{j}", out)
+        _conv(p[f"proj{j}"], f"proj{j}", out)
+    _conv(p["output_conv"], "output.0", out)
+    return out
+
+
+def _kan_linear(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
+                out: Dict[str, torch.Tensor]) -> None:
+    """A KANLinear: its [out, in] matrices as they are, its BatchNorm."""
+    for name in ("scale", "translation", "wavelet_weights", "weight"):
+        out[f"{prefix}.{name}"] = _t(p[name])
+    _batchnorm(p["bn"], stats["bn"], f"{prefix}.bn", out)
+
+
+def _kan_stage(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
+               out: Dict[str, torch.Tensor]) -> None:
+    """A KANConvTransformer in the reference's names (``transformer.attn.qkv.0``
+    / ``.1``, ``transformer.attn.scale``, ``transformer.ffn.net.0`` / ``.1`` /
+    ``.3``, ``reduce``, ``out.0``)."""
+    t = f"{prefix}.transformer"
+    _conv(p["conv"], f"{prefix}.conv", out)
+    _layernorm2d(p["norm1"], f"{t}.norm1", out)
+    _kan_linear(p["attn"]["qkv_kan"], stats["attn"]["qkv_kan"], f"{t}.attn.qkv.0", out)
+    _conv(p["attn"]["qkv_dwconv"], f"{t}.attn.qkv.1", out)
+    out[f"{t}.attn.scale"] = _t(np.asarray(p["attn"]["temperature"]).reshape(-1, 1, 1))
+    _kan_linear(p["attn"]["proj"], stats["attn"]["proj"], f"{t}.attn.proj", out)
+    _layernorm2d(p["norm2"], f"{t}.norm2", out)
+    _kan_linear(p["ffn"]["kan1"], stats["ffn"]["kan1"], f"{t}.ffn.net.0", out)
+    _conv(p["ffn"]["dwconv"], f"{t}.ffn.net.1", out)
+    _kan_linear(p["ffn"]["kan2"], stats["ffn"]["kan2"], f"{t}.ffn.net.3", out)
+    _kan_linear(p["reduce"], stats["reduce"], f"{prefix}.reduce", out)
+    _conv(p["out_conv"], f"{prefix}.out.0", out)
+
+
+def wavkan_state_dict_from_jax(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX WavKANRawFormer variables (``{"params", "batch_stats"}``, numpy
+    leaves) -> the port's ``models.wavkan.WavKANRawFormer`` ``state_dict``."""
+    if "batch_stats" not in variables_np:
+        raise ValueError('WavKAN-RawFormer loads its {"params", "batch_stats"} variables')
+    p, stats = variables_np["params"], variables_np["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    _conv(p["embed"], "embed", out)
+    for i in range(3):
+        _kan_stage(p[f"enc{i}"], stats[f"enc{i}"], f"encoder.{i}", out)
+        _conv(p[f"down{i}_conv"], f"downsamples.{i}.net.0", out)
+        _kan_stage(p[f"dec{i}"], stats[f"dec{i}"], f"decoder.{i}", out)
+        _upsample(p[f"up{i}"], f"upsamples.{i}", out)
+    _kan_stage(p["bottleneck"], stats["bottleneck"], "bottleneck", out)
+    _conv(p["out_conv"], "output.0", out)
     return out

@@ -21,6 +21,10 @@ from bayer_low_light_image_enhancement_tpu_torch.models import (  # noqa: F401
     multilvl_flca as _multilvl,
 )
 from bayer_low_light_image_enhancement_tpu_torch.models import truecolor as _truecolor  # noqa: F401
+from bayer_low_light_image_enhancement_tpu_torch.models import (  # noqa: F401
+    luma_variants as _luma_variants,
+)
+from bayer_low_light_image_enhancement_tpu_torch.models import wavkan as _wavkan  # noqa: F401
 
 __all__ = [
     "get_model",

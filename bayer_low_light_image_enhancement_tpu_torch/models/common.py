@@ -39,11 +39,15 @@ def reset_parameters_(module: nn.Module, generator: torch.Generator) -> None:
     """Re-initialise every conv and linear layer in ``module`` from
     ``generator``: U(+-1/sqrt(fan_in)) for weight and bias (torch's default
     conv init). Values are drawn on the CPU, so a seed gives the same
-    weights on every device. Norms, temperatures and the Mamba ``A_log`` /
-    ``D`` keep their initial values."""
+    weights on every device. A module with its own init draws it through
+    its ``reset_parameters_from(generator)`` (the KAN layers). Norms,
+    temperatures and the Mamba ``A_log`` / ``D`` keep their initial
+    values."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if hasattr(m, "reset_parameters_from"):
+                m.reset_parameters_from(generator)
+            elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 fan_in = nn.init._calculate_fan_in_and_fan_out(m.weight)[0]
                 bound = fan_in ** -0.5
                 for p in (m.weight, m.bias):
@@ -174,6 +178,16 @@ def set_fused_blocks(module: nn.Module, fused: bool) -> None:
     for m in module.modules():
         if isinstance(m, (TransformerBlock, MambaBlock)):
             m.fused = fused
+
+
+def set_chunk_bytes(module: nn.Module, nbytes) -> None:
+    """Set the byte budget of every chunked module in ``module`` (the luma
+    MHSA's token attention, the KAN layers): each computes its largest
+    temporary in slices of at most ``nbytes``, recomputed in backward;
+    None computes it whole."""
+    for m in module.modules():
+        if hasattr(m, "chunk_bytes"):
+            m.chunk_bytes = nbytes
 
 
 def set_apply_kernel(module: nn.Module, apply_kernel: str) -> None:

@@ -2,8 +2,9 @@
 
 Port of ``bayer_low_light_image_enhancement_tpu/models/registry.py``; the
 port registers ``rawformer_s|b|l``, ``rawformer_wfb``, ``flca_rawformer``,
-``multilvl_flca_rawformer``, ``truecolor_rawformer`` and
-``bayertorgb_rawformer`` so far.
+``multilvl_flca_rawformer``, ``truecolor_rawformer``,
+``bayertorgb_rawformer``, ``luma_mhsa_rawformer`` and ``wavkan_rawformer``
+so far: every RAW -> RGB model of the JAX registry.
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Port of the single-chip path of
 ``bayer_low_light_image_enhancement_tpu/ops/conv.py``: NHWC input, HWIO
 kernel, torch ``padding=(eff_k-1)//2`` semantics (symmetric zero padding,
-also for strided convs), and the global reductions ``global_mean`` /
-``global_max``. The halo-exchange paths and cross-device reductions for
-spatially sharded execution are not ported.
+also for strided convs), and the global reductions ``global_mean``,
+``global_max`` and ``global_min``. The halo-exchange paths and
+cross-device reductions for spatially sharded execution are not ported.
 """
 
 from __future__ import annotations
@@ -51,3 +51,8 @@ def global_mean(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
 def global_max(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
     """Max over ``dims``, kept as size-1 dims."""
     return x.amax(dim=dims, keepdim=True)
+
+
+def global_min(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    """Min over ``dims``, kept as size-1 dims."""
+    return x.amin(dim=dims, keepdim=True)

@@ -2,12 +2,12 @@
 
 Port of ``bayer_low_light_image_enhancement_tpu/ops/rep_conv.py``:
 
-* ``BatchNorm2d``: BatchNorm with the JAX package's statistics: fp32, the
-  batch variance ``E[x^2] - E[x]^2`` (biased, clipped at 0) both to
-  normalise and to update ``running_var``, momentum 0.1 in torch's sense
-  (0.9 in the JAX package's). ``torch.nn.BatchNorm2d`` would update
-  ``running_var`` with the unbiased variance; the port follows the JAX
-  package, not the reference's torch training.
+* ``BatchNorm2d``: BatchNorm with the JAX package's statistics: fp32 (fp64
+  for an fp64 input), the batch variance ``E[x^2] - E[x]^2`` (biased,
+  clipped at 0) both to normalise and to update ``running_var``, momentum
+  0.1 in torch's sense (0.9 in the JAX package's). ``torch.nn.BatchNorm2d``
+  would update ``running_var`` with the unbiased variance; the port follows
+  the JAX package, not the reference's torch training.
 * ``Conv2dBN``: bias-free conv + BatchNorm2d (``fuse_conv_bn`` folds them).
 * ``GatedFeedForward``: project_in -> x1 = x + rep3x3(x) + rep1x1(x),
   x2 = dw3x3(x), out = gelu(x2) x1 + gelu(x1) x2 (exact GELU in fp32) ->
@@ -28,14 +28,14 @@ from bayer_low_light_image_enhancement_tpu_torch.models.common import Conv2d
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """fp32 BatchNorm with the JAX package's batch statistics (see the
-    module doc)."""
+    """fp32 (fp64 for an fp64 input) BatchNorm with the JAX package's batch
+    statistics (see the module doc)."""
 
     def __init__(self, features: int, *, device=None, dtype=torch.float32):
         super().__init__(features, eps=1e-5, momentum=0.1, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             mean = xf.mean((0, 2, 3))
             var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
@@ -45,9 +45,9 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.mul_(1.0 - m).add_(m * var.detach())
                 self.num_batches_tracked.add_(1)
         else:
-            mean, var = self.running_mean.float(), self.running_var.float()
-        scale = self.weight.float() * torch.rsqrt(var + self.eps)
-        return (xf - mean[:, None, None]) * scale[:, None, None] + self.bias.float()[:, None, None]
+            mean, var = self.running_mean.to(xf.dtype), self.running_var.to(xf.dtype)
+        scale = self.weight.to(xf.dtype) * torch.rsqrt(var + self.eps)
+        return (xf - mean[:, None, None]) * scale[:, None, None] + self.bias.to(xf.dtype)[:, None, None]
 
 
 class Conv2dBN(nn.Module):

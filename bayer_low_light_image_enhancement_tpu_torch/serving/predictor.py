@@ -18,8 +18,8 @@ Port of ``bayer_low_light_image_enhancement_tpu/serving/predictor.py``:
   amplification through ``normalize_mcr``;
 * weights come from a ``state_dict``, another module, a reference ``.pth``
   (``from_torch``) or the JAX package's variables (``from_jax_params``:
-  RawFormer, FLCA-RawFormer, multi-level FLCA and TrueColor / BayerTORGB
-  params, or RawFormer-WFB params and batch_stats).
+  RawFormer, FLCA-RawFormer, multi-level FLCA, TrueColor / BayerTORGB and
+  luma-MHSA params, or RawFormer-WFB and WavKAN params and batch_stats).
 
 The model runs on ``device``, the card unless the caller asks for the CPU.
 Inputs and outputs are numpy arrays (outputs NHWC fp32). On CUDA every
@@ -81,9 +81,9 @@ class Predictor:
     @classmethod
     def from_jax_params(cls, model: nn.Module, params_np: Mapping[str, Any], **kw) -> "Predictor":
         """Load the JAX package's variables (numpy leaves) of the model's
-        family: a RawFormer, FLCA-RawFormer, multi-level FLCA or TrueColor
-        (BayerTORGB) params tree, or for a ``RawFormerWFB`` model its
-        ``{"params", "batch_stats"}``."""
+        family: a RawFormer, FLCA-RawFormer, multi-level FLCA, TrueColor
+        (BayerTORGB) or luma-MHSA params tree, or for a ``RawFormerWFB`` or
+        ``WavKANRawFormer`` model its ``{"params", "batch_stats"}``."""
         from bayer_low_light_image_enhancement_tpu_torch.compat import jax_params as jp
 
         # Each family names its importer; RawFormer's is the default.

@@ -1,4 +1,4 @@
-"""Single-GPU training of the RawFormer family (RawFormer, RawFormer-WFB).
+"""Single-GPU training of the registry's RAW -> RGB models.
 
 Port of ``bayer_low_light_image_enhancement_tpu/train/trainer.py`` without
 the device mesh (one card). One train step: decode the batch, forward with
@@ -7,7 +7,7 @@ prediction to [0, 1], loss in fp32, backward, optional global-norm clip,
 Adam. On the card TransformerBlocks run the fused kernels forward (K2/K3)
 and backward (B1/B2), and Mamba scans the scan kernels (S1 with states
 forward, S2 backward); ``fused_blocks=False`` sends both to their module /
-twin paths. BatchNorm (WFB) runs in train mode in ``train_step`` and
+twin paths. BatchNorm (WFB, WavKAN) runs in train mode in ``train_step`` and
 updates its running stats also on a NaN-skipped batch, as in the JAX
 trainer; ``eval_step`` uses the running stats.
 

@@ -106,7 +106,36 @@ Phases (any failed check raises and the script exits non-zero):
    (no prepacked entry); ``flca_rawformer`` and
    ``bayertorgb_rawformer`` also serve a 2832x4240 SID uint16 frame
    through ``Predictor.codes`` (the same counts), its forward's device ms
-   and the peak memory printed beside the card's name and power limit.
+   and the peak memory printed beside the card's name and power limit;
+11. the FLCA / TrueColor family trains: the four models of phase 10 (dim
+   48, seeded random weights, BayerTORGB's colour correction moved off
+   saturation as in phase 10, fp32 params, bf16 compute, phase 4b's
+   ``TrainConfig``) each take ``Trainer.train_step`` on a synthetic batch-2
+   @ 256x256 batch (``Loader`` + ``prefetch_to_device``), held to phase
+   4b's yardstick against the twin path (``held_train_step``; the median
+   over the leaves also against MEDIAN_YARD x the bf16 twin path's;
+   BayerTORGB's ``log_temperature`` leaves are logged by name); the
+   counters must show
+   K2, K3, B1 and B2 once per kernel block (C = 48, 96, 192, twice each: 6)
+   and the weight-grad pass twice per block of width >= 96 (8) a step, K1,
+   K3P and the scans never (the counts derived from the model's blocks);
+   20 steps on one batch must lower the loss with no step skipped by the
+   NaN guard; one step at batch 8 @ 512x512 is timed on the kernel and the
+   module path (CUDA events, peak memory), and one kernel-path step
+   profiled (device time against host clock, B1 + B2's share);
+12. ``luma_mhsa_rawformer`` (heads 8/8/8/8) and ``wavkan_rawformer`` (heads
+   8/16/32/32) at dim 48 (seeded random weights, fp32 params, bf16
+   compute), whose token attention and KAN layers run as chunked plain
+   PyTorch: each serves a batch-2 @ 512x512 float request through
+   ``Predictor.__call__`` (finite in [0, 1], the default chunks against
+   256 MiB chunks within E2E_MAX_TOL / E2E_MEAN_TOL, no hand kernel
+   launched, the forward's device time and the peak memory printed) and
+   trains at batch 2 @ 256x256 (first loss and every first-step grad leaf
+   of the default chunks against 256 MiB chunks by phase 6's rule, the
+   median also against MEDIAN_YARD x the nudged run's, the BatchNorm
+   running stats within WFB_BN_TOL; the same in fp32 compute with phase
+   6's median bar; 20 steps on one batch lower the loss with no step
+   skipped, the step time and peak memory printed).
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -183,6 +212,18 @@ SCAN_BWD_TOL = 1e-3
 # them. BN running stats within WFB_BN_TOL of their max; loss and params as
 # TRAIN_* (the params bound again only Adam's ceiling).
 WFB_GRAD_FLOOR, WFB_GRAD_MEDIAN_TOL, WFB_BN_TOL = 2e-2, 2e-2, 1e-2
+# Phases 11 and 12 hold the median over the leaves to the larger of its bar
+# and MEDIAN_YARD x the yardstick's own median over the leaves (phase 11:
+# the bf16 twin path's; phase 12: the nudged run's), beside the per-leaf
+# rule. Phase 11's models round more inside their blocks than RawFormer-S
+# does: their bf16 twin path's median is 2.0-5.4e-2 of the fp32 twin's leaf
+# max at batch 2 @ 256^2 and 2.4-5.1e-2 at batch 8 @ 512^2, above
+# TRAIN_GRAD_MEDIAN_TOL, and the kernel path's is 0.6-1.2x that (RawFormer-S
+# at batch 8 @ 512^2: 1.1e-2 against the bf16 twin's 3.4e-2). WavKAN's
+# train-mode BatchNorms over batch statistics make its bf16 grads chaotic:
+# a half-ulp input nudge moves the median leaf by 1.3x its max, so phase 12
+# also holds both models to the absolute bar in fp32 compute.
+MEDIAN_YARD = 1.5
 # A1 and T1 (bf16 kernels vs fp32 twins on the same bf16 inputs) are held to
 # the block rule. The probe rungs: level "c" copies exactly; every other rung
 # that computes a result (all but "center" at level "v") within PROBE_TOL of
@@ -416,6 +457,18 @@ def mosaics(rng, shape) -> np.ndarray:
     return m
 
 
+def peak_memory(fn):
+    """fn() with the peak-memory counter reset just before; -> (its result,
+    the peak GiB allocated during it, the GiB held just before: earlier
+    phases' tensors and the kernels' workspaces)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2 ** 30, held / 2 ** 30
+
+
 def counted(counters, fn):
     """fn() with every counter at 0 just before; -> (its result, the counts
     just after)."""
@@ -425,6 +478,89 @@ def counted(counters, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, {c.__name__: c.launches for c in counters}
+
+
+@contextlib.contextmanager
+def twin_blocks():
+    """Every TransformerBlock through ``fused_transformer_block_plain`` (the
+    fp32 twins, differentiated by autograd): the twin path."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+
+    saved = common.fused_transformer_block
+    common.fused_transformer_block = fb.fused_transformer_block_plain
+    try:
+        yield
+    finally:
+        common.fused_transformer_block = saved
+
+
+def held_train_step(make_model, train_cfg, batch, counters, what, show=lambda name: False,
+                    median_yard: float = 0.0):
+    """The training yardstick of phases 4b and 11: a kernel-path and a
+    twin-path ``Trainer`` from one init (``make_model()``) take two steps on
+    ``batch`` (the first at the warmup's lr 0). Checks the first loss within
+    TRAIN_LOSS_RTOL; every first-step grad leaf within max(3 x the twin
+    path's own change when its input is nudged by half a bf16 ulp, 3 x the
+    bf16 twin path's error, TRAIN_GRAD_FLOOR) of the twin's leaf max; the
+    median over the leaves within TRAIN_GRAD_MEDIAN_TOL, or within
+    ``median_yard`` x the bf16 twin path's median where that is larger; the
+    params after the two steps within TRAIN_PARAM_ATOL. Logs every leaf
+    whose name ``show`` accepts. -> (the kernel-path trainer, its two
+    losses, the launches of its first step)."""
+    from bayer_low_light_image_enhancement_tpu_torch.train import Trainer
+
+    kern, twin = Trainer(make_model(), train_cfg), Trainer(make_model(), train_cfg)
+    first, launches = counted(counters, lambda: float(kern.train_step(batch)))
+    kern_grads = {n: p.grad.float().clone() for n, p in kern.model.named_parameters()}
+    kern_losses = [first, float(kern.train_step(batch))]
+    with twin_blocks():
+        twin_losses = [float(twin.train_step(batch))]
+        twin_grads = {n: p.grad.float().clone() for n, p in twin.model.named_parameters()}
+        twin_losses.append(float(twin.train_step(batch)))
+
+    def twin_change(b, autocast):
+        """Each leaf's first-step grad change of a twin-path trainer on b
+        (under autocast(bfloat16) or not), relative to the twin's leaf max."""
+        tr = Trainer(make_model(), train_cfg)
+        with twin_blocks(), torch.autocast("cuda", torch.bfloat16, enabled=autocast):
+            tr.train_step(b)
+        return {n: ((p.grad.float() - twin_grads[n]).abs().max()
+                    / (twin_grads[n].abs().max() + 1e-12)).item()
+                for n, p in tr.model.named_parameters()}
+
+    yard = twin_change((batch[0] * (1.0 + 2.0 ** -9), batch[1]), False)
+    bf16 = twin_change(batch, True)
+    grad_err = {n: ((kern_grads[n] - g).abs().max() / (g.abs().max() + 1e-12)).item()
+                for n, g in twin_grads.items()}
+    allowed = {n: max(3 * yard[n], 3 * bf16[n], TRAIN_GRAD_FLOOR) for n in grad_err}
+    worst = max(grad_err, key=lambda n: grad_err[n] / allowed[n])
+    bad = [n for n in grad_err if grad_err[n] > allowed[n]]
+    median = float(np.median(list(grad_err.values())))
+    bf16_median = float(np.median(list(bf16.values())))
+    median_tol = max(TRAIN_GRAD_MEDIAN_TOL, median_yard * bf16_median)
+    dp = max((a.detach().float() - b.detach().float()).abs().max().item()
+             for a, b in zip(kern.model.parameters(), twin.model.parameters()))
+    dl = abs(kern_losses[0] - twin_losses[0]) / abs(twin_losses[0])
+    log(f"{what}, kernel path vs twin path: losses {kern_losses} vs {twin_losses} (first rel "
+        f"err {dl:.3e}, tol {TRAIN_LOSS_RTOL}); first-step grads of the twin's leaf max, worst "
+        f"against its yardstick {worst} {grad_err[worst]:.3e} (nudged twin {yard[worst]:.3e}, "
+        f"bf16 twin {bf16[worst]:.3e}, floor {TRAIN_GRAD_FLOOR}); "
+        f"{sum(grad_err[n] > max(3 * yard[n], TRAIN_GRAD_FLOOR) for n in grad_err)} of "
+        f"{len(grad_err)} leaves beyond the nudge alone; median {median:.3e} (tol "
+        f"{median_tol:.3e}; nudged twin {float(np.median(list(yard.values()))):.3e}, bf16 "
+        f"twin {bf16_median:.3e}); params after 2 Adam steps max abs diff "
+        f"{dp:.3e} (tol {TRAIN_PARAM_ATOL}, Adam's ceiling ~2 lr, not a grad test)")
+    for n in filter(show, grad_err):
+        log(f"  {n}: grad err {grad_err[n]:.3e} of the twin's leaf max (nudged twin "
+            f"{yard[n]:.3e}, bf16 twin {bf16[n]:.3e}; allowed {allowed[n]:.3e})")
+    check(dl <= TRAIN_LOSS_RTOL, f"{what}: train loss disagrees with the twin path")
+    check(not bad and median <= median_tol,
+          f"{what}: first-step grads disagree with the twin path: "
+          f"{[(n, grad_err[n], yard[n], bf16[n]) for n in bad]}")
+    check(dp <= TRAIN_PARAM_ATOL,
+          f"{what}: params after Adam steps exceed Adam's step-size ceiling")
+    return kern, kern_losses, launches
 
 
 def real_data_phase(dev, card, counters) -> None:
@@ -718,6 +854,258 @@ def zoo_phase(dev, card, counters) -> dict:
         torch.cuda.empty_cache()
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
+
+
+ZOO_TRAIN_BATCH, ZOO_TIME_BATCH = (2, 256, 256), (8, 512, 512)
+
+
+def synthetic_batch(dev, b: int, size: int):
+    """One synthetic (input, GT) batch of b crops at size^2 through ``Loader``
+    + ``prefetch_to_device``, as the trainer is fed."""
+    from bayer_low_light_image_enhancement_tpu_torch.data import (
+        Loader,
+        SyntheticBayerDataset,
+        prefetch_to_device,
+    )
+
+    ds = SyntheticBayerDataset(num_images=b, full_size=(size + 64, size + 64), patch_size=size,
+                               training=True)
+    loader = Loader(ds, b, seed=0, num_threads=min(b, 8))
+    return next(iter(prefetch_to_device(((i, g) for i, g, _ in loader), dev)))
+
+
+def fused_block_widths(model) -> list:
+    """The widths of the model's TransformerBlocks that run the kernels
+    (fused, C <= FUSE_CMAX), one entry a block."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+
+    return [c for m in model.modules() if isinstance(m, common.TransformerBlock) and m.fused
+            for c in [m.norm1.body.weight.shape[0]] if c <= common.FUSE_CMAX]
+
+
+def zoo_train_phase(dev, card, counters, train_cfg) -> dict:
+    """Phase 11: the FLCA / TrueColor family at dim 48 trains through
+    ``Trainer`` on the kernel path (K2 / K3 forward, B1 / B2 and the
+    weight-grad pass backward); returns each step's launches by model."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.common import set_fused_blocks
+    from bayer_low_light_image_enhancement_tpu_torch.train import Trainer
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms, profile
+
+    t_phase = time.perf_counter()
+    small = synthetic_batch(dev, *ZOO_TRAIN_BATCH[:2])
+    big = synthetic_batch(dev, *ZOO_TIME_BATCH[:2])
+    launches = {}
+    for name in ZOO:
+        t0 = time.perf_counter()
+        base = get_model(name, device=dev, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(11))
+        set_fused_blocks(base, False)
+        with torch.no_grad():
+            spread_color_correction(base, lambda: base(small[0].permute(0, 3, 1, 2)))
+        set_fused_blocks(base, True)
+        init = {k: v.clone() for k, v in base.state_dict().items()}
+        widths = fused_block_widths(base)
+        del base
+
+        def make():
+            m = get_model(name, device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(11))
+            m.load_state_dict(init)
+            return m
+
+        # Each kernel block runs K2 / K3 forward and B1 / B2 backward once a
+        # step, the weight-grad pass twice (B1's products, B2's) at the
+        # split widths; nothing else launches.
+        want = dict.fromkeys((c.__name__ for c in counters), 0)
+        want.update(gram_pass=len(widths), apply_pass=len(widths), bwd1=len(widths),
+                    bwd2=len(widths),
+                    weight_grad=2 * sum(fbb.weight_grad_regime(c) == "split" for c in widths))
+        what = f"{name} dim 48 train step, batch {ZOO_TRAIN_BATCH[0]} @ {ZOO_TRAIN_BATCH[1]}^2"
+        kern, losses, got = held_train_step(make, train_cfg, small, counters, what,
+                                            show=lambda n: "log_temperature" in n,
+                                            median_yard=MEDIAN_YARD)
+        log(f"{what}: launches {got} (kernel blocks at widths {widths})")
+        check(got == want, f"{what}: launches {got}, expected {want}")
+        launches[name] = got
+        for _ in range(18):
+            losses.append(float(kern.train_step(small)))
+        log(f"{name} 20 steps on one batch: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+            f"{kern.step - kern.applied} of {kern.step} steps skipped by the NaN guard")
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"{name}: 20 steps on one batch did not lower its loss")
+        check(kern.applied == kern.step == 20, f"{name}: the NaN guard skipped a step")
+        del kern
+
+        for path in ("kernel", "module"):
+            tr = Trainer(make(), dataclasses.replace(train_cfg, fused_blocks=path == "kernel"))
+            tr.train_step(big)
+            ms, peak, held = peak_memory(lambda: cuda_time_ms(lambda: tr.train_step(big), 2,
+                                                              warmup=1))
+            split = ""
+            if path == "kernel":
+                r = profile(lambda: tr.train_step(big), 1, warmup=0)
+                bwd = sum(t for k, t, _ in r["kernels"]
+                          if re.search(r"bwd[12]_kernel|sum_partials_kernel", k))
+                wg = sum(t for k, t, _ in r["kernels"] if "weight_grad_kernel" in k)
+                split = (f"; one profiled step: {r['device_ms']:.3f} ms of device time in "
+                         f"{r['host_ms']:.3f} ms of host clock ({100 * r['busy']:.1f}% busy, "
+                         f"{sum(c for _, _, c in r['kernels']):.0f} kernels), B1 + B2 "
+                         f"{bwd:.3f} ms ({bwd / r['device_ms']:.1%} of the device time), the "
+                         f"weight-grad pass {wg:.3f} ms")
+            log(f"time {name} dim 48 train step, batch {ZOO_TIME_BATCH[0]} @ "
+                f"{ZOO_TIME_BATCH[1]}^2, {path} path (CUDA events, after warmup): {ms:.3f} ms, "
+                f"{ZOO_TIME_BATCH[0] * ZOO_TIME_BATCH[1] ** 2 / 1e6 / ms * 1e3:.1f} MP/s, peak "
+                f"memory {peak:.2f} GiB, {peak - held:.2f} above the {held:.2f} held before"
+                f"{split} ({torch.cuda.get_device_name(0)}; nvidia-smi: {card})")
+            del tr
+            torch.cuda.empty_cache()
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+# Phase 12: the two models without a TransformerBlock, at dim 48 with their
+# default heads; each serves and trains through chunked plain modules, held
+# against a second chunk size.
+PLAIN_ZOO = ("luma_mhsa_rawformer", "wavkan_rawformer")
+OTHER_CHUNK_BYTES = 1 << 28
+
+
+def held_chunk_step(make_model, train_cfg, batch, counters, what, median_yard: float = 0.0,
+                    other: int = OTHER_CHUNK_BYTES):
+    """Phase 12's rule (phase 6's): trainers of ``make_model()`` (its
+    default chunks) and ``make_model(other)`` take one step on ``batch``
+    and launch no hand kernel. Checks the first loss within
+    TRAIN_LOSS_RTOL; every first-step grad leaf within max(3 x the change of
+    a ``make_model(other)`` trainer whose input is nudged by half a bf16
+    ulp, WFB_GRAD_FLOOR) of the other's leaf max; the median
+    over the leaves within WFB_GRAD_MEDIAN_TOL, or ``median_yard`` x the
+    nudged run's median where that is larger; the BN running stats within
+    WFB_BN_TOL of their max. -> (the default-chunk trainer, its loss)."""
+    from bayer_low_light_image_enhancement_tpu_torch.train import Trainer
+
+    def step(chunk, b):
+        tr = Trainer(make_model() if chunk is None else make_model(chunk), train_cfg)
+        loss, got = counted(counters, lambda: float(tr.train_step(b)))
+        check(sum(got.values()) == 0, f"{what}: a hand kernel launched ({got})")
+        return tr, loss, {n: p.grad.float().clone() for n, p in tr.model.named_parameters()}
+
+    kern, first, grads = step(None, batch)
+    second, other_first, other_grads = step(other, batch)
+    _, _, nudged = step(other, (batch[0] * (1.0 + 2.0 ** -9), batch[1]))
+    rel = lambda g, ref: ((g - ref).abs().max() / (ref.abs().max() + 1e-12)).item()  # noqa: E731
+    yard = {n: rel(nudged[n], g) for n, g in other_grads.items()}
+    grad_err = {n: rel(grads[n], g) for n, g in other_grads.items()}
+    allowed = {n: max(3 * yard[n], WFB_GRAD_FLOOR) for n in grad_err}
+    worst = max(grad_err, key=lambda n: grad_err[n] / allowed[n])
+    bad = [n for n in grad_err if grad_err[n] > allowed[n]]
+    median = float(np.median(list(grad_err.values())))
+    yard_median = float(np.median(list(yard.values())))
+    median_tol = max(WFB_GRAD_MEDIAN_TOL, median_yard * yard_median)
+    sk, so = kern.model.state_dict(), second.model.state_dict()
+    stats = [n for n in sk if "running" in n]
+    dbn = max((((sk[n] - so[n]).abs().max() / so[n].abs().max()).item() for n in stats),
+              default=0.0)
+    dl = abs(first - other_first) / abs(other_first)
+    log(f"{what}, default chunks vs {other / 2 ** 20:g} MiB: first loss {first} vs "
+        f"{other_first} (rel err {dl:.3e}, tol {TRAIN_LOSS_RTOL}); first-step grads of the other's "
+        f"leaf max, worst against its yardstick {worst} {grad_err[worst]:.3e} (nudged "
+        f"{yard[worst]:.3e}, floor {WFB_GRAD_FLOOR}); median {median:.3e} (tol {median_tol:.3e}; "
+        f"nudged {yard_median:.3e}); {len(stats)} BN running stats within {dbn:.3e} of their max "
+        f"(tol {WFB_BN_TOL}); no hand kernel launched")
+    check(dl <= TRAIN_LOSS_RTOL, f"{what}: the first loss differs between chunk sizes")
+    check(not bad and median <= median_tol,
+          f"{what}: first-step grads differ between chunk sizes: {bad}")
+    check(dbn <= WFB_BN_TOL, f"{what}: BN running stats differ between chunk sizes")
+    return kern, first
+
+
+def plain_zoo_phase(dev, card, counters, train_cfg) -> None:
+    """Phase 12: ``luma_mhsa_rawformer`` and ``wavkan_rawformer`` serve a
+    batch-2 @ 512^2 request and train at batch 2 @ 256^2 (in bf16 and, for
+    the absolute median bar, in fp32 compute), their chunked token
+    attention / KAN layers at the default chunk against OTHER_CHUNK_BYTES;
+    no hand kernel launches."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.common import set_chunk_bytes
+    from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms, profile
+
+    def no_kernel(got, what):
+        check(sum(got.values()) == 0, f"{what}: a hand kernel launched ({got})")
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    x = rng.uniform(0.0, 1.5, ZOO_BATCH + (1,)).astype(np.float32)
+    small = synthetic_batch(dev, *ZOO_TRAIN_BATCH[:2])
+    for name in PLAIN_ZOO:
+        t0 = time.perf_counter()
+
+        def make(chunk_bytes=None, dtype=torch.bfloat16):
+            m = get_model(name, device=dev, dtype=dtype,
+                          generator=torch.Generator().manual_seed(12))
+            if chunk_bytes is not None:
+                set_chunk_bytes(m, chunk_bytes)
+            return m
+
+        # Serving: the default chunks against OTHER_CHUNK_BYTES, the same weights.
+        pred = Predictor(make(), device=dev)
+        what = f"{name} dim 48, {ZOO_BATCH} float mosaics"
+        (y, got), peak, held = peak_memory(lambda: counted(counters, lambda: pred(x)))
+        no_kernel(got, what)
+        check(y.shape == x.shape[:3] + (3,) and bool(np.isfinite(y).all()) and y.min() >= 0.0
+              and y.max() <= 1.0, f"{what}: output not finite in [0, 1] of shape {y.shape}")
+        set_chunk_bytes(pred.model, OTHER_CHUNK_BYTES)
+        y2, got = counted(counters, lambda: pred(x))
+        no_kernel(got, what)
+        d = np.abs(y - y2)
+        log(f"{what}: default chunks vs {OTHER_CHUNK_BYTES >> 20} MiB chunks max abs err "
+            f"{d.max():.3e} (tol {E2E_MAX_TOL}), mean {d.mean():.3e} (tol {E2E_MEAN_TOL}); output "
+            f"mean {y.mean():.4f}, std {y.std():.4f}; no hand kernel launched")
+        check(d.max() <= E2E_MAX_TOL and d.mean() <= E2E_MEAN_TOL,
+              f"{what}: the chunk sizes disagree")
+        xb = pred._padded(torch.from_numpy(x).to(dev))
+        with torch.inference_mode():  # warm: the two requests ran the same shapes
+            r = profile(lambda: pred.model(xb), 1, warmup=0)
+        log(f"time {name} dim 48 forward, {ZOO_BATCH} float mosaics (torch.profiler, after "
+            f"two requests, {OTHER_CHUNK_BYTES >> 20} MiB chunks): {r['host_ms']:.3f} ms host "
+            f"clock, {r['device_ms']:.3f} ms device ({100 * r['busy']:.1f}% busy); peak memory of "
+            f"Predictor.__call__ at the default chunks {peak:.2f} GiB, {peak - held:.2f} above "
+            f"the {held:.2f} held before ({torch.cuda.get_device_name(0)}; nvidia-smi: {card})")
+        del pred, xb
+        torch.cuda.empty_cache()
+
+        # Training: first-step grads and BN running stats of the default
+        # chunks against OTHER_CHUNK_BYTES, in bf16 and in fp32 compute.
+        kern, first = held_chunk_step(make, train_cfg, small, counters, f"{name} train step, batch "
+                                      f"{ZOO_TRAIN_BATCH[0]} @ {ZOO_TRAIN_BATCH[1]}^2",
+                                      median_yard=MEDIAN_YARD)
+        held_chunk_step(lambda chunk=None: make(chunk, torch.float32), train_cfg, small, counters,
+                        f"{name} train step in fp32 compute, batch {ZOO_TRAIN_BATCH[0]} @ "
+                        f"{ZOO_TRAIN_BATCH[1]}^2")
+        torch.cuda.empty_cache()
+
+        losses = [first]
+        step_ms, peak, held = peak_memory(
+            lambda: cuda_time_ms(lambda: losses.append(kern.train_step(small)), 2, warmup=1))
+        while len(losses) < 20:
+            losses.append(kern.train_step(small))
+        losses = [float(v) for v in losses]
+        log(f"{name} 20 steps on one batch: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+            f"{kern.step - kern.applied} of {kern.step} steps skipped by the NaN guard")
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"{name}: 20 steps on one batch did not lower its loss")
+        check(kern.applied == kern.step == 20, f"{name}: the NaN guard skipped a step")
+        log(f"time {name} dim 48 train step, batch {ZOO_TRAIN_BATCH[0]} @ {ZOO_TRAIN_BATCH[1]}^2 "
+            f"(CUDA events, after warmup, default chunks): {step_ms:.3f} ms, peak memory "
+            f"{peak:.2f} GiB, {peak - held:.2f} above the {held:.2f} held before "
+            f"({torch.cuda.get_device_name(0)}; nvidia-smi: {card})")
+        del kern
+        torch.cuda.empty_cache()
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def main() -> int:
@@ -1027,15 +1415,6 @@ def main() -> int:
         check(bool(np.isfinite(y).all()) and y.min() >= 0.0 and y.max() <= 1.0,
               "output not finite in [0, 1]")
 
-    @contextlib.contextmanager
-    def twin_blocks():
-        saved = common.fused_transformer_block
-        common.fused_transformer_block = fb.fused_transformer_block_plain
-        try:
-            yield
-        finally:
-            common.fused_transformer_block = saved
-
     m0, r0 = requests[0]
     md, rd = u16_to_device(m0), torch.from_numpy(r0).to(dev)
     with torch.inference_mode(), twin_blocks():
@@ -1117,53 +1496,9 @@ def main() -> int:
     check(all(np.isfinite(train_losses)), "non-finite training loss")
 
     fixed = steps[0]
-    kern, twin = Trainer(rawformer_s(), train_cfg), Trainer(rawformer_s(), train_cfg)
-    runs = []
-    for tr, ctx in ((kern, contextlib.nullcontext), (twin, twin_blocks)):
-        with ctx():
-            losses = [float(tr.train_step(fixed))]
-            grads = {n: p.grad.float().clone() for n, p in tr.model.named_parameters()}
-            losses.append(float(tr.train_step(fixed)))
-        runs.append((losses, grads))
-    (kern_losses, kern_grads), (twin_losses, twin_grads) = runs
-    def twin_change(batch, autocast):
-        """Each leaf's first-step grad change of a twin-path trainer on batch
-        (under autocast(bfloat16) or not), relative to the twin's leaf max."""
-        tr = Trainer(rawformer_s(), train_cfg)
-        with twin_blocks(), torch.autocast("cuda", torch.bfloat16, enabled=autocast):
-            tr.train_step(batch)
-        return {n: ((p.grad.float() - twin_grads[n]).abs().max()
-                    / (twin_grads[n].abs().max() + 1e-12)).item()
-                for n, p in tr.model.named_parameters()}
-
-    yard = twin_change((fixed[0] * (1.0 + 2.0 ** -9), fixed[1]), False)
-    bf16 = twin_change(fixed, True)
-    grad_err = {n: ((kern_grads[n] - g).abs().max() / (g.abs().max() + 1e-12)).item()
-                for n, g in twin_grads.items()}
-    allowed = {n: max(3 * yard[n], 3 * bf16[n], TRAIN_GRAD_FLOOR) for n in grad_err}
-    worst = max(grad_err, key=lambda n: grad_err[n] / allowed[n])
-    bad = [n for n in grad_err if grad_err[n] > allowed[n]]
-    median = float(np.median(list(grad_err.values())))
-    temp = "conv_tran3.Transformer.attn.temperature"
-    dp = max((a.detach().float() - b.detach().float()).abs().max().item()
-             for a, b in zip(kern.model.parameters(), twin.model.parameters()))
-    dl = abs(kern_losses[0] - twin_losses[0]) / abs(twin_losses[0])
-    log(f"train step kernel path vs twin path: losses {kern_losses} vs {twin_losses} "
-        f"(first rel err {dl:.3e}, tol {TRAIN_LOSS_RTOL}); first-step grads of the twin's "
-        f"leaf max, worst against its yardstick {worst} {grad_err[worst]:.3e} (nudged twin "
-        f"{yard[worst]:.3e}, bf16 twin {bf16[worst]:.3e}, floor {TRAIN_GRAD_FLOOR}), {temp} "
-        f"{grad_err[temp]:.3e} (nudged twin {yard[temp]:.3e}, bf16 twin {bf16[temp]:.3e}); "
-        f"{sum(grad_err[n] > max(3 * yard[n], TRAIN_GRAD_FLOOR) for n in grad_err)} of "
-        f"{len(grad_err)} leaves beyond the nudge alone; median {median:.3e} (tol "
-        f"{TRAIN_GRAD_MEDIAN_TOL}; nudged twin {float(np.median(list(yard.values()))):.3e}, bf16 "
-        f"twin {float(np.median(list(bf16.values()))):.3e}); params after 2 Adam steps max abs diff "
-        f"{dp:.3e} (tol {TRAIN_PARAM_ATOL}, Adam's ceiling ~2 lr, not a grad test)")
-    check(dl <= TRAIN_LOSS_RTOL, "train loss disagrees with the twin path")
-    check(not bad and median <= TRAIN_GRAD_MEDIAN_TOL,
-          f"RawFormer-S first-step grads disagree with the twin path: "
-          f"{[(n, grad_err[n], yard[n], bf16[n]) for n in bad]}")
-    check(dp <= TRAIN_PARAM_ATOL, "params after Adam steps exceed Adam's step-size ceiling")
-    del twin
+    kern, kern_losses, _ = held_train_step(
+        rawformer_s, train_cfg, fixed, counters, "RawFormer-S train step, batch 8 @ 512^2",
+        show=lambda n: n == "conv_tran3.Transformer.attn.temperature")
     for _ in range(18):
         kern_losses.append(float(kern.train_step(fixed)))
     log(f"20 steps on one batch: loss {kern_losses[0]:.5f} -> {kern_losses[-1]:.5f}")
@@ -1686,6 +2021,16 @@ def main() -> int:
     log("phase 10 launches per forward (FLCA / TrueColor family at dim 48, 2 x 512^2): "
         + json.dumps(zoo_launches))
 
+    # 11. the FLCA / TrueColor family trains -------------------------------------
+    torch.cuda.empty_cache()
+    zoo_train_launches = zoo_train_phase(dev, card, counters, train_cfg)
+    log("phase 11 launches per train step (FLCA / TrueColor family at dim 48, 2 x 256^2): "
+        + json.dumps(zoo_train_launches))
+
+    # 12. luma-MHSA and WavKAN ----------------------------------------------------
+    torch.cuda.empty_cache()
+    plain_zoo_phase(dev, card, counters, train_cfg)
+
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),
                        ("fused_block_apply_pipelined", "apply")):
@@ -1739,7 +2084,9 @@ def main() -> int:
         "cut after stage 1), ssm_scan_fwd and "
         "ssm_scan_bwd at [6,16384,96,32] bf16 (ssm_scan_fwd without states), "
         "ssm_scan_fwd_states at [24,16384,96,32] bf16; launches of K1-K3 from RawFormer-S "
-        "serving, of K3P from its pipelined serving, of B1/B2 from its training, of "
+        "serving, of K3P from its pipelined serving, of B1/B2 from its training (B1/B2 and "
+        "the weight-grad pass also run 6 and 8 times a step in FLCA / TrueColor training, "
+        "phase 11), of "
         "ssm_scan_fwd from WFB serving, of ssm_scan_fwd_states and ssm_scan_bwd from WFB "
         "training, of A1, T1 and the "
         "probes from their own experiments (no model calls them); weight_grad at [8,64,64,128] "

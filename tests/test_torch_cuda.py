@@ -1338,3 +1338,103 @@ def test_flca_truecolor_serving_kernel_path_matches_module_path(cuda, name):
     assert float(dh.max()) <= 5e-2 * scale and float(dh.mean()) <= 5e-3 * scale
     with pytest.raises(TypeError, match="no prepacked entry"):
         pred.raw_u16(np.zeros((64, 64), np.uint16), 100.0)
+
+
+def zoo_counters():
+    return (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fb.apply_pass_pipelined,
+            wg.weight_grad, fbb.bwd1, fbb.bwd2)
+
+
+def test_bayertorgb_train_step_kernel_path_matches_twin_path(cuda):
+    """A bf16 train step of ``bayertorgb_rawformer`` at dim 48 on a synthetic
+    batch 2 @ 128^2 (its colour correction moved off saturation) through
+    K2/K3 + B1/B2 and the weight-grad pass against the same step with the
+    blocks on their fp32 twins, by ``chip_smoke.py`` phase 11's rule
+    (``held_train_step``): the loss within 2e-2 relative; every first-step
+    grad leaf, the ``log_temperature`` leaves among them, within max(3 x the
+    nudged twin's change, 3 x the bf16 twin's error, 2e-2) of the twin's
+    leaf max, the median within max(2e-2, 1.5 x the bf16 twin's median); the
+    launches of one step derived from the model's kernel blocks (K2, K3, B1,
+    B2 once a block: 6; the weight-grad pass twice a block of width >= 96:
+    8)."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig
+    from chip_smoke import (
+        MEDIAN_YARD,
+        fused_block_widths,
+        held_train_step,
+        spread_color_correction,
+        synthetic_batch,
+    )
+
+    batch = synthetic_batch(cuda, 2, 128)
+    base = get_model("bayertorgb_rawformer", device=cuda, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(15))
+    common.set_fused_blocks(base, False)
+    with torch.no_grad():
+        spread_color_correction(base, lambda: base(batch[0].permute(0, 3, 1, 2)))
+    common.set_fused_blocks(base, True)
+    widths = fused_block_widths(base)
+    assert widths == [48, 96, 192, 192, 96, 48]
+    assert sum("log_temperature" in n for n, _ in base.named_parameters()) == 7
+
+    def make():
+        m = get_model("bayertorgb_rawformer", device=cuda, dtype=torch.bfloat16)
+        m.load_state_dict(base.state_dict())
+        return m
+
+    _, losses, got = held_train_step(make, TrainConfig(warmup_epochs=1, steps_per_epoch=1), batch,
+                                     zoo_counters(), "bayertorgb_rawformer",
+                                     median_yard=MEDIAN_YARD)
+    assert got == {"bayer_pack_normalize": 0, "gram_pass": 6, "apply_pass": 6,
+                   "apply_pass_pipelined": 0, "weight_grad": 8, "bwd1": 6, "bwd2": 6}
+    assert np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 96), (2, 32, 32, 192)])
+def test_backward_kernels_at_the_flca_training_shapes(cuda, shape):
+    """B1 + B2 and the weight-grad pass (twice: B1's products, B2's) at the
+    blocks of an FLCA / TrueColor train step at dim 48, batch 2 @ 256^2 (C =
+    96 and 192), against the twins: each leaf within max(3 x the bf16 twin's
+    error, 2e-2) of the fp32 twin."""
+    assert fbb.weight_grad_regime(shape[-1]) == "split"
+    x, dy, wts = backward_case(shape, shape[-1] + 7, cuda)
+    check_backward_against_twins(x, dy, wts)
+
+
+@pytest.mark.parametrize("name", ["luma_mhsa_rawformer", "wavkan_rawformer"])
+def test_plain_zoo_chunked_matches_unchunked_on_the_card(cuda, name):
+    """``luma_mhsa_rawformer`` / ``wavkan_rawformer`` at dim 16 on 2 x 64x64,
+    the token attention / KAN layers in 4 KiB chunks (recomputed in
+    backward) against unchunked, no hand kernel launched: serving in bf16
+    at ``chip_smoke.py``'s bar; one train step in fp32 compute by phase
+    12's rule (``held_chunk_step``: the first loss within 2e-2 relative,
+    every grad leaf within max(3 x the nudged run's change, 2e-2) of its
+    leaf max, the median within 2e-2, the BatchNorm running stats within
+    1e-2 of their max). In fp32 the chunks change only the order of fp32
+    sums; in bf16 WavKAN's train-mode grads move by more than their own
+    size under a half-ulp input nudge (phase 12 holds them on its yardstick)."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig
+    from chip_smoke import held_chunk_step
+
+    g = np.random.default_rng(16)
+    x = g.uniform(0, 1.5, (2, 64, 64, 1)).astype(np.float32)
+    batch = (torch.from_numpy(x).to(cuda),
+             torch.from_numpy(g.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(cuda))
+    counters = zoo_counters()
+    before = [f.launches for f in counters]
+
+    def make(chunk_bytes=None, dtype=torch.bfloat16):
+        m = get_model(name, device=cuda, dtype=dtype, dim=16,
+                      generator=torch.Generator().manual_seed(16))
+        common.set_chunk_bytes(m, chunk_bytes)
+        return m
+
+    outs = [Predictor(make(c))(x) for c in (None, 4096)]
+    assert [f.launches for f in counters] == before
+    d = np.abs(outs[0] - outs[1])
+    assert np.isfinite(outs[1]).all() and d.max() <= 5e-2 and d.mean() <= 5e-3, (d.max(), d.mean())
+    held_chunk_step(lambda chunk=None: make(chunk, torch.float32),
+                    TrainConfig(warmup_epochs=1, steps_per_epoch=1), batch, counters, name,
+                    other=4096)

@@ -1,0 +1,275 @@
+"""The port's WavKAN-RawFormer against the JAX package on the same weights
+and inputs (CPU, fp32): the wavelet basis of each kind, KANLinear in eval
+and train mode (its output and its BatchNorm's updated running stats
+against the JAX ``batch_stats`` after one ``mutable`` apply), KANAttention,
+KANFFN and the whole model (eval and train mode, with and without the
+reference's decoder heads), the weight carry round trip through the JAX
+importer, ``Predictor.from_jax_params`` on a ragged frame, the chunked
+KANLinear against the unchunked one (output and grads), and the train and
+eval CLIs with ``--model wavkan_rawformer``."""
+
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayer_low_light_image_enhancement_tpu.compat.torch_import import import_wavkan_state_dict
+from bayer_low_light_image_enhancement_tpu.models import wavkan as jwk
+from bayer_low_light_image_enhancement_tpu.serving import Predictor as JaxPredictor
+from bayer_low_light_image_enhancement_tpu_torch.cli import test_cli, train_cli
+from bayer_low_light_image_enhancement_tpu_torch.compat import jax_params as jp
+from bayer_low_light_image_enhancement_tpu_torch.data import synthetic
+from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+from bayer_low_light_image_enhancement_tpu_torch.models import wavkan as wk
+from bayer_low_light_image_enhancement_tpu_torch.models.common import set_chunk_bytes
+from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
+
+from torch_parity import (
+    HEADS,
+    TOL,
+    assert_grads_match,
+    carried,
+    jax_variables,
+    n,
+    round_trip,
+    t,
+)
+
+torch.set_num_threads(2)
+
+RNG = np.random.default_rng(51)
+X = RNG.uniform(0, 1.5, (2, 32, 48, 1)).astype(np.float32)
+KINDS = ["mexican_hat", "morlet", "dog"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_wavelet_basis(kind):
+    x = RNG.standard_normal((4, 5, 6)).astype(np.float32) * 2
+    np.testing.assert_allclose(wk.wavelet_basis(torch.from_numpy(x), kind).numpy(),
+                               np.asarray(jwk.wavelet_basis(jnp.asarray(x), kind)),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="unsupported wavelet"):
+        wk.wavelet_basis(torch.from_numpy(x), "haar")
+
+
+def kan_linear_pair(c_in=12, c_out=20, kind="mexican_hat", hw=(5, 7)):
+    """(JAX KANLinear, its variables with moved leaves and batch stats, the
+    port's KANLinear with them, x NHWC)."""
+    x = RNG.standard_normal((2, *hw, c_in)).astype(np.float32)
+    jm = jwk.KANLinear(c_out, kind)
+    v = jax_variables(jm, jnp.asarray(x))
+    m = wk.KANLinear(c_in, c_out, kind)
+    m.load_state_dict(carried(lambda p, prefix, out: jp._kan_linear(
+        p, v["batch_stats"], prefix, out), v["params"]))
+    return jm, v, m, x
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("train", [False, True])
+def test_kan_linear(kind, train):
+    """Eval mode on the running stats; train mode on the batch's, and the
+    running stats after it against the JAX ``batch_stats`` of one mutable
+    apply."""
+    jm, v, m, x = kan_linear_pair(kind=kind)
+    m.train(train)
+    got = m(t(x))
+    if train:
+        want, state = jm.apply(v, jnp.asarray(x), True, mutable=["batch_stats"])
+        bn = state["batch_stats"]["bn"]
+        np.testing.assert_allclose(m.bn.running_mean.numpy(), np.asarray(bn["mean"]), **TOL)
+        np.testing.assert_allclose(m.bn.running_var.numpy(), np.asarray(bn["var"]), **TOL)
+    else:
+        want = jm.apply(v, jnp.asarray(x))
+        np.testing.assert_array_equal(m.bn.running_var.numpy(), v["batch_stats"]["bn"]["var"])
+    np.testing.assert_allclose(n(got.detach()), np.asarray(want), **TOL)
+
+
+def test_chunked_kan_linear_matches_unchunked():
+    """Output, running stats and every grad of a train-mode KANLinear,
+    chunked in 7-pixel chunks (recomputed in backward, the last one ragged)
+    against whole, within 1e-6 of each leaf's max; in fp64, so that another
+    summation order stays far below the bar (the BatchNorm's backward
+    centres the grads)."""
+    _, _, m, x = kan_linear_pair(hw=(6, 5))
+    m = m.to(torch.float64).train()
+    m.compute_dtype = torch.float64
+    state = {k: v.clone() for k, v in m.state_dict().items()}
+    runs = []
+    for chunk_bytes in (None, 20 * 12 * 4 * 7):
+        m.load_state_dict(state)
+        m.chunk_bytes = chunk_bytes
+        m.zero_grad()
+        xt = t(x).double().requires_grad_()
+        y = m(xt)
+        (y * torch.linspace(-1, 1, y.numel(), dtype=y.dtype).reshape(y.shape)).sum().backward()
+        runs.append((y.detach(), m.bn.running_var.clone(),
+                     {"x": xt.grad, **{k: p.grad.clone() for k, p in m.named_parameters()}}))
+    (y0, rv0, g0), (y1, rv1, g1) = runs
+    np.testing.assert_allclose(y1.numpy(), y0.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(rv1.numpy(), rv0.numpy(), rtol=1e-6, atol=1e-6)
+    assert_grads_match(g1, g0)
+
+
+def test_kan_linear_keeps_no_wavelet_term_when_chunked():
+    """With grad enabled, the chunked KANLinear saves nothing of the [pixels,
+    out, in] wavelet term for backward, not even one chunk's."""
+    _, _, m, x = kan_linear_pair(hw=(6, 5))
+    m.chunk_bytes = 20 * 12 * 4 * 7
+    saved = []
+
+    def pack(a):
+        saved.append(a.numel())
+        return a
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda a: a):
+        m(t(x))
+    assert saved and max(saved) < 7 * 20 * 12
+    saved.clear()
+    m.chunk_bytes = None
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda a: a):
+        m(t(x))
+    assert max(saved) == 2 * 6 * 5 * 20 * 12
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_kan_attention(train):
+    x = RNG.standard_normal((2, 6, 7, 16)).astype(np.float32)
+    jm = jwk.KANAttention(num_heads=2)
+    v = jax_variables(jm, jnp.asarray(x))
+    p, st = v["params"], v["batch_stats"]
+    m = wk.KANAttention(16, 2).train(train)
+    sd = {}
+    jp._kan_linear(p["qkv_kan"], st["qkv_kan"], "qkv.0", sd)
+    jp._conv(p["qkv_dwconv"], "qkv.1", sd)
+    sd["scale"] = torch.from_numpy(np.asarray(p["temperature"]).reshape(-1, 1, 1))
+    jp._kan_linear(p["proj"], st["proj"], "proj", sd)
+    m.load_state_dict(sd)
+    want = jm.apply(v, jnp.asarray(x), train, mutable=["batch_stats"])[0]
+    np.testing.assert_allclose(n(m(t(x)).detach()), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_kan_ffn(train):
+    x = RNG.standard_normal((2, 6, 7, 8)).astype(np.float32)
+    jm = jwk.KANFFN(expansion=2)
+    v = jax_variables(jm, jnp.asarray(x))
+    p, st = v["params"], v["batch_stats"]
+    m = wk.KANFFN(8, 2).train(train)
+    sd = {}
+    jp._kan_linear(p["kan1"], st["kan1"], "net.0", sd)
+    jp._conv(p["dwconv"], "net.1", sd)
+    jp._kan_linear(p["kan2"], st["kan2"], "net.3", sd)
+    m.load_state_dict(sd)
+    want = jm.apply(v, jnp.asarray(x), train, mutable=["batch_stats"])[0]
+    np.testing.assert_allclose(n(m(t(x)).detach()), np.asarray(want), **TOL)
+
+
+# ----------------------------------------------------------------------------
+# the model
+# ----------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["encoder_heads", "ref_decoder_heads"])
+def family(request):
+    """(JAX model, its perturbed init variables, the port's model with them)."""
+    kw = dict(dim=8, num_heads=HEADS, ref_decoder_heads=request.param)
+    jmodel = jwk.WavKANRawFormer(jwk.WavKANConfig(**kw))
+    v = jax_variables(jmodel, jnp.asarray(X))
+    model = get_model("wavkan_rawformer", **kw)
+    model.load_state_dict(jp.wavkan_state_dict_from_jax(v))
+    return jmodel, v, model
+
+
+def test_model_matches_jax(family):
+    jmodel, v, model = family
+    with torch.no_grad():
+        got = model.eval()(t(X))
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 32, 48)
+    np.testing.assert_allclose(n(got), np.asarray(jmodel.apply(v, jnp.asarray(X))), **TOL)
+
+
+# A train-mode forward normalises each of the 35 KANLinears by its batch's
+# statistics, at the bottleneck over 12 pixels: fp32 rounding is amplified
+# there. The port's own chunked and whole fp32 forwards differ by 1.1e-4 on
+# this input, JAX's fp32 forward from the port's in fp64 by 1.9e-4; so the
+# output is held to TRAIN_OUT_TOL, the running stats (batch means and
+# variances, no normalisation) to the repo's 1e-4.
+TRAIN_OUT_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def test_model_train_mode_matches_jax(family):
+    """A train-mode forward on the batch statistics, chunked at 4 KiB, and
+    every BatchNorm's running stats after it against the JAX batch_stats."""
+    jmodel, v, _ = family
+    model = get_model("wavkan_rawformer", dim=8, num_heads=HEADS,
+                      ref_decoder_heads=jmodel.config.ref_decoder_heads)
+    model.load_state_dict(jp.wavkan_state_dict_from_jax(v))
+    set_chunk_bytes(model, 4096)
+    with torch.no_grad():
+        got = model.train()(t(X))
+    want, state = jmodel.apply(v, jnp.asarray(X), True, mutable=["batch_stats"])
+    np.testing.assert_allclose(n(got), np.asarray(want), **TRAIN_OUT_TOL)
+    sd = jp.wavkan_state_dict_from_jax({"params": v["params"], "batch_stats": state["batch_stats"]})
+    got_sd = model.state_dict()
+    stats = [k for k in sd if "running_" in k]
+    assert len(stats) == 2 * 5 * 7  # mean and var of the 5 KANLinears in each of 7 stages
+    for k in stats:
+        np.testing.assert_allclose(got_sd[k].numpy(), sd[k].numpy(), err_msg=k, **TOL)
+
+
+def test_state_dict_round_trips_through_the_jax_importer(family):
+    _, v, model = family
+    round_trip(model, import_wavkan_state_dict, v)
+
+
+def test_predictor_from_jax_params_on_a_ragged_frame(family):
+    jmodel, v, _ = family
+    kw = dict(dim=8, num_heads=HEADS, ref_decoder_heads=jmodel.config.ref_decoder_heads)
+    x = RNG.uniform(0, 1.5, (37, 45)).astype(np.float32)
+    pred = Predictor.from_jax_params(get_model("wavkan_rawformer", **kw), v, device="cpu")
+    assert pred.pad_to == 16 and not pred.model.training
+    got = pred(x)
+    assert got.shape == (37, 45, 3)
+    np.testing.assert_allclose(got, JaxPredictor(jmodel, v)(x), **TOL)
+    with pytest.raises(TypeError, match="no prepacked entry"):
+        pred.raw_u16(np.zeros((32, 32), np.uint16), 100.0)
+    with pytest.raises(ValueError, match="batch_stats"):
+        Predictor.from_jax_params(get_model("wavkan_rawformer", **kw), {"params": v["params"]},
+                                  device="cpu")
+
+
+def test_registry_builds_full_width():
+    m = get_model("wavkan_rawformer", generator=torch.Generator().manual_seed(3))
+    assert m.config.dim == 48 and m.config.num_heads == (8, 16, 32, 32)
+    assert [s.transformer.attn.num_heads for s in m.decoder] == [32, 16, 8]
+    assert [s.conv.in_channels for s in m.decoder] == [384, 192, 96]
+    assert m.decoder[0].transformer.attn.qkv[0].weight.shape == (1152, 384)
+    ref = get_model("wavkan_rawformer", ref_decoder_heads=True)
+    assert [s.transformer.attn.scale.shape[0] for s in ref.decoder] == [192, 96, 48]
+
+
+def test_train_and_eval_cli(tmp_path, monkeypatch, capsys):
+    """One epoch of ``--model wavkan_rawformer`` (dim 48) at batch 2 @ 32^2
+    on a tiny SID tree, then the eval CLI from its checkpoint (BatchNorm on
+    the trained running stats)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # ~10 s to import
+    root = str(tmp_path / "sid")
+    cache = os.path.join(root, "cache")
+    synthetic.write_sid_tree(root, cache, {"train": [(40, 56), (36, 52)], "test": [(32, 48)]},
+                             np.random.default_rng(53))
+    with pytest.warns(RuntimeWarning, match="TensorBoard"):
+        train_cli.main(["--dataset", "SID", "--data_root", root, "--cache_dir", cache,
+                        "--model", "wavkan_rawformer", "--patch_size", "32", "--batch_size", "2",
+                        "--epochs", "1", "--loader", "python", "--save_dir",
+                        str(tmp_path / "run"), "--device", "cpu"])
+    assert "epoch 1/1 loss=" in capsys.readouterr().out
+    got = test_cli.main(["--dataset", "SID", "--data_root", root, "--cache_dir", cache,
+                         "--model", "wavkan_rawformer", "--ckpt",
+                         str(tmp_path / "run" / "SID" / "weights"), "--device", "cpu",
+                         "--save_dir", str(tmp_path / "eval")])
+    out = capsys.readouterr().out
+    assert "restored checkpoint step" in out and "image:0\tPSNR:" in out
+    assert got["pad_to"] == 16 and len(got["psnr"]) == 1 and np.isfinite(got["psnr"]).all()

@@ -1,6 +1,7 @@
 """Helpers of the port's parity tests against the JAX package: JAX
-variables from a module's ``init``, one module's carried weights, NHWC <->
-NCHW."""
+variables from a module's ``init``, one module's carried weights, the
+carry's round trip through a JAX importer, NHWC <-> NCHW, grads against
+grads."""
 
 import jax
 import numpy as np
@@ -65,3 +66,28 @@ def torch_run_with_head(model, x):
         out = model(x)
     hook.remove()
     return out, heads[0]
+
+
+def round_trip(model, importer, variables):
+    """The port model's ``state_dict`` through the JAX ``importer`` gives
+    back ``variables`` exactly: every collection the importer returns
+    (params, and batch_stats where the model has BatchNorms), the same
+    leaves at the same paths and shapes."""
+    back = importer({k: p.numpy() for k, p in model.state_dict().items()})
+    assert sorted(back) == sorted(variables)
+    for col in back:
+        want = jax.tree_util.tree_flatten_with_path(variables[col])[0]
+        got = jax.tree_util.tree_flatten_with_path(back[col])[0]
+        assert [(p, np.shape(a)) for p, a in got] == [(p, np.shape(a)) for p, a in want]
+        for (_, a), (_, b) in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def assert_grads_match(got, want, tol=1e-6):
+    """Two {name: grad} dicts: the same names, each grad within ``tol`` of
+    its leaf's largest magnitude (a sum over many terms, taken in another
+    order, differs by rounding relative to its terms, not to its result)."""
+    assert sorted(got) == sorted(want)
+    for name, g in want.items():
+        err = (got[name] - g).abs().max().item()
+        assert err <= tol * max(g.abs().max().item(), 1e-30), (name, err, g.abs().max().item())
