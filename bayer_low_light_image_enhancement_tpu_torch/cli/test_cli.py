@@ -21,7 +21,8 @@ through ``ops.bayer.normalize_sid``; MCR codes through ``normalize_mcr``).
 On the CPU frames are decoded on the host,
 as the JAX CLI does off the TPU. ``--ckpt`` reads the port's own
 checkpoints (``train.checkpoint.CheckpointManager``); an orbax directory
-of the JAX package needs JAX to read, so it exits with a message.
+of the JAX package needs JAX to read, so it exits with a message naming
+``tools/orbax_to_torch.py``, which converts one.
 """
 
 from __future__ import annotations
@@ -110,9 +111,9 @@ def load_predictor(args, model, device) -> Predictor:
             if any(e.isdigit() for e in os.listdir(args.ckpt)):
                 raise SystemExit(
                     f"{args.ckpt} holds orbax checkpoints of the JAX package, which cannot be "
-                    "read without JAX: convert one to a torch state_dict where JAX is "
-                    "installed (the orbax -> torch converter, ROADMAP.md A3) and pass it as "
-                    "--pth")
+                    "read without JAX: convert them where JAX is installed with "
+                    f"`python tools/orbax_to_torch.py --ckpt {args.ckpt} --out <dir> "
+                    "[--model NAME | --model_size S]` and pass --ckpt <dir>")
             raise SystemExit(f"no checkpoint found in {args.ckpt}")
         pred = Predictor(model, state["trainer"]["model"], **kw)
         print(f"restored checkpoint step {step}")

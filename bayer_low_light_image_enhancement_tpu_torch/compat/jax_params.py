@@ -3,11 +3,15 @@
 The inverses of the JAX package's ``compat/torch_import.
 import_rawformer_state_dict``, ``import_wfb_state_dict``,
 ``import_flca_state_dict``, ``import_multilvl_flca_state_dict``,
-``import_truecolor_state_dict``, ``import_luma_mhsa_state_dict`` and
-``import_wavkan_state_dict``: they take the JAX variables as numpy arrays
-and return a ``state_dict`` in the reference's PyTorch names, which the
-port's RawFormer, RawFormerWFB, FLCARawFormer, MultiLvlFLCARawFormer,
-TrueColorRawFormer, LumaMHSARawFormer and WavKANRawFormer load.
+``import_truecolor_state_dict``, ``import_luma_mhsa_state_dict``,
+``import_wavkan_state_dict``, ``import_flca_unet_state_dict`` /
+``import_unet_luma_dwt_state_dict``, ``import_simple_flca_unet_state_dict``
+and ``import_lumachroma_transformer_state_dict``: they take the JAX
+variables as numpy arrays and return a ``state_dict`` in the reference's
+PyTorch names, which the port's RawFormer, RawFormerWFB, FLCARawFormer,
+MultiLvlFLCARawFormer, TrueColorRawFormer, LumaMHSARawFormer,
+WavKANRawFormer, TransformerFLCAUNet, SimpleFLCAUNet and
+BayerLumaChromaTransformer load.
 
 * conv kernel HWIO (kh, kw, I/g, O)        -> OIHW (O, I/g, kh, kw)
   (depthwise (3, 3, 1, C) -> (C, 1, 3, 3) by the same transpose)
@@ -19,6 +23,11 @@ TrueColorRawFormer, LumaMHSARawFormer and WavKANRawFormer load.
   correction's gamma, ``gamma_param`` in BayerTORGB)
 * LayerNorm weight / bias                   -> ``norm*.body.*``
 * Dense kernel (I, O)                       -> Linear weight (O, I)
+* MultiHeadDotProductAttention query / key / value kernels (C, heads, hd)
+  and biases (heads, hd)                    -> ``in_proj_weight`` [3C, C] /
+                                               ``in_proj_bias`` [3C];
+  out kernel (heads, hd, C)                 -> ``out_proj.weight`` [C, C]
+* flax LayerNorm scale / bias               -> ``weight`` / ``bias``
 * Mamba conv1d kernel (d_conv, 1, D)        -> Conv1d weight (D, 1, d_conv)
 * KANLinear scale / translation / wavelet_weights / weight (out, in)
                                              -> the same (out, in)
@@ -396,4 +405,128 @@ def wavkan_state_dict_from_jax(variables_np: Mapping[str, Any]) -> Dict[str, tor
         _upsample(p[f"up{i}"], f"upsamples.{i}", out)
     _kan_stage(p["bottleneck"], stats["bottleneck"], "bottleneck", out)
     _conv(p["out_conv"], "output.0", out)
+    return out
+
+
+def _token_transformer(p: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor],
+                       norms=("norm1", "norm2")) -> None:
+    """A JAX token transformer (``ln1`` / ``attn`` / ``ln2`` / ``mlp1`` /
+    ``mlp2``, and ``local_dw`` in the local-enhance one) -> the reference's
+    names: ``norms``, ``attn.in_proj_weight`` [3C, C] (the q / k / v kernels
+    (C, heads, hd) transposed and stacked), ``attn.in_proj_bias``,
+    ``attn.out_proj`` (the out kernel (heads, hd, C) as [C, C]),
+    ``mlp.0`` / ``mlp.2``, ``local_enhance.0``."""
+    for jax_name, name in zip(("ln1", "ln2"), norms):
+        out[f"{prefix}.{name}.weight"] = _t(p[jax_name]["scale"])
+        out[f"{prefix}.{name}.bias"] = _t(p[jax_name]["bias"])
+    a = p["attn"]
+    qkv = [np.asarray(a[n]["kernel"]) for n in ("query", "key", "value")]
+    out[f"{prefix}.attn.in_proj_weight"] = _t(np.concatenate(
+        [k.reshape(k.shape[0], -1).T for k in qkv], 0))
+    out[f"{prefix}.attn.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(a[n]["bias"]).reshape(-1) for n in ("query", "key", "value")]))
+    wo = np.asarray(a["out"]["kernel"])
+    out[f"{prefix}.attn.out_proj.weight"] = _t(wo.reshape(-1, wo.shape[-1]).T)
+    out[f"{prefix}.attn.out_proj.bias"] = _t(a["out"]["bias"])
+    _dense(p["mlp1"], f"{prefix}.mlp.0", out)
+    _dense(p["mlp2"], f"{prefix}.mlp.2", out)
+    if "local_dw" in p:
+        _conv(p["local_dw"], f"{prefix}.local_enhance.0", out)
+
+
+def _resca(p: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """A ResCA: the ResBlock's raw ``conv1_kernel`` / ``conv1_bias`` and its
+    ``conv2`` as ``rb.body.0`` / ``.2``, the SE gate."""
+    rb = p["rb"]
+    _conv({"kernel": rb["conv1_kernel"], "bias": rb["conv1_bias"]}, f"{prefix}.rb.body.0", out)
+    _conv(rb["conv2"], f"{prefix}.rb.body.2", out)
+    _se(p["se"], f"{prefix}.se", out)
+
+
+def flca_unet_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX TransformerFLCAUNet params, either guidance (the pool and the DWT
+    FLCA share their names; ``enh_conv`` / ``enh_out`` mark "dwt") -> the
+    port's ``models.flca_unet.TransformerFLCAUNet`` ``state_dict``."""
+    p = params_np.get("params", params_np)
+    out: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        e, pre = p[f"enc{i}"], f"enc{i}"
+        _conv(e["in_conv"], f"{pre}.in_conv", out)
+        for j in range(sum(k.startswith("block") for k in e)):
+            _resca(e[f"block{j}"], f"{pre}.blocks.{j}", out)
+        _flca(e["flca"], f"{pre}.flca", out)
+        _conv(e["down"], f"{pre}.down", out)
+        d, pre = p[f"dec{i}"], f"dec{i}"
+        _upsample(d["up"], f"{pre}.up", out)
+        _conv(d["fuse_conv"], f"{pre}.fuse.0", out)
+        _resca(d["resca1"], f"{pre}.fuse.2", out)
+        _resca(d["resca2"], f"{pre}.fuse.3", out)
+    _conv(p["down_bott"], "down_bott", out)
+    _token_transformer(p["trans"], "trans", out, norms=("ln1", "ln2"))
+    _upsample(p["up_bott"], "up_bott", out)
+    _conv(p["tail_conv"], "tail.0", out)
+    _conv(p["tail_out"], "tail.2", out)
+    if "enh_conv" in p:
+        _conv(p["enh_conv"], "enhTail.0", out)
+        _conv(p["enh_out"], "enhTail.2", out)
+    return out
+
+
+def simple_flca_unet_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX SimpleFLCAUNet params -> the port's
+    ``models.luma_variants.SimpleFLCAUNet`` ``state_dict`` (conv blocks as
+    ``enc{i}.0`` / ``.2``, the FLCAs' convs with bias)."""
+    p = params_np.get("params", params_np)
+    out: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        for blk in (f"enc{i}", f"dec{i}"):
+            _conv(p[blk]["conv1"], f"{blk}.0", out)
+            _conv(p[blk]["conv2"], f"{blk}.2", out)
+        _token_transformer(p[f"trans{i}"], f"trans{i}", out)
+        _upsample(p[f"up{i}"], f"up{i}", out)
+    _token_transformer(p["bottleneck"], "bottleneck", out)
+    for name in ("flca1", "flca2", "flca3", "flca_bottleneck"):
+        for attn in ("low_attn", "high_attn", "chroma_attn"):
+            _conv(p[name][attn], f"{name}.{attn}.0", out)
+    _conv(p["final"], "final", out)
+    return out
+
+
+def lumachroma_state_dict_from_jax(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX BayerLumaChromaTransformer params -> the port's
+    ``models.lumachroma_transformer.BayerLumaChromaTransformer``
+    ``state_dict`` (InstanceNorm blocks' convs at ``.0`` / ``.3``, the
+    bottleneck as ``bottleneck.conv_down`` / ``trans`` / ``flca`` /
+    ``conv_up``)."""
+    p = params_np.get("params", params_np)
+    out: Dict[str, torch.Tensor] = {}
+
+    def flca(q, prefix):
+        for name in ("low_attn", "high_attn", "chroma_attn"):
+            _conv(q[name], f"{prefix}.{name}.0", out)
+        _conv(q["refine"], f"{prefix}.refine", out)
+
+    for i in (1, 2, 3):
+        e = f"enc{i}"
+        _conv(p[f"{e}_in"], f"{e}.in_conv", out)
+        j = 0
+        while f"{e}_block{j}" in p:
+            _conv(p[f"{e}_block{j}"]["conv1"], f"{e}.blocks.{j}.0", out)
+            _conv(p[f"{e}_block{j}"]["conv2"], f"{e}.blocks.{j}.3", out)
+            j += 1
+        _token_transformer(p[f"{e}_trans"], f"{e}.trans", out)
+        flca(p[f"{e}_flca"], f"{e}.flca")
+        _conv(p[f"{e}_down"], f"{e}.down", out)
+        d = f"dec{i}"
+        _upsample(p[f"{d}_up"], f"{d}.up", out)
+        _conv(p[f"{d}_fuse1"], f"{d}.fuse.0", out)
+        _conv(p[f"{d}_fuse2"], f"{d}.fuse.3", out)
+    _conv(p["bott_down"], "bottleneck.conv_down", out)
+    _token_transformer(p["bott_trans"], "bottleneck.trans", out)
+    flca(p["bott_flca"], "bottleneck.flca")
+    _upsample(p["bott_up"], "bottleneck.conv_up", out)
+    _conv(p["tail_conv"], "tail.0", out)
+    _conv(p["tail_out"], "tail.2", out)
+    if "res_proj" in p:
+        _conv(p["res_proj"], "res_proj", out)
     return out

@@ -27,6 +27,14 @@ class Policy:
         return x.to(self.output_dtype)
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32 for a bf16 / fp16 / fp32 x, kept in fp64 for an fp64 x: the
+    dtype of the statistics and reductions that run in fp32 whatever the
+    compute dtype (an fp64 model stays fp64 throughout, as the tests run
+    it)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def default_policy(bf16: bool = True) -> Policy:
     """bf16 compute policy by default; pass ``bf16=False`` for full fp32."""
     if bf16:

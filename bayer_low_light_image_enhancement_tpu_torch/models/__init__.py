@@ -25,6 +25,12 @@ from bayer_low_light_image_enhancement_tpu_torch.models import (  # noqa: F401
     luma_variants as _luma_variants,
 )
 from bayer_low_light_image_enhancement_tpu_torch.models import wavkan as _wavkan  # noqa: F401
+from bayer_low_light_image_enhancement_tpu_torch.models import (  # noqa: F401
+    flca_unet as _flca_unet,
+)
+from bayer_low_light_image_enhancement_tpu_torch.models import (  # noqa: F401
+    lumachroma_transformer as _lumachroma,
+)
 
 __all__ = [
     "get_model",

@@ -56,21 +56,38 @@ def reset_parameters_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class Conv2d(nn.Conv2d):
-    """Stride-1 conv with torch ``padding = (k-1)//2`` that computes in
+    """Conv with torch ``padding = dilation * (k-1) // 2`` (symmetric, also
+    at stride 2, as the JAX package's ``ops/conv.conv2d``) that computes in
     ``compute_dtype`` (parameters are cast per call)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 groups: int = 1, bias: bool = True,
+                 groups: int = 1, bias: bool = True, stride: int = 1, dilation: int = 1,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
-        super().__init__(in_channels, out_channels, kernel_size,
-                         padding=(kernel_size - 1) // 2, groups=groups, bias=bias,
-                         device=device, dtype=dtype)
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=dilation * (kernel_size - 1) // 2, dilation=dilation,
+                         groups=groups, bias=bias, device=device, dtype=dtype)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         b = None if self.bias is None else self.bias.to(cd)
-        return F.conv2d(x.to(cd), self.weight.to(cd), b, padding=self.padding, groups=self.groups)
+        return F.conv2d(x.to(cd), self.weight.to(cd), b, self.stride, self.padding,
+                        self.dilation, self.groups)
+
+
+class Linear(nn.Linear):
+    """A Dense layer over the last axis that computes in ``compute_dtype``
+    (parameters are cast per call)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(cd)
+        return F.linear(x.to(cd), self.weight.to(cd), b)
 
 
 class LayerNorm2d(nn.Module):

@@ -1,10 +1,12 @@
 """Model registry: each model family registers a named builder.
 
 Port of ``bayer_low_light_image_enhancement_tpu/models/registry.py``; the
-port registers ``rawformer_s|b|l``, ``rawformer_wfb``, ``flca_rawformer``,
+port registers the JAX registry's 14 models: the RAW -> RGB
+``rawformer_s|b|l``, ``rawformer_wfb``, ``flca_rawformer``,
 ``multilvl_flca_rawformer``, ``truecolor_rawformer``,
-``bayertorgb_rawformer``, ``luma_mhsa_rawformer`` and ``wavkan_rawformer``
-so far: every RAW -> RGB model of the JAX registry.
+``bayertorgb_rawformer``, ``luma_mhsa_rawformer`` and ``wavkan_rawformer``,
+and the raw-domain ``flca_unet``, ``unet_luma_dwt``, ``simple_flca_unet``
+and ``lumachroma_transformer``.
 """
 
 from __future__ import annotations

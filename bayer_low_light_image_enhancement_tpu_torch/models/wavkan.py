@@ -38,6 +38,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from bayer_low_light_image_enhancement_tpu_torch.compat import jax_params
+from bayer_low_light_image_enhancement_tpu_torch.core.precision import wide
 from bayer_low_light_image_enhancement_tpu_torch.models.common import (
     Conv2d,
     LayerNorm2d,
@@ -121,10 +122,11 @@ class KANLinear(nn.Module):
 
 
 class GELU32(nn.Module):
-    """Exact GELU computed in fp32, in the input's dtype."""
+    """Exact GELU computed in fp32 (fp64 for an fp64 input), in the input's
+    dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(x.float()).to(x.dtype)
+        return F.gelu(wide(x)).to(x.dtype)
 
 
 class KANAttention(nn.Module):

@@ -6,7 +6,7 @@ Attention runs over the channel axis: q, k, v are split head-major
 map ``q @ k^T`` is only [c, c] per head. The normalisation is taken out of
 the gram: ``normalize(q) @ normalize(k)^T == (q @ k^T) / (|q_i| |k_j|)``
 with torch ``F.normalize``'s ``max(|x|, 1e-12)``. Token reductions run in
-fp32 whatever the compute dtype.
+fp32 whatever the compute dtype (fp64 for fp64 inputs).
 
 This is the plain reference for the attention half of the fused block
 (``kernels/fused_block.py``).
@@ -15,6 +15,8 @@ This is the plain reference for the attention half of the fused block
 from __future__ import annotations
 
 import torch
+
+from bayer_low_light_image_enhancement_tpu_torch.core.precision import wide
 
 
 def channel_attention(
@@ -36,15 +38,15 @@ def channel_attention(
         # [B,H,W,C] -> [B, heads, c_per_head, N], head-major channel split.
         return t.reshape(b, n, num_heads, ch).permute(0, 2, 3, 1)
 
-    qf = heads_first(q).float()
-    kf = heads_first(k).float()
+    qf = wide(heads_first(q))
+    kf = wide(heads_first(k))
     vh = heads_first(v)
 
     gram = qf @ kf.transpose(-1, -2)  # [B, heads, c, c]
     q_inv = 1.0 / torch.sqrt((qf * qf).sum(-1)).clamp_min(1e-12)
     k_inv = 1.0 / torch.sqrt((kf * kf).sum(-1)).clamp_min(1e-12)
     attn = gram * q_inv[..., :, None] * k_inv[..., None, :]
-    attn = attn * temperature.reshape(1, num_heads, 1, 1).float()
+    attn = attn * temperature.reshape(1, num_heads, 1, 1).to(qf.dtype)
     attn = torch.softmax(attn, dim=-1)
 
     out = (attn.to(vh.dtype) @ vh).to(v.dtype)  # [B, heads, c, N]

@@ -40,6 +40,16 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def frequency_split(x: torch.Tensor, kernel_size: int = 3):
+    """NCHW x -> (low, x - low): ``low`` the k x k box filter of each channel
+    (stride 1, zero padding (k-1)//2, a fixed divisor k^2, its taps in x's
+    dtype), as the JAX package's ``models/flca_unet.frequency_split``."""
+    c, k = x.shape[1], kernel_size
+    box = torch.full((c, 1, k, k), 1.0 / (k * k), dtype=x.dtype, device=x.device)
+    low = F.conv2d(x, box, padding=(k - 1) // 2, groups=c)
+    return low, x - low
+
+
 def nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 

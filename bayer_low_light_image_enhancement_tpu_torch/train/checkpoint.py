@@ -7,7 +7,9 @@ counts (the reference's resume drops the optimizer moments; both packages
 keep them). Each checkpoint is one file ``<directory>/<step>.pt``, written
 to a temporary name and renamed, so a crash never leaves a torn file.
 Saves are synchronous; ``wait`` exists for the JAX package's interface.
-Reading orbax checkpoints of the JAX package is not supported.
+The port reads no orbax checkpoint of the JAX package; the converter
+``tools/orbax_to_torch.py`` (run where JAX is installed) writes one in this
+layout.
 """
 
 from __future__ import annotations

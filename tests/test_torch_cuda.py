@@ -1438,3 +1438,78 @@ def test_plain_zoo_chunked_matches_unchunked_on_the_card(cuda, name):
     held_chunk_step(lambda chunk=None: make(chunk, torch.float32),
                     TrainConfig(warmup_epochs=1, steps_per_epoch=1), batch, counters, name,
                     other=4096)
+
+
+@pytest.mark.parametrize("name", ["flca_rawformer", "bayertorgb_rawformer"])
+def test_kernels_hold_on_the_blocks_own_inputs(cuda, name):
+    """C12: one bf16 train step of the model at dim 48 on a synthetic batch
+    2 @ 128^2 (BayerTORGB's colour correction moved off saturation), each
+    kernel block's (x, dy, weights) captured by hooks
+    (``chip_smoke.capture_blocks``); K2 / K3 and B1 / B2 with the weight-grad
+    pass held on those inputs at C = 48, 96 and 192 by
+    ``check_backward_against_twins``'s per-leaf rule
+    (``chip_smoke.hold_captured_blocks``: K2's cosines and sums of squares,
+    K3's output and every backward leaf within max(3 x the bf16 twin's
+    error, 2e-2) of the fp32 twin's leaf max)."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig, Trainer
+    from chip_smoke import (
+        capture_blocks,
+        hold_captured_blocks,
+        spread_color_correction,
+        synthetic_batch,
+    )
+
+    batch = synthetic_batch(cuda, 2, 128)
+    model = get_model(name, device=cuda, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(12))
+    common.set_fused_blocks(model, False)
+    with torch.no_grad():
+        spread_color_correction(model, lambda: model(batch[0].permute(0, 3, 1, 2)))
+    common.set_fused_blocks(model, True)
+    tr = Trainer(model, TrainConfig(warmup_epochs=1, steps_per_epoch=1))
+    captured = capture_blocks(model, lambda: tr.train_step(batch))
+    assert [x.shape[-1] for x, *_ in captured] == [48, 96, 192, 192, 96, 48]
+    assert all(dy.shape == x.shape and dy.abs().max().item() > 0 for x, dy, *_ in captured)
+    hold_captured_blocks(captured, name)
+
+
+RAW_DOMAIN_DIM16 = {"flca_unet": dict(base=16), "unet_luma_dwt": dict(base=16),
+                    "simple_flca_unet": dict(base_ch=16), "lumachroma_transformer": dict(base=16)}
+
+
+@pytest.mark.parametrize("name", sorted(RAW_DOMAIN_DIM16))
+def test_raw_domain_chunked_matches_unchunked_on_the_card(cuda, name):
+    """A raw-domain model at width 16 on packed 2 x 64x64 planes, its token
+    attention in 4 KiB chunks (recomputed in backward) against unchunked,
+    no hand kernel launched: serving in bf16 at ``chip_smoke.py``'s bar
+    scaled to the output's largest magnitude (packed planes are not in
+    [0, 1]); one train step in fp32 compute by phase 13's rule
+    (``held_chunk_step``: the first loss within 2e-2 relative, every grad
+    leaf within max(3 x the nudged run's change, 2e-2) of its leaf max, the
+    median within 2e-2)."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig
+    from chip_smoke import held_chunk_step
+
+    g = np.random.default_rng(17)
+    x = torch.from_numpy(g.uniform(0, 1.5, (2, 64, 64, 4)).astype(np.float32)).to(cuda)
+    batch = (x, torch.from_numpy(g.uniform(0, 1, (2, 64, 64, 4)).astype(np.float32)).to(cuda))
+    counters = zoo_counters()
+    before = [f.launches for f in counters]
+
+    def make(chunk_bytes=None, dtype=torch.bfloat16):
+        m = get_model(name, device=cuda, dtype=dtype, generator=torch.Generator().manual_seed(17),
+                      **RAW_DOMAIN_DIM16[name])
+        common.set_chunk_bytes(m, chunk_bytes)
+        return m
+
+    with torch.inference_mode():
+        outs = [make(c)(x.permute(0, 3, 1, 2)) for c in (None, 4096)]
+    assert [f.launches for f in counters] == before
+    assert outs[0].shape == (2, 4, 64, 64) and torch.isfinite(outs[1]).all()
+    d, scale = (outs[0] - outs[1]).abs(), outs[0].abs().max().item()
+    assert d.max().item() <= 5e-2 * scale and d.mean().item() <= 5e-3 * scale, (d.max(), scale)
+    held_chunk_step(lambda chunk=None: make(chunk, torch.float32),
+                    TrainConfig(warmup_epochs=1, steps_per_epoch=1), batch, counters, name,
+                    other=4096)

@@ -243,15 +243,17 @@ def test_eval_cli_flca_on_a_sid_tree(tmp_path, capsys):
 
 
 def test_cli_refuses_a_raw_domain_model(monkeypatch):
-    """A builder registered with ``raw_domain=True`` (none is yet) is refused
-    by the CLIs' ``build_model`` with the JAX message, before it is built."""
+    """A builder registered with ``raw_domain=True`` is refused by the CLIs'
+    ``build_model`` with the JAX message, before it is built; the registry's
+    raw-domain models are the JAX package's four."""
     monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
     monkeypatch.setattr(registry, "_RAW_DOMAIN", set(registry._RAW_DOMAIN))
     registry.register_model("raw_domain_probe", lambda **kw: pytest.fail("built"),
                             raw_domain=True)
     assert registry.is_raw_domain("raw_domain_probe")
-    assert not any(registry.is_raw_domain(m) for m in registry.list_models()
-                   if m != "raw_domain_probe")
+    assert [m for m in registry.list_models() if registry.is_raw_domain(m)] == [
+        "flca_unet", "lumachroma_transformer", "raw_domain_probe", "simple_flca_unet",
+        "unet_luma_dwt"]
     args = train_cli.build_parser().parse_args(["--model", "raw_domain_probe", "--device", "cpu"])
     with pytest.raises(SystemExit, match="enhancement-domain model"):
         train_cli.build_model(args, "cpu", 0)

@@ -158,10 +158,11 @@ def test_from_torch_pth_round_trip(tmp_path):
 
 
 def test_registry_and_seeded_init():
-    assert list_models() == ["bayertorgb_rawformer", "flca_rawformer", "luma_mhsa_rawformer",
+    assert list_models() == ["bayertorgb_rawformer", "flca_rawformer", "flca_unet",
+                             "luma_mhsa_rawformer", "lumachroma_transformer",
                              "multilvl_flca_rawformer", "rawformer_b", "rawformer_l",
-                             "rawformer_s", "rawformer_wfb", "truecolor_rawformer",
-                             "wavkan_rawformer"]
+                             "rawformer_s", "rawformer_wfb", "simple_flca_unet",
+                             "truecolor_rawformer", "unet_luma_dwt", "wavkan_rawformer"]
     a = get_model("rawformer_s", generator=torch.Generator().manual_seed(0))
     b = get_model("rawformer_s", generator=torch.Generator().manual_seed(0))
     assert a.config.dim == 32 and get_model("rawformer_l").config.dim == 64

@@ -13,12 +13,13 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 HEADS = (2, 2, 2, 2)
 
 
-def jax_variables(module, *args, seed=0):
+def jax_variables(module, *args, seed=0, jit=False):
     """``module.init`` with every leaf that is not a conv kernel or bias
     (scalar balances, LN affines, temperatures) moved off its init by
     U(+-0.2), as numpy. The key is an ``unsafe_rbg`` one: init runs op by
     op, and its random bits compile for each parameter shape several times
-    faster than threefry's."""
+    faster than threefry's. ``jit`` compiles the init as one program (the
+    same values; faster for a deep model than op by op)."""
     g = np.random.default_rng(seed + 100)
 
     def move(path, a):
@@ -28,7 +29,8 @@ def jax_variables(module, *args, seed=0):
             return a
         return (a + g.uniform(-0.2, 0.2, a.shape)).astype(np.float32)
 
-    v = module.init(jax.random.key(seed, impl="unsafe_rbg"), *args)
+    init = jax.jit(module.init) if jit else module.init
+    v = init(jax.random.key(seed, impl="unsafe_rbg"), *args)
     return jax.tree_util.tree_map_with_path(move, jax.device_get(v))
 
 
