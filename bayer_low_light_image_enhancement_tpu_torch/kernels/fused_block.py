@@ -17,9 +17,12 @@ One block runs as
      others keep K3, as the JAX package keeps its tiled kernel there.
 
 Each pass has a plain PyTorch twin (``*_plain``) computing the same function
-in fp32. The wrappers run the twin on a CPU tensor; on a CUDA tensor they
-launch the kernel (``csrc/fused_block.cu``) or raise. The pass wrappers are
-not differentiable themselves: ``fused_transformer_block`` with grad
+in fp32. The wrappers call the passes' ``torch.library`` operators
+(``torch.ops.blle.gram_pass``, ``apply_pass``, ``apply_pass_pipelined``;
+``kernels/ops.py``), so that ``torch.export`` keeps them in its graph: on a
+CPU tensor the operator runs the twin; on a CUDA tensor it launches the
+kernel (``csrc/fused_block.cu``) or raises. The pass wrappers are not
+differentiable themselves: ``fused_transformer_block`` with grad
 enabled goes through ``fused_block_bwd.FusedTransformerBlockFn``, whose
 backward runs the kernels B1/B2 (``csrc/fused_block_bwd.cu``).
 
@@ -85,6 +88,20 @@ class BlockWeights:
 
     def tensors(self):
         return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def gram_tensors(self):
+        """The weights K2 reads, in ``GRAM_FIELDS`` order."""
+        return [getattr(self, n) for n in GRAM_FIELDS]
+
+    def apply_tensors(self):
+        """The weights K3 and K3P read, in ``APPLY_FIELDS`` order."""
+        return [getattr(self, n) for n in APPLY_FIELDS]
+
+
+# The BlockWeights fields each pass reads: the arguments of its operator
+# after x (and K3's apply), in this order.
+GRAM_FIELDS = ("wqk", "bqk", "dwqk", "bdwqk")
+APPLY_FIELDS = ("wv", "bv", "dwv", "bdwv", "bproj", "wp1", "bp1", "dwf", "bdwf", "wp2", "bp2")
 
 
 def attention_temperature(params: Mapping[str, torch.Tensor], prefix: str = "") -> torch.Tensor:
@@ -398,15 +415,21 @@ def check_kernel_input(x: torch.Tensor, *grad_inputs: torch.Tensor) -> None:
         )
 
 
-def check_block_input(x: torch.Tensor, w: BlockWeights, *grad_inputs: torch.Tensor) -> None:
-    """``check_kernel_input`` (the weights included), and x bf16, contiguous,
-    FFN hidden width 2C."""
-    check_kernel_input(x, *grad_inputs, *w.tensors())
-    if w.wp1.shape[1] != 2 * x.shape[-1]:
-        raise ValueError(f"kernel needs FFN hidden width 2C, got {w.wp1.shape[1]}")
+def check_pass_input(x: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """``check_kernel_input`` over x and a pass's tensors, and x bf16,
+    contiguous and 16-byte aligned."""
+    check_kernel_input(x, *tensors)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x is {x.dtype}; the kernels take bfloat16")
     require(x, "x", x.shape, x.device)
+
+
+def check_block_input(x: torch.Tensor, w: BlockWeights, *grad_inputs: torch.Tensor) -> None:
+    """``check_pass_input`` over the whole block's weights, and FFN hidden
+    width 2C."""
+    if w.wp1.shape[1] != 2 * x.shape[-1]:
+        raise ValueError(f"kernel needs FFN hidden width 2C, got {w.wp1.shape[1]}")
+    check_pass_input(x, *grad_inputs, *w.tensors())
 
 
 def bf16(t: torch.Tensor) -> torch.Tensor:
@@ -418,19 +441,23 @@ def f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def gram_pass(x: torch.Tensor, w: BlockWeights):
-    """Pass A. x [B,H,W,C] -> (gram [B,C,C], qss [B,C], kss [B,C]), fp32.
+    """Pass A. x [B,H,W,C] -> (gram [B,C,C], qss [B,C], kss [B,C]), fp32,
+    views of ``torch.ops.blle.gram_pass``'s one [B, C*C + 2C] output.
 
     CPU: the plain twin. CUDA: kernel K2 on bf16 x, or raise."""
-    if not x.is_cuda:
-        return gram_pass_plain(x, w)
-    return _gram_pass_kernel(x, w)
+    b, c = x.shape[0], x.shape[-1]
+    out = torch.ops.blle.gram_pass(x, *w.gram_tensors())
+    return out[:, : c * c].reshape(b, c, c), out[:, c * c : c * c + c], out[:, c * c + c :]
 
 
-def _gram_pass_kernel(x: torch.Tensor, w: BlockWeights):
-    check_block_input(x, w)
+def _gram_pass_kernel(x: torch.Tensor, *tensors: torch.Tensor) -> torch.Tensor:
+    """K2 on x and the ``GRAM_FIELDS`` tensors -> [B, C*C + 2C] fp32: each
+    image's gram, then its sums of q^2 and of k^2."""
+    check_pass_input(x, *tensors)
     b, h, wd, c = x.shape
     lib = _build.library()
-    args = [bf16(w.wqk), f32(w.bqk), f32(w.dwqk), f32(w.bdwqk)]
+    wqk, bqk, dwqk, bdwqk = tensors
+    args = [bf16(wqk), f32(bqk), f32(dwqk), f32(bdwqk)]
     for t, n, s in zip(args, ("wqk", "bqk", "dwqk", "bdwqk"),
                        ((c, 2 * c), (2 * c,), (9, 2 * c), (2 * c,))):
         require(t, n, s, x.device)
@@ -444,7 +471,7 @@ def _gram_pass_kernel(x: torch.Tensor, w: BlockWeights):
     )
     _build.check(err, "fused_block gram pass")
     gram_pass.launches += 1
-    return out[:, : c * c].reshape(b, c, c), out[:, c * c : c * c + c], out[:, c * c + c :]
+    return out
 
 
 gram_pass.launches = 0
@@ -454,20 +481,20 @@ def apply_pass(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.T
     """Pass B. x [B,H,W,C], apply [B,C,C] -> [B,H,W,C] in x's dtype.
 
     CPU: the plain twin. CUDA: kernel K3 on bf16 x (apply rounded to bf16),
-    or raise."""
-    if not x.is_cuda:
-        return apply_pass_plain(x, apply, w)
-    return _apply_pass_kernel(x, apply, w)
+    or raise. Through ``torch.ops.blle.apply_pass``."""
+    return torch.ops.blle.apply_pass(x, apply, *w.apply_tensors())
 
 
-def _apply_pass_args(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights):
-    """The checked device arguments of K3 / K3P after x."""
-    check_block_input(x, w, apply)
+def _apply_pass_args(x: torch.Tensor, apply: torch.Tensor, *tensors: torch.Tensor):
+    """The checked device arguments of K3 / K3P after x, from apply and the
+    ``APPLY_FIELDS`` tensors."""
+    check_pass_input(x, apply, *tensors)
     b, h, wd, c = x.shape
     ch = 2 * c
+    wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2, bp2 = tensors
     args = [
-        bf16(apply), bf16(w.wv), f32(w.bv), f32(w.dwv), f32(w.bdwv), f32(w.bproj),
-        bf16(w.wp1), f32(w.bp1), f32(w.dwf), f32(w.bdwf), bf16(w.wp2), f32(w.bp2),
+        bf16(apply), bf16(wv), f32(bv), f32(dwv), f32(bdwv), f32(bproj),
+        bf16(wp1), f32(bp1), f32(dwf), f32(bdwf), bf16(wp2), f32(bp2),
     ]
     shapes = [(b, c, c), (c, c), (c,), (9, c), (c,), (c,),
               (c, ch), (ch,), (9, ch), (ch,), (ch, c), (c,)]
@@ -476,8 +503,9 @@ def _apply_pass_args(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights):
     return args
 
 
-def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
-    args = _apply_pass_args(x, apply, w)
+def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor,
+                       *tensors: torch.Tensor) -> torch.Tensor:
+    args = _apply_pass_args(x, apply, *tensors)
     ybuf, out = torch.empty_like(x), torch.empty_like(x)
     grids = [plan_for(k, *x.shape, x.device.index or 0).ctas for k in ("apply1", "apply2")]
     err = _build.library().blle_apply_pass(
@@ -497,17 +525,15 @@ def apply_pass_pipelined(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) 
 
     CPU: the plain twin (``apply_pass_plain``). CUDA: kernel K3P on bf16 x
     (apply rounded to bf16; y carried between its phases in bf16) for C in
-    PIPELINED_WIDTHS, or raise."""
-    if not x.is_cuda:
-        return apply_pass_plain(x, apply, w)
-    return _apply_pass_pipelined_kernel(x, apply, w)
+    PIPELINED_WIDTHS, or raise. Through ``torch.ops.blle.apply_pass_pipelined``."""
+    return torch.ops.blle.apply_pass_pipelined(x, apply, *w.apply_tensors())
 
 
 def _apply_pass_pipelined_kernel(x: torch.Tensor, apply: torch.Tensor,
-                                 w: BlockWeights) -> torch.Tensor:
+                                 *tensors: torch.Tensor) -> torch.Tensor:
     if x.dim() == 4 and x.shape[-1] not in PIPELINED_WIDTHS:
         raise ValueError(f"K3P takes C in {PIPELINED_WIDTHS}, got {x.shape[-1]}")
-    args = _apply_pass_args(x, apply, w)
+    args = _apply_pass_args(x, apply, *tensors)
     out = torch.empty_like(x)
     grid = plan_for(PIPE, *x.shape, x.device.index or 0).ctas
     err = _build.library().blle_apply_pipelined(

@@ -16,6 +16,9 @@ Port of ``bayer_low_light_image_enhancement_tpu/kernels/ssm_scan.py``:
 
 Both wrappers run their plain twin from ``ops/ssm.py`` on a CPU tensor and
 launch the CUDA kernels (``csrc/ssm_scan.cu``) on a CUDA tensor, or raise;
+S1 without states does so as the ``torch.library`` operator
+``torch.ops.blle.selective_scan_fwd`` (``kernels/ops.py``), which
+``torch.export`` keeps in its graph;
 ``selective_scan_fwd.launches`` and ``selective_scan_bwd.launches`` count
 the launches. u, dt, B, C (and dy) go to the kernels in u's dtype (bf16 or
 fp32); A and D in fp32; the recurrence is fp32.
@@ -178,11 +181,14 @@ def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def selective_scan_fwd(u, dt, A, B, C, D, save_states: bool = False):
     """S1: -> y [B, L, D] in u's dtype, and with ``save_states`` also the
     states [B, ceil(L / STATE_EVERY), D, N] (fp32; the compute dtype on the
-    CPU). CPU: the chunked twin. CUDA: the kernel, or raise."""
+    CPU). CPU: the chunked twin. CUDA: the kernel, or raise. Without
+    ``save_states`` through ``torch.ops.blle.selective_scan_fwd``."""
+    if not save_states:
+        return torch.ops.blle.selective_scan_fwd(u, dt, A, B, C, D)
     if not u.is_cuda:
         return ssm.selective_scan(u, dt, A, B, C, D, chunk_size=TWIN_CHUNK,
-                                  state_every=STATE_EVERY if save_states else None)
-    return _fwd_kernel(u, dt, A, B, C, D, save_states)
+                                  state_every=STATE_EVERY)
+    return _fwd_kernel(u, dt, A, B, C, D, True)
 
 
 def _fwd_kernel(u, dt, A, B, C, D, save_states):

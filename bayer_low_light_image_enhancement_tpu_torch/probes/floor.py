@@ -175,7 +175,7 @@ def bisect_probe(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights, stage: i
     apply_fn = select_apply_pass(c, apply_kernel)
     if stage == 5:
         return apply_fn(x, apply, w)
-    args = _apply_pass_args(x, apply, w)
+    args = _apply_pass_args(x, apply, *w.apply_tensors())
     ybuf, out = torch.empty_like(x), torch.empty_like(x)
     err = _build.library().blle_probe_apply_cut(
         x.data_ptr(), *(t.data_ptr() for t in args), ybuf.data_ptr(), out.data_ptr(), *x.shape,

@@ -1,29 +1,131 @@
-"""Where the device time goes: ``torch.profiler`` over a model's forward or
-train step on one CUDA card.
+"""Profiling and timing: where the device time goes, step timers, traces.
 
 The counterpart of ``bayer_low_light_image_enhancement_tpu/utils/profiling.py``
-for the port. ``profile`` runs a callable after warmup under
-``torch.profiler`` and returns the host-clock time per call, the device
-time per call (the sum of every kernel's self time), the device's busy
-share and the kernels by device time (``cuda_time_ms`` times a callable
-with CUDA events); the CLI prints them for a registry model at random
-weights:
+for the port:
+
+* ``trace(log_dir)``: a ``torch.profiler`` trace of the block, written
+  where TensorBoard or Perfetto opens it;
+* ``AverageMeter`` (the reference's running mean) and ``StepTimer`` (host
+  clock, the result's device synchronised in ``stop``);
+* ``timed_scan``: seconds a call over back-to-back calls between two
+  synchronisations, the port's answer to the asynchronous dispatch that
+  JAX's version folds into a ``lax.scan``;
+* ``cost_analysis``: the operations of one call
+  (``torch.utils.flop_counter.FlopCounterMode``), where JAX reads XLA's;
+* ``profile`` runs a callable after warmup under ``torch.profiler`` and
+  returns the host-clock time per call, the device time per call (the sum
+  of every kernel's self time), the device's busy share and the kernels by
+  device time (``cuda_time_ms`` times a callable with CUDA events); the
+  CLI prints them for a registry model at random weights:
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.profiling \\
         --model rawformer_wfb --batch 2 --size 512 --mode forward
     ... --mode train --batch 8
 
-A card is required: there is no CPU fallback.
+``profile``, ``cuda_time_ms`` and the CLI need a card: there is no CPU
+fallback. The others run on either.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block (host, and the card where there is one) and write
+    the trace into ``log_dir`` (``*.pt.trace.json``, for TensorBoard's
+    profiler plugin or Perfetto)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+class AverageMeter:
+    """Running mean/count (the reference's correctdataloader.py:13-24)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+        self.avg = 0.0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(1, self.count)
+
+
+def synchronize(result: Any) -> None:
+    """Wait for the card that holds a tensor of ``result`` (any nesting of
+    tuples, lists and dicts); nothing for host tensors."""
+    for t in tree_leaves(result):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+            return
+
+
+class StepTimer:
+    """Host-clock step timing; ``stop(result)`` waits for ``result``'s card
+    first, so that the step's device work is inside the time."""
+
+    def __init__(self):
+        self.meter = AverageMeter()
+        self._t0: Optional[float] = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, result=None) -> float:
+        if result is not None:
+            synchronize(result)
+        dt = time.perf_counter() - (self._t0 or time.perf_counter())
+        self.meter.update(dt)
+        return dt
+
+
+def timed_scan(fn: Callable, args: Sequence, steps: int = 20, reps: int = 3) -> float:
+    """Seconds a call of ``fn(*args)``: after one warmup call, ``reps``
+    times ``steps`` back-to-back calls between two synchronisations of the
+    result's card (the host clock then covers the device work, whatever
+    the dispatch queues); the mean over all calls."""
+    synchronize(fn(*args))
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = fn(*args)
+        synchronize(out)
+        total += time.perf_counter() - t0
+    return total / (steps * reps)
+
+
+def cost_analysis(fn: Callable, *args) -> Dict[str, float]:
+    """The operations of ``fn(*args)`` by ``FlopCounterMode``: {"flops": the
+    total, and each counted operator's name: its share}, as floats (torch's
+    convention: matmul and convolution products; the ``torch.ops.blle``
+    kernels by their formulas)."""
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    out = {"flops": float(counter.get_total_flops())}
+    out.update({str(op): float(n) for op, n in counter.get_flop_counts()["Global"].items()})
+    return out
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:

@@ -156,7 +156,22 @@ Phases (any failed check raises and the script exits non-zero):
    lower the loss with no step skipped, the step time and peak memory
    printed); then ``F.scaled_dot_product_attention`` is timed beside the
    chunked token attention at lumachroma's largest attention, [2, 4,
-   65536, 12] bf16 (a library measurement; no model calls SDPA).
+   65536, 12] bf16 (a library measurement; no model calls SDPA);
+14. serving artifacts (``serving/export.py``, ``torch.export``): opcheck of
+   the four ``torch.ops.blle`` operators (K2, K3, K3P, S1) on CUDA inputs;
+   each wrapper's host microseconds a call beside its operator called
+   directly and the kernel function it dispatches to (K2 / K3 at
+   [8,256,256,32], S1 at [6,16384,96,32]); RawFormer-S (seed 0, bf16
+   compute) exported at batch 8 @ 512x512 and at one 2832x4240 frame, with
+   the tiled and the pipelined apply pass, WFB-48 at batch 2 @ 512x512 and
+   ``flca_rawformer`` at dim 48 at batch 2 @ 512x512; a fresh process
+   (``EXPORT_CHILD``) loads each artifact through ``load_artifact`` alone
+   and runs it on the frames ``Predictor.__call__`` served here: within
+   ARTIFACT_TOL of Predictor, K2 and K3 (or K3P) 7 times a RawFormer-S
+   forward and 6 times a ``flca_rawformer`` one, S1 7 times a WFB forward,
+   no other kernel; each artifact call timed against Predictor's in turns
+   (host clock and CUDA events, numpy in and out); ``model_complexity`` of
+   RawFormer-S at 1x512x512 the same on the card and on the CPU.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -1549,6 +1564,289 @@ def raw_zoo_phase(dev, card, counters, train_cfg) -> None:
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# Phase 14: serving artifacts (``serving/export.py``) of RawFormer-S (batch
+# 8 @ 512^2 and a 2832x4240 frame, tiled and pipelined), WFB-48 (batch 2 @
+# 512^2) and ``flca_rawformer`` at dim 48 (batch 2 @ 512^2), seeded random
+# weights, bf16 compute; each is loaded in a fresh process (``EXPORT_CHILD``)
+# and held against ``Predictor`` on the same frames: the same kernels on the
+# same inputs, so ARTIFACT_TOL on [0, 1] RGB.
+ARTIFACT_TOL = 1e-3
+S_BATCH, S_FRAME, WFB_BATCH = (8, 512, 512), (1, 2832, 4240), (2, 512, 512)
+DISPATCH_CALLS, DISPATCH_TURNS = 20, 30
+# K2 / K3 (or K3P) 7 times a RawFormer-S forward, 6 a flca_rawformer forward
+# (its C = 384 block takes the module path), S1 7 times a WFB forward.
+ARTIFACT_LAUNCHES = {
+    "rawformer_s_tiled": {"gram_pass": 7, "apply_pass": 7},
+    "rawformer_s_pipelined": {"gram_pass": 7, "apply_pass_pipelined": 7},
+    "rawformer_wfb": {"selective_scan_fwd": 7},
+    "flca_rawformer": {"gram_pass": 6, "apply_pass": 6},
+}
+# Run by phase 14 as `python -c EXPORT_CHILD <dir>` from the repository root:
+# loads each artifact of <dir>/cases.json through load_artifact alone (no
+# model class, no checkpoint), runs it on the case's input, compares with
+# the Predictor output saved beside it and counts every kernel's launches
+# in that call; prints one JSON line.
+EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from bayer_low_light_image_enhancement_tpu_torch.serving.export import load_artifact
+from bayer_low_light_image_enhancement_tpu_torch.kernels import (
+    bayer_pack, fused_block, fused_block_bwd, ssm_scan, weight_grad)
+counters = (bayer_pack.bayer_pack_normalize, fused_block.gram_pass, fused_block.apply_pass,
+            fused_block.apply_pass_pipelined, weight_grad.weight_grad, fused_block_bwd.bwd1,
+            fused_block_bwd.bwd2, ssm_scan.selective_scan_fwd, ssm_scan.selective_scan_bwd)
+# Predictor's run in the parent has TF32 off; so has this one (WFB's FEB
+# runs fp32 convolutions, which cuDNN would take in TF32 by default).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+root = sys.argv[1]
+out = {}
+for case in json.load(open(root + "/cases.json")):
+    t0 = time.perf_counter()
+    fn, meta = load_artifact(f"{root}/{case['artifact']}")
+    load_s = time.perf_counter() - t0
+    x = np.load(f"{root}/{case['input']}")
+    fn(x)  # the first call builds nothing: the library is in the package's _build
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    y = fn(x)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    want = np.load(f"{root}/{case['want']}")
+    out[case["name"]] = {"launches": launches, "load_s": load_s, "shape": list(y.shape),
+                         "finite": bool(np.isfinite(y).all()),
+                         "max_abs_err": float(np.abs(y - want).max()),
+                         "mean_abs_err": float(np.abs(y - want).mean()), "meta": meta}
+print(json.dumps(out), flush=True)
+"""
+
+
+def dispatch_costs(dev, card) -> None:
+    """Host microseconds a call of each wrapper (through its torch.ops.blle
+    operator), of the operator called directly and of the kernel function
+    it dispatches to, at [8,256,256,32] (K2, K3) and WFB-48's stage-1 scan
+    [6,16384,96,32] (S1): ``DISPATCH_CALLS`` calls right after a
+    synchronisation, so that the launch queue takes them without waiting on
+    the card, in turns; each variant's excess over the kernel function in
+    the same turn, median and quartiles over ``DISPATCH_TURNS`` turns (the
+    host's noise is of the size of the excess)."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+
+    g = torch.Generator().manual_seed(14)
+    blk = common.TransformerBlock(32, 8, 2, device=dev)
+    common.reset_parameters_(blk, g)
+    w = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
+    x = torch.randn(BATCH_SHAPES[0], generator=g).to(dev, torch.bfloat16)
+    apply = fb.finalize_attention(*fb.gram_pass_plain(x, w), w.temperature, w.wproj, 8)
+    b, L, d = SCAN_SHAPES[0]
+    u, dt = (torch.randn(b, L, d, generator=g).to(dev, torch.bfloat16) for _ in "12")
+    dt = torch.nn.functional.softplus(dt.float()).to(torch.bfloat16)
+    A = -torch.rand(d, 32, generator=g).add(0.5).to(dev)
+    Bm, Cm = (torch.randn(b, L, 32, generator=g).to(dev, torch.bfloat16) for _ in "12")
+    D = torch.ones(d, device=dev)
+    gt, at = w.gram_tensors(), w.apply_tensors()
+    cases = {
+        "K2": [("wrapper", lambda: fb.gram_pass(x, w)),
+               ("operator", lambda: torch.ops.blle.gram_pass(x, *gt)),
+               ("kernel function", lambda: fb._gram_pass_kernel(x, *gt))],
+        "K3": [("wrapper", lambda: fb.apply_pass(x, apply, w)),
+               ("operator", lambda: torch.ops.blle.apply_pass(x, apply, *at)),
+               ("kernel function", lambda: fb._apply_pass_kernel(x, apply, *at))],
+        "S1": [("wrapper", lambda: ssk.selective_scan_fwd(u, dt, A, Bm, Cm, D)),
+               ("operator", lambda: torch.ops.blle.selective_scan_fwd(u, dt, A, Bm, Cm, D)),
+               ("kernel function", lambda: ssk._fwd_kernel(u, dt, A, Bm, Cm, D, False))],
+    }
+    with torch.inference_mode():
+        for kernel, fns in cases.items():
+            us = {name: [] for name, _ in fns}
+            for turn in range(DISPATCH_TURNS):
+                for name, fn in (fns if turn % 2 == 0 else fns[::-1]):
+                    fn()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(DISPATCH_CALLS):
+                        fn()
+                    us[name].append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+                    torch.cuda.synchronize()
+            base = np.array(us["kernel function"])
+            above = {name: np.percentile(np.array(us[name]) - base, [25, 50, 75])
+                     for name in ("operator", "wrapper")}
+            shape = list(SCAN_SHAPES[0]) + [32] if kernel == "S1" else list(BATCH_SHAPES[0])
+            log(f"dispatch {kernel} ({shape} bf16): host us a call over {DISPATCH_TURNS} turns "
+                f"of {DISPATCH_CALLS} calls, medians "
+                + ", ".join(f"{k} {np.median(v):.2f}" for k, v in us.items())
+                + "; above the kernel function in the same turn (median [quartiles]): "
+                + ", ".join(f"{k} {q[1]:.2f} [{q[0]:.2f}, {q[2]:.2f}]" for k, q in above.items())
+                + f" ({card})")
+
+
+def opcheck_on_card(dev) -> None:
+    """``torch.library.opcheck`` of the four operators on CUDA inputs (its
+    schema, fake-tensor and AOT-dispatch tests run the kernels)."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+
+    g = torch.Generator().manual_seed(15)
+    blk = common.TransformerBlock(64, 8, 2, device=dev)
+    common.reset_parameters_(blk, g)
+    w = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
+    x = torch.randn(2, 37, 45, 64, generator=g).to(dev, torch.bfloat16)
+    apply = fb.finalize_attention(*fb.gram_pass_plain(x, w), w.temperature, w.wproj, 8)
+    u = torch.randn(6, 1000, 96, generator=g).to(dev, torch.bfloat16)
+    dt = torch.rand(6, 1000, 96, generator=g).mul(0.1).to(dev, torch.bfloat16)
+    A = -torch.rand(96, 32, generator=g).add(0.5).to(dev)
+    Bm, Cm = (torch.randn(6, 1000, 32, generator=g).to(dev, torch.bfloat16) for _ in "12")
+    cases = [(torch.ops.blle.gram_pass.default, (x, *w.gram_tensors())),
+             (torch.ops.blle.apply_pass.default, (x, apply, *w.apply_tensors())),
+             (torch.ops.blle.apply_pass_pipelined.default, (x, apply, *w.apply_tensors())),
+             (torch.ops.blle.selective_scan_fwd.default,
+              (u, dt, A, Bm, Cm, torch.ones(96, device=dev)))]
+    for op, args in cases:
+        t0 = time.perf_counter()
+        res = torch.library.opcheck(op, args)
+        log(f"opcheck {op} on CUDA inputs: {res} ({time.perf_counter() - t0:.1f} s)")
+        check(all(v == "SUCCESS" for v in res.values()), f"opcheck of {op} failed: {res}")
+
+
+def export_phase(dev, card) -> dict:
+    """Phase 14: serving artifacts on the card; returns each artifact's
+    launches per forward in the fresh process."""
+    import copy
+    import tempfile
+
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.serving import (
+        Predictor,
+        export_artifact,
+        load_artifact,
+    )
+    from bayer_low_light_image_enhancement_tpu_torch.utils.flops import model_complexity
+
+    t_phase = time.perf_counter()
+    opcheck_on_card(dev)
+    dispatch_costs(dev, card)
+
+    rng = np.random.default_rng(14)
+
+    def raw_frames(shape, ratios):
+        raw = mosaics(rng, shape).astype(np.float32)
+        return (np.clip((raw - 512.0) / (16383.0 - 512.0), 0.0, None)
+                * ratios.reshape((-1,) + (1,) * (len(shape) - 1)))[..., None]
+
+    s_batch = raw_frames(S_BATCH, rng.uniform(50.0, 300.0, S_BATCH[0]).astype(np.float32))
+    s_frame = raw_frames(S_FRAME, np.full(S_FRAME[0], 100.0, np.float32))
+    w_batch = raw_frames(WFB_BATCH, rng.uniform(50.0, 300.0, WFB_BATCH[0]).astype(np.float32))
+    f_batch = rng.uniform(0.0, 1.5, ZOO_BATCH + (1,)).astype(np.float32)
+
+    def seeded(name, seed, **kw):
+        return get_model(name, device=dev, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(seed), **kw)
+
+    preds = {
+        "rawformer_s_tiled": Predictor(seeded("rawformer_s", 0), device=dev),
+        "rawformer_s_pipelined": Predictor(seeded("rawformer_s", 0), device=dev,
+                                           apply_kernel="pipelined"),
+        "rawformer_wfb": Predictor(seeded("rawformer_wfb", 0), device=dev, pad_to=32),
+        "flca_rawformer": Predictor(seeded("flca_rawformer", 10), device=dev),
+    }
+    cases = [(f"{m}_{tag}", m, x) for m in ("rawformer_s_tiled", "rawformer_s_pipelined")
+             for tag, x in (("8x512", s_batch), ("frame", s_frame))]
+    cases += [("rawformer_wfb_2x512", "rawformer_wfb", w_batch),
+              ("flca_rawformer_2x512", "flca_rawformer", f_batch)]
+    root = tempfile.mkdtemp(prefix="blle_artifacts_")
+    try:
+        listing, wants = [], {}
+        for name, model_key, x in cases:
+            pred = preds[model_key]
+            t0 = time.perf_counter()
+            meta = export_artifact(pred.model, None, f"{root}/{name}.zip", *x.shape[:3],
+                                   device=dev, meta_extra={"model": model_key})
+            export_s = time.perf_counter() - t0
+            wants[name] = pred(x)
+            np.save(f"{root}/{name}.in.npy", x)
+            np.save(f"{root}/{name}.want.npy", wants[name])
+            listing.append({"name": name, "artifact": f"{name}.zip", "input": f"{name}.in.npy",
+                            "want": f"{name}.want.npy"})
+            log(f"export {name} ({list(x.shape)}): {export_s:.1f} s, "
+                f"{os.path.getsize(f'{root}/{name}.zip') / 2 ** 20:.1f} MiB; meta {meta}")
+            check(meta["device"] == "cuda:0" and meta["input_shape"] == list(x.shape),
+                  f"{name}: artifact meta {meta}")
+        with open(f"{root}/cases.json", "w") as f:
+            json.dump(listing, f)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", EXPORT_CHILD, root], capture_output=True,
+                               text=True, timeout=600,
+                               cwd=os.path.dirname(os.path.abspath(__file__)))
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            log(child.stdout[-4000:], child.stderr[-8000:])
+        check(child.returncode == 0, f"the artifact process exited {child.returncode}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+        log(f"fresh process: loaded and ran {len(got)} artifacts in {child_s:.1f} s")
+        launches = {}
+        for name, model_key, x in cases:
+            r = got[name]
+            want = ARTIFACT_LAUNCHES[model_key]
+            log(f"artifact {name} in a fresh process: load {r['load_s']:.1f} s, max abs err "
+                f"{r['max_abs_err']:.3e} (tol {ARTIFACT_TOL}), mean {r['mean_abs_err']:.3e} "
+                f"against Predictor; launches a forward {r['launches']} (want {want}); ops "
+                f"{r['meta']['ops']}")
+            check(r["finite"] and r["shape"] == list(x.shape[:3]) + [3],
+                  f"{name}: artifact output not finite of shape {list(x.shape[:3]) + [3]}")
+            check(r["max_abs_err"] <= ARTIFACT_TOL, f"{name}: artifact disagrees with Predictor")
+            check(r["launches"] == want, f"{name}: the artifact's launches {r['launches']} are "
+                  f"not {want} (a kernel missing, or a backward kernel ran)")
+            launches[name] = r["launches"]
+
+        # The artifact's call against Predictor's, in turns in this process.
+        for name, model_key, x in cases:
+            fn, _ = load_artifact(f"{root}/{name}.zip")
+            pred = preds[model_key]
+            calls = {"Predictor": lambda: pred(x), "artifact": lambda: fn(x)}
+            host, dev_ms = {k: [] for k in calls}, {k: [] for k in calls}
+            for k in calls:
+                calls[k]()
+            for turn in range(2):
+                for k in (("Predictor", "artifact") if turn == 0 else ("artifact", "Predictor")):
+                    for _ in range(3):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        start.record()
+                        calls[k]()
+                        end.record()
+                        torch.cuda.synchronize()
+                        host[k].append((time.perf_counter() - t0) * 1e3)
+                        dev_ms[k].append(start.elapsed_time(end))
+            log(f"time {name} ({list(x.shape)}), numpy in and out, 6 calls each in turns: "
+                + "; ".join(f"{k} host median {np.median(host[k]):.3f} ms "
+                            f"[{min(host[k]):.3f}-{max(host[k]):.3f}], CUDA events median "
+                            f"{np.median(dev_ms[k]):.3f} ms" for k in calls)
+                + f" ({torch.cuda.get_device_name(0)}; nvidia-smi: {card})")
+            del fn
+    finally:
+        for f in os.listdir(root):
+            os.remove(os.path.join(root, f))
+        os.rmdir(root)
+
+    model = preds["rawformer_s_tiled"].model
+    t0 = time.perf_counter()
+    on_card = model_complexity(model, (1,) + S_BATCH[1:] + (1,))
+    t1 = time.perf_counter()
+    on_cpu = model_complexity(copy.deepcopy(model), (1,) + S_BATCH[1:] + (1,), device="cpu")
+    log(f"model_complexity RawFormer-S 1x{S_BATCH[1]}x{S_BATCH[2]}: card {on_card} ({t1 - t0:.1f} s), CPU "
+        f"{on_cpu} ({time.perf_counter() - t1:.1f} s): {on_card['flops'] / 1e9:.3f} GFLOPs, "
+        f"{on_card['params']} params")
+    check(on_card == on_cpu, "model_complexity differs between the card and the CPU")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2449,6 +2747,12 @@ def main() -> int:
     # 13. the raw-domain models ---------------------------------------------------
     torch.cuda.empty_cache()
     raw_zoo_phase(dev, card, counters, train_cfg)
+
+    # 14. serving artifacts -------------------------------------------------------
+    torch.cuda.empty_cache()
+    export_launches = export_phase(dev, card)
+    log("phase 14 launches per artifact forward in a fresh process: "
+        + json.dumps(export_launches))
 
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),

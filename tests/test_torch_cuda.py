@@ -1513,3 +1513,52 @@ def test_raw_domain_chunked_matches_unchunked_on_the_card(cuda, name):
     held_chunk_step(lambda chunk=None: make(chunk, torch.float32),
                     TrainConfig(warmup_epochs=1, steps_per_epoch=1), batch, counters, name,
                     other=4096)
+
+
+def test_export_round_trip_on_the_card(cuda, tmp_path):
+    """RawFormer-S (seed 0, bf16 compute) exported on the card and loaded
+    back through ``load_artifact``: within 1e-3 of ``Predictor`` on the same
+    frames (the same kernels on the same inputs), K2 and K3 7 times a
+    forward and no other kernel; the artifact refuses the CPU."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
+    from bayer_low_light_image_enhancement_tpu_torch.serving import export_artifact, load_artifact
+
+    model = RawFormer(RawFormerConfig.from_size("S", dtype=torch.bfloat16), device=cuda,
+                      generator=torch.Generator().manual_seed(0))
+    pred = Predictor(model, device=cuda)
+    path = str(tmp_path / "rawformer_s.zip")
+    meta = export_artifact(model, None, path, 2, 64, 96, device=cuda)
+    assert meta["ops"] == ["blle.apply_pass", "blle.gram_pass"] and meta["device"] == "cuda:0"
+    fn, _ = load_artifact(path)
+    x = np.random.default_rng(3).uniform(0, 1.5, (2, 64, 96, 1)).astype(np.float32)
+    counters = zoo_counters() + (ssk.selective_scan_fwd, ssk.selective_scan_bwd)
+    before = [f.launches for f in counters]
+    y = fn(x)
+    torch.cuda.synchronize()
+    got = {f.__name__: f.launches - b for f, b in zip(counters, before) if f.launches != b}
+    assert got == {"gram_pass": 7, "apply_pass": 7}
+    np.testing.assert_allclose(y, pred(x), rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match="exported for cuda"):
+        load_artifact(path, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["gram_pass", "apply_pass", "apply_pass_pipelined",
+                                  "selective_scan_fwd"])
+def test_opcheck_on_the_card(cuda, name):
+    """``torch.library.opcheck`` of each ``torch.ops.blle`` operator on CUDA
+    inputs (ragged tiles; a scan of two chunks of sub-chunks)."""
+    g = torch.Generator().manual_seed(21)
+    blk = common.TransformerBlock(64, 8, 2, device=cuda)
+    common.reset_parameters_(blk, g)
+    w = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
+    x = torch.randn(2, 19, 13, 64, generator=g).to(cuda, torch.bfloat16)
+    apply = fb.finalize_attention(*fb.gram_pass_plain(x, w), w.temperature, w.wproj, 8)
+    u = torch.randn(2, 200, 40, generator=g).to(cuda, torch.bfloat16)
+    dt = torch.rand(2, 200, 40, generator=g).mul(0.1).to(cuda, torch.bfloat16)
+    A = -torch.rand(40, 16, generator=g).add(0.5).to(cuda)
+    bm, cm = (torch.randn(2, 200, 16, generator=g).to(cuda, torch.bfloat16) for _ in "bc")
+    args = {"gram_pass": (x, *w.gram_tensors()),
+            "apply_pass": (x, apply, *w.apply_tensors()),
+            "apply_pass_pipelined": (x, apply, *w.apply_tensors()),
+            "selective_scan_fwd": (u, dt, A, bm, cm, torch.ones(40, device=cuda))}[name]
+    torch.library.opcheck(getattr(torch.ops.blle, name).default, args)

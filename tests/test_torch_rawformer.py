@@ -194,6 +194,11 @@ def test_port_imports_no_jax():
         "import bayer_low_light_image_enhancement_tpu_torch.models.flca_rawformer\n"
         "import bayer_low_light_image_enhancement_tpu_torch.models.multilvl_flca\n"
         "import bayer_low_light_image_enhancement_tpu_torch.models.truecolor\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.kernels.ops\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.serving.export\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.cli.export_cli\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.utils.flops\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.utils.debug\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'bayer_low_light_image_enhancement_tpu']\n"
         "assert not bad, bad\n"
