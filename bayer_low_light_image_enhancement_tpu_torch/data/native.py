@@ -33,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from bayer_low_light_image_enhancement_tpu_torch.core.mesh import row_range
 from bayer_low_light_image_enhancement_tpu_torch.data.sid import sid_ratio_from_filename
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -295,13 +296,17 @@ class NativeLoader:
     """``Loader``-compatible iterator fed by the C++ engine: the same epoch
     and shuffle discipline (a seeded permutation per epoch, the last partial
     batch dropped), with
-    one producer thread keeping a small queue of assembled batches ahead."""
+    one producer thread keeping a small queue of assembled batches ahead.
+    With ``parts`` > 1 it assembles only rows ``core.mesh.row_range(B, part,
+    parts)`` of each global batch (``Loader``'s data-parallel split)."""
 
-    def __init__(self, dataset, sampler: "NativeBatchSampler", batch_size: int, seed: int = 0):
+    def __init__(self, dataset, sampler: "NativeBatchSampler", batch_size: int, seed: int = 0,
+                 part: int = 0, parts: int = 1):
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = batch_size
         self.seed = seed
+        self.part, self.parts = part, parts
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -323,7 +328,8 @@ class NativeLoader:
                 for idxs in batches:
                     if stop.is_set():
                         return
-                    q.put(self.sampler.sample_batch([int(i) for i in idxs], epoch))
+                    rows = row_range(len(idxs), self.part, self.parts)
+                    q.put(self.sampler.sample_batch([int(i) for i in idxs], epoch, rows))
             finally:
                 q.put(None)
 
@@ -355,7 +361,9 @@ class NativeBatchSampler:
 
     ``sample_batch`` returns ``(raw, gt)`` (raw fp32 normalised), or with
     ``compact`` the triple ``(raw_u16 [B,p,p,1], ratio [B], gt_u16
-    [B,p,p,3])`` that ``train.trainer.decode_batch`` decodes on the device."""
+    [B,p,p,3])`` that ``train.trainer.decode_batch`` decodes on the device;
+    with ``rows`` = (lo, hi) only those rows of that batch, from the same
+    draws."""
 
     def __init__(self, mosaics, gts, ratios, patch_size: int, seed: int = 0,
                  compact: bool = False):
@@ -366,7 +374,8 @@ class NativeBatchSampler:
         self.seed = seed
         self.compact = compact
 
-    def sample_batch(self, indices: Sequence[int], epoch: int):
+    def sample_batch(self, indices: Sequence[int], epoch: int,
+                     rows: Optional[Tuple[int, int]] = None):
         rng = np.random.default_rng((self.seed, epoch, tuple(int(i) for i in indices)))
         batch = len(indices)
         crops = np.empty((batch, 2), np.int32)
@@ -377,6 +386,9 @@ class NativeBatchSampler:
             crops[s, 1] = int(rng.integers(0, (w - self.patch - 2) // 2 + 1)) * 2
             flips[s, 0] = rng.random() < 0.5
             flips[s, 1] = rng.random() < 0.2
+        if rows is not None:
+            lo, hi = rows
+            indices, crops, flips = list(indices)[lo:hi], crops[lo:hi], flips[lo:hi]
         mosaics = [self.mosaics[i] for i in indices]
         gts = [self.gts[i] for i in indices]
         if self.compact:

@@ -20,6 +20,8 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
+from bayer_low_light_image_enhancement_tpu_torch.core.mesh import row_range
+
 
 class Loader:
     """Iterates shuffled, collated batches from a dataset with ``sample()``.
@@ -27,12 +29,19 @@ class Loader:
     Dataset protocol: ``__len__`` and ``sample(idx, rng) -> tuple of arrays``.
     Yields tuples of stacked numpy arrays [B, ...]. Sample ``k`` of batch
     ``bi`` in epoch ``e`` draws from ``default_rng((seed, e, 0xA5, idx,
-    bi))``, as the JAX package's loader."""
+    bi))``, as the JAX package's loader.
+
+    Data parallelism: with ``parts`` > 1 the loader yields only rows
+    ``core.mesh.row_range(B, part, parts)`` of each global batch of
+    ``batch_size`` rows, and loads only those: the same epochs, batches and
+    draws as one loader of the whole batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = True, num_threads: int = 8, prefetch: int = 4):
+                 drop_last: bool = True, num_threads: int = 8, prefetch: int = 4,
+                 part: int = 0, parts: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.part, self.parts = part, parts
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
@@ -75,8 +84,11 @@ class Loader:
                     for bi, idxs in enumerate(batch_indices):
                         if stop.is_set():
                             return
-                        samples = list(pool.map(lambda i: load_one(i, bi), idxs))
-                        out_q.put(tuple(np.stack([s[j] for s in samples])
+                        lo, hi = row_range(len(idxs), self.part, self.parts)
+                        # A part with no rows loads one sample for the arrays' shapes.
+                        mine = idxs[lo:hi] if hi > lo else idxs[:1]
+                        samples = list(pool.map(lambda i: load_one(i, bi), mine))
+                        out_q.put(tuple(np.stack([s[j] for s in samples])[:hi - lo]
                                         for j in range(len(samples[0]))))
             finally:
                 out_q.put(None)

@@ -113,6 +113,11 @@ class WMB(nn.Module):
         self.compute_dtype = compute_dtype
         self.norm1 = LayerNorm2d(dim, device=device, dtype=dtype)
         self.illu = IlluminationEstimator(dim, dim, dim, **kw)
+        # The block discards the illumination map, as the reference does, so
+        # conv2 takes no part in the loss (its JAX grad is zero and Adam
+        # leaves it as it is): frozen, so that DistributedDataParallel's
+        # reducer waits for no grad of it.
+        self.illu.conv2.requires_grad_(False)
         self.ffab = FFAB(dim, **kw)
         self.mb = WM(dim, ref_token_layout=ref_token_layout, **kw)
         self.norm2 = LayerNorm2d(dim, device=device, dtype=dtype)

@@ -7,7 +7,11 @@ Port of ``bayer_low_light_image_enhancement_tpu/ops/rep_conv.py``:
   clipped at 0) both to normalise and to update ``running_var``, momentum
   0.1 in torch's sense (0.9 in the JAX package's). ``torch.nn.BatchNorm2d``
   would update ``running_var`` with the unbiased variance; the port follows
-  the JAX package, not the reference's torch training.
+  the JAX package, not the reference's torch training. Under data
+  parallelism (``set_batchnorm_group``) the per-channel sums of x and x^2
+  and the count are summed over the data group first, so that every rank
+  normalises with, and keeps, the global batch's statistics, as the JAX
+  package's mesh does (its ``jit`` sees the whole batch).
 * ``Conv2dBN``: bias-free conv + BatchNorm2d (``fuse_conv_bn`` folds them).
 * ``GatedFeedForward``: project_in -> x1 = x + rep3x3(x) + rep1x1(x),
   x2 = dw3x3(x), out = gelu(x2) x1 + gelu(x1) x2 (exact GELU in fp32) ->
@@ -24,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bayer_low_light_image_enhancement_tpu_torch.core.mesh import sum_over
 from bayer_low_light_image_enhancement_tpu_torch.models.common import Conv2d
 
 
@@ -33,12 +38,21 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, features: int, *, device=None, dtype=torch.float32):
         super().__init__(features, eps=1e-5, momentum=0.1, device=device, dtype=dtype)
+        self.process_group = None  # the data group whose batch the statistics span
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training:
+        if self.training and self.process_group is not None:
+            c = xf.shape[1]
+            sums = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                              xf.new_full((1,), xf.numel() // c)])
+            sums = sum_over(sums, self.process_group)
+            mean = sums[:c] / sums[2 * c]
+            var = (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
+        elif self.training:
             mean = xf.mean((0, 2, 3))
             var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self.training:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
@@ -48,6 +62,14 @@ class BatchNorm2d(nn.BatchNorm2d):
             mean, var = self.running_mean.to(xf.dtype), self.running_var.to(xf.dtype)
         scale = self.weight.to(xf.dtype) * torch.rsqrt(var + self.eps)
         return (xf - mean[:, None, None]) * scale[:, None, None] + self.bias.to(xf.dtype)[:, None, None]
+
+
+def set_batchnorm_group(module: nn.Module, group) -> None:
+    """Take every BatchNorm2d's batch statistics in ``module`` over the
+    data ``group`` (None: over the local batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
 
 
 class Conv2dBN(nn.Module):

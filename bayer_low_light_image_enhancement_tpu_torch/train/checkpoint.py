@@ -7,6 +7,8 @@ counts (the reference's resume drops the optimizer moments; both packages
 keep them). Each checkpoint is one file ``<directory>/<step>.pt``, written
 to a temporary name and renamed, so a crash never leaves a torn file.
 Saves are synchronous; ``wait`` exists for the JAX package's interface.
+In a multi-process run (``core/mesh.py``) global rank 0 alone writes;
+every rank may restore.
 The port reads no orbax checkpoint of the JAX package; the converter
 ``tools/orbax_to_torch.py`` (run where JAX is installed) writes one in this
 layout.
@@ -21,6 +23,8 @@ import re
 from typing import Any, List, Optional, Tuple
 
 import torch
+
+from bayer_low_light_image_enhancement_tpu_torch.core.mesh import rank
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -39,8 +43,9 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> None:
         """Write ``state`` (tensors are stored as they are; pass CPU or CUDA
-        ones) as checkpoint ``step``; a step saved already is kept."""
-        if step in self.all_steps():
+        ones) as checkpoint ``step``; a step saved already is kept. Only
+        global rank 0 writes (a no-op on the other ranks)."""
+        if rank() != 0 or step in self.all_steps():
             return  # already saved this epoch (e.g. best + periodic coincide)
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"

@@ -6,6 +6,9 @@ Port of ``bayer_low_light_image_enhancement_tpu/utils/logging.py``:
     (it needs the ``tensorboard`` package); otherwise a warning, once, and
     the text log goes on.
   * the evaluation CLI's per-image PSNR/SSIM CSV (``write_metrics_csv``).
+
+In a multi-process run (``core/mesh.py``) only global rank 0 opens the
+text log and TensorBoard; on the other ranks the logger writes nothing.
 """
 
 from __future__ import annotations
@@ -15,9 +18,13 @@ import os
 import warnings
 from typing import Dict, Optional, Sequence
 
+from bayer_low_light_image_enhancement_tpu_torch.core.mesh import rank
+
 
 class MetricsLogger:
     def __init__(self, log_file: Optional[str] = None, tensorboard_dir: Optional[str] = None):
+        if rank() != 0:
+            log_file = tensorboard_dir = None
         self._log_f = None
         if log_file:
             os.makedirs(os.path.dirname(os.path.abspath(log_file)), exist_ok=True)

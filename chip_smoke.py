@@ -171,7 +171,36 @@ Phases (any failed check raises and the script exits non-zero):
    forward and 6 times a ``flca_rawformer`` one, S1 7 times a WFB forward,
    no other kernel; each artifact call timed against Predictor's in turns
    (host clock and CUDA events, numpy in and out); ``model_complexity`` of
-   RawFormer-S at 1x512x512 the same on the card and on the CPU.
+   RawFormer-S at 1x512x512 the same on the card and on the CPU;
+15. multi-GPU training (``core/mesh.py``, ``parallel/tensor.py``, the
+   ``Trainer`` over a mesh); its ranks are processes of this script
+   (``--dist-rank``) and the parent holds their results: (a) RawFormer-S
+   (bf16 compute) at global batch 8 @ 512x512 from compact uint16 batches
+   over every card, at most 4 (NCCL; with one card its one rank is this
+   process, in a one-rank group), data-parallel through the kernels
+   (K2 / K3 / B1 / B2 7 times and the weight-grad pass 6 times in the
+   step); with one card the params after two steps equal one process's
+   bitwise (cuDNN deterministic in that rank), with more they are held by
+   phase 4b's rule; (b) two ranks sharing the one card over gloo with CUDA
+   tensors (data=2): RawFormer-S at global batch 8 @ 512x512 through the
+   kernels, the first loss and every first-step grad leaf against one
+   process by the floor of phase 4b's yardstick, the two ranks' averaged
+   grads bitwise equal; WFB-48 at global batch 4 @ 256x256 in fp32 compute
+   (S1 with states and S2 7 times): the BatchNorm running statistics
+   (global) and the params after two steps (the first at lr 0) against one
+   process (DDP_BN_TOL, TRAIN_PARAM_ATOL; grads by phase 6c's fp32 rule);
+   (c) tensor parallelism over gloo on the card, tensor=2 (the same two
+   ranks) then data=2 x tensor=2 (four ranks), RawFormer-S in fp32 compute
+   at batch 4 @ 256x256: the forward and two steps against the unsharded
+   module path (TP_*; the sharded blocks take the module path, so no hand
+   kernel launches), the gathered checkpoint the single-device state; (d)
+   the train CLI with ``--num_chips <cards>`` for one synthetic epoch, then
+   ``--resume``. The DDP and mesh step times are printed beside one
+   process's, with the gradient all-reduce's share. Gloo runs on one card
+   because the machine the script is held on has one card, and gloo is
+   the backend that lets several ranks share one; the code is the code
+   that runs on NCCL across cards, and its times on one card are labelled
+   as not a multi-GPU figure.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -1847,10 +1876,473 @@ def export_phase(dev, card) -> dict:
     return launches
 
 
+# Phase 15 (multi-GPU training): its ranks are processes of this script,
+# `python3 chip_smoke.py --dist-rank <job dir> <task> <rendezvous>`, started
+# with torchrun's rank variables by core.mesh.run_ranks; each writes its
+# result to <job dir>/<task>.rank<r>.pt and the parent holds them.
+# Tolerances of phase 15, stated before the run:
+# (b) WFB-48 in fp32 compute, two ranks against one process (the same
+# function, sums taken in another order): the first loss within
+# FP32_LOSS_RTOL, the BatchNorm running statistics after each step within
+# DDP_BN_TOL of their max, the first-step grads by phase 6c's fp32 rule
+# (max(3 x the nudged twin's change, WFB_GRAD_FLOOR)), the params after the
+# second step (the first at a nonzero lr) within TRAIN_PARAM_ATOL.
+# (c) tensor parallelism in fp32 compute against the unsharded module path:
+# the forward's RGB within TP_FWD_ATOL, the losses within FP32_LOSS_RTOL
+# (and atol 1e-6), the params after two steps within rtol TP_PARAM_RTOL /
+# atol TP_PARAM_ATOL (tests/test_tensor_parallel.py's bars).
+FP32_LOSS_RTOL, DDP_BN_TOL = 1e-5, 1e-4
+TP_FWD_ATOL, TP_PARAM_RTOL, TP_PARAM_ATOL = 1e-4, 1e-4, 1e-5
+DIST_TIMEOUT = 300  # seconds for the ranks of one task
+
+
+def dist_models(dev, dtype):
+    """-> make(name, state): the registry model ``name`` on ``dev`` computing
+    in ``dtype``, holding ``state``."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+
+    def make(name, state):
+        model = get_model(name, device=dev, dtype=dtype)
+        model.load_state_dict(state)
+        return model
+
+    return make
+
+
+def _cpu(tensors: dict) -> dict:
+    return {k: v.detach().float().cpu().clone() for k, v in tensors.items()}
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().float().cpu().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _step_ms(step, n: int = 3) -> float:
+    """Median host ms of n synchronised calls of step() (after one)."""
+    step()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _allreduce_ms(model, group, dev) -> float:
+    """Median ms of one all-reduce of a flat fp32 tensor of the model's
+    gradient size over ``group`` (what DDP's buckets move a step)."""
+    import torch.distributed as dist
+
+    flat = torch.zeros(sum(p.numel() for p in model.parameters() if p.requires_grad),
+                       device=dev)
+    return _step_ms(lambda: dist.all_reduce(flat, group=group))
+
+
+def dist_task_nccl(job: dict, dev) -> dict:
+    """(a): RawFormer-S at global batch 8 @ 512^2 from compact uint16
+    batches through the kernels, over every rank (NCCL, one card each):
+    rank 0 also runs one process's Trainer on the whole batches. cuDNN is
+    deterministic here so that one rank can equal one process bitwise."""
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+    from bayer_low_light_image_enhancement_tpu_torch.data.pipeline import to_device
+    from bayer_low_light_image_enhancement_tpu_torch.train import Trainer
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    make = dist_models(dev, torch.bfloat16)
+    batches = [tuple(to_device(a, dev) for a in b) for b in job["batches"]]
+    out = {"world": meshlib.world_size()}
+    if meshlib.rank() == 0:
+        single = Trainer(make("rawformer_s", job["state"]), job["cfg"])
+        single.train_step(batches[0])
+        out["single_grads"] = _grads(single.model)
+        single.train_step(batches[1])
+        out["single"] = _cpu(single.model.state_dict())
+        out["single_ms"] = _step_ms(lambda: single.train_step(batches[0]))
+        del single
+    mesh = meshlib.create_mesh(data=meshlib.world_size())
+    tr = Trainer(make("rawformer_s", job["state"]), job["cfg"], mesh=mesh)
+    local = [tr.shard_batch(b) for b in batches]
+    loss, out["launches"] = counted(job["counters"], lambda: float(tr.train_step(local[0])))
+    out["grads"] = _grads(tr.model)
+    out["losses"] = [loss, float(tr.train_step(local[1]))]
+    out["mesh"] = _cpu(tr.model.state_dict())
+    out["mesh_ms"] = _step_ms(lambda: tr.train_step(local[0]))
+    if tr.data_group is not None:
+        out["allreduce_ms"] = _allreduce_ms(tr.model, tr.data_group, dev)
+    return out
+
+
+def _tp_run(job: dict, dev, mesh) -> dict:
+    """(c): RawFormer-S in fp32 compute sharded over ``mesh``: its forward
+    on the first batch and two steps; the gathered checkpoint state."""
+    from bayer_low_light_image_enhancement_tpu_torch.train import Trainer
+
+    make = dist_models(dev, torch.float32)
+    tr = Trainer(make("rawformer_s", job["tp_state"]), job["tp_cfg"], mesh=mesh)
+    batches = [tuple(t.to(dev) for t in b) for b in job["tp_batches"]]
+    tr.model.eval()
+    with torch.no_grad():
+        fwd = tr.model(batches[0][0].permute(0, 3, 1, 2)).permute(0, 2, 3, 1).cpu()
+    losses, launches = counted(job["counters"], lambda: [
+        float(tr.train_step(tr.shard_batch(b))) for b in batches])
+    return {"forward": fwd, "losses": losses, "launches": launches,
+            "state": _cpu(tr.state_dict()["model"]), "replicated": tr.layout.replicated}
+
+
+def dist_task_gloo2(job: dict, dev) -> dict:
+    """(b) and the first half of (c), two ranks sharing the one card over
+    gloo: RawFormer-S data=2 through the kernels, WFB-48 data=2 in fp32
+    compute, RawFormer-S tensor=2 in fp32 compute."""
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+    from bayer_low_light_image_enhancement_tpu_torch.data.pipeline import to_device
+    from bayer_low_light_image_enhancement_tpu_torch.train import Trainer
+
+    out, t0 = {"seconds": {}}, time.perf_counter()
+    data2 = meshlib.create_mesh(data=2)
+    tr = Trainer(dist_models(dev, torch.bfloat16)("rawformer_s", job["state"]), job["cfg"],
+                 mesh=data2)
+    local = tr.shard_batch(tuple(to_device(a, dev) for a in job["batches"][0]))
+    out["loss"], out["launches"] = counted(job["counters"], lambda: float(tr.train_step(local)))
+    out["grads"] = _grads(tr.model)
+    out["ddp_ms"] = _step_ms(lambda: tr.train_step(local))
+    out["allreduce_ms"] = _allreduce_ms(tr.model, tr.data_group, dev)
+    del tr, local
+    out["seconds"]["rawformer"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    wtr = Trainer(dist_models(dev, torch.float32)("rawformer_wfb", job["wfb_state"]),
+                  job["cfg"], mesh=data2)
+    wlocal = wtr.shard_batch(tuple(t.to(dev) for t in job["wfb_batch"]))
+    wloss, out["wfb_launches"] = counted(job["counters"],
+                                         lambda: float(wtr.train_step(wlocal)))
+    out["wfb_losses"] = [wloss]
+    out["wfb_grads"] = _grads(wtr.model)
+    out["wfb_states"] = [_cpu(wtr.model.state_dict())]
+    out["wfb_losses"].append(float(wtr.train_step(wlocal)))
+    out["wfb_states"].append(_cpu(wtr.model.state_dict()))
+    del wtr, wlocal
+    out["seconds"]["wfb"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["tp"] = _tp_run(job, dev, meshlib.create_mesh(data=1, tensor=2))
+    out["seconds"]["tp"] = time.perf_counter() - t0
+    return out
+
+
+def dist_task_gloo4(job: dict, dev) -> dict:
+    """The second half of (c): data=2 x tensor=2, four ranks on the card."""
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+
+    return {"tp": _tp_run(job, dev, meshlib.create_mesh(data=2, tensor=2))}
+
+
+DIST_TASKS = {"nccl": dist_task_nccl, "gloo2": dist_task_gloo2, "gloo4": dist_task_gloo4}
+
+
+def dist_rank_main(jobdir: str, task: str, rendezvous: str) -> int:
+    """One rank of a phase-15 task (see DIST_TASKS)."""
+    import torch.distributed as dist
+
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import (
+        bayer_pack, fused_block, fused_block_bwd, ssm_scan, weight_grad)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = meshlib.initialize_multihost(rendezvous, device_type="cuda")
+    try:
+        job = torch.load(f"{jobdir}/job.pt", weights_only=False)
+        job["counters"] = (bayer_pack.bayer_pack_normalize, fused_block.gram_pass,
+                           fused_block.apply_pass, fused_block.apply_pass_pipelined,
+                           weight_grad.weight_grad, fused_block_bwd.bwd1, fused_block_bwd.bwd2,
+                           ssm_scan.selective_scan_fwd, ssm_scan.selective_scan_bwd)
+        out = DIST_TASKS[task](job, dev)
+        out["backend"] = dist.get_backend()
+        torch.save(out, f"{jobdir}/{task}.rank{meshlib.rank()}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_dist_task(jobdir: str, task: str, world: int, one_card: bool = False) -> list:
+    """Start ``world`` ranks of ``task`` on one rendezvous file (all on the
+    first visible card when ``one_card``, which makes them gloo ranks); ->
+    their results (raises when a rank fails)."""
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+
+    env = {}
+    if one_card:
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    t0 = time.perf_counter()
+    meshlib.run_ranks([sys.executable, os.path.abspath(__file__), "--dist-rank", jobdir, task,
+                       f"file://{jobdir}/{task}.rdzv"], world, env=env, timeout=DIST_TIMEOUT)
+    log(f"phase 15 {task}: {world} rank(s) in {time.perf_counter() - t0:.1f} s")
+    return [torch.load(f"{jobdir}/{task}.rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def nccl_in_process(jobdir: str, job: dict, dev) -> dict:
+    """(a) with one card: its one rank is this process, in a one-rank NCCL
+    group, torn down after (cuDNN's flags restored)."""
+    import torch.distributed as dist
+
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+
+    t0 = time.perf_counter()
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    meshlib.initialize_multihost(f"file://{jobdir}/nccl.rdzv", 1, 0)
+    try:
+        out = dist_task_nccl(job, dev)
+        out["backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    log(f"phase 15 nccl: 1 rank (this process) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Each leaf's max abs error relative to ``want``'s leaf max."""
+    return {n: ((got[n] - w).abs().max() / (w.abs().max() + 1e-12)).item()
+            for n, w in want.items()}
+
+
+def hold_tp(what: str, got: dict, ref: dict) -> None:
+    """(c): a tensor-parallel run against the unsharded module path."""
+    e_fwd = (got["forward"] - ref["forward"]).abs().max().item()
+    dl = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+    bad = [n for n, w in ref["state"].items()
+           if not torch.allclose(got["state"][n], w, rtol=TP_PARAM_RTOL, atol=TP_PARAM_ATOL)]
+    dp = max((got["state"][n] - w).abs().max().item() for n, w in ref["state"].items())
+    log(f"{what}: forward max abs err {e_fwd:.3e} (tol {TP_FWD_ATOL}); losses {got['losses']} "
+        f"vs {ref['losses']} (rel err {dl:.3e}, tol {FP32_LOSS_RTOL}); params after 2 steps "
+        f"max abs diff {dp:.3e}, {len(bad)} leaves outside rtol {TP_PARAM_RTOL} / atol "
+        f"{TP_PARAM_ATOL}; blocks kept replicated {got['replicated']}; launches "
+        f"{got['launches']}")
+    check(e_fwd <= TP_FWD_ATOL, f"{what}: the forward disagrees with the unsharded module path")
+    check(dl <= FP32_LOSS_RTOL, f"{what}: the losses disagree with the unsharded module path")
+    check(not bad, f"{what}: params after two steps disagree: {bad[:5]}")
+    check(sorted(got["state"]) == sorted(ref["state"])
+          and all(got["state"][n].shape == w.shape for n, w in ref["state"].items()),
+          f"{what}: the gathered checkpoint is not the single-device state")
+    check(got["replicated"] == [], f"{what}: a RawFormer-S block stayed replicated")
+    no_kernel(got["launches"], f"{what} (sharded blocks take the module path)")
+
+
+def phase15_job(dev, train_cfg) -> dict:
+    """The inputs every rank of phase 15 loads: compact uint16 batches (8 @
+    512^2), fp32 float batches, RawFormer-S / WFB-48 weights from seed 0."""
+    from bayer_low_light_image_enhancement_tpu_torch.data import SyntheticBayerDataset, native
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+
+    g = torch.Generator().manual_seed(15)
+    ds = SyntheticBayerDataset(num_images=8, full_size=(576, 576), patch_size=512, training=True)
+    sampler = native.sampler_for_dataset(ds, seed=15, compact=True)
+    check(sampler is not None, f"phase 15: the native batch engine is unavailable "
+          f"({native._build_error})")
+    compact = [sampler.sample_batch(list(range(8)), e) for e in range(2)]  # 8 @ 512^2, uint16
+
+    def state_of(name, dtype):
+        m = get_model(name, device=dev, generator=torch.Generator().manual_seed(0), dtype=dtype)
+        return {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+
+    def floats(b, size):
+        return (torch.rand((b, size, size, 1), generator=g) * 2.0,
+                torch.rand((b, size, size, 3), generator=g))
+
+    tp_cfg = dataclasses.replace(train_cfg, fused_blocks=False)
+    job = {"cfg": train_cfg, "tp_cfg": tp_cfg, "batches": compact,
+           "state": state_of("rawformer_s", torch.bfloat16),
+           "wfb_state": state_of("rawformer_wfb", torch.float32), "wfb_batch": floats(4, 256),
+           "tp_state": state_of("rawformer_s", torch.float32),
+           "tp_batches": [floats(4, 256), floats(4, 256)]}
+    return job
+
+
+def phase15_references(job, dev) -> dict:
+    """One process's runs on the card that (b) and (c) are held to."""
+    from bayer_low_light_image_enhancement_tpu_torch.data.pipeline import to_device
+    from bayer_low_light_image_enhancement_tpu_torch.train import Trainer
+
+    train_cfg, tp_cfg, compact = job["cfg"], job["tp_cfg"], job["batches"]
+    make16, make32 = dist_models(dev, torch.bfloat16), dist_models(dev, torch.float32)
+    single = Trainer(make16("rawformer_s", job["state"]), train_cfg)
+    full = tuple(to_device(a, dev) for a in compact[0])
+    ref_loss = float(single.train_step(full))
+    ref_grads = _grads(single.model)
+    single_ms = _step_ms(lambda: single.train_step(full))
+    del single
+    wfb_batch = tuple(t.to(dev) for t in job["wfb_batch"])
+    wfb_ref = Trainer(make32("rawformer_wfb", job["wfb_state"]), train_cfg)
+    wfb_losses = [float(wfb_ref.train_step(wfb_batch))]
+    wfb_grads, wfb_states = _grads(wfb_ref.model), [_cpu(wfb_ref.model.state_dict())]
+    wfb_losses.append(float(wfb_ref.train_step(wfb_batch)))
+    wfb_states.append(_cpu(wfb_ref.model.state_dict()))
+    nudged = Trainer(make32("rawformer_wfb", job["wfb_state"]), tp_cfg)
+    nudged.train_step((wfb_batch[0] * (1.0 + 2.0 ** -9), wfb_batch[1]))
+    wfb_twin = Trainer(make32("rawformer_wfb", job["wfb_state"]), tp_cfg)
+    wfb_twin.train_step(wfb_batch)
+    wfb_yard = leaf_errors(_grads(nudged.model), _grads(wfb_twin.model))
+    del wfb_ref, nudged, wfb_twin
+    tp_ref_tr = Trainer(make32("rawformer_s", job["tp_state"]), tp_cfg)
+    tp_batches = [tuple(t.to(dev) for t in b) for b in job["tp_batches"]]
+    tp_ref_tr.model.eval()
+    with torch.no_grad():
+        tp_fwd = tp_ref_tr.model(tp_batches[0][0].permute(0, 3, 1, 2)).permute(0, 2, 3, 1).cpu()
+    tp_ref = {"forward": tp_fwd, "losses": [float(tp_ref_tr.train_step(b)) for b in tp_batches],
+              "state": _cpu(tp_ref_tr.model.state_dict())}
+    del tp_ref_tr
+    torch.cuda.empty_cache()
+    return {"ref_loss": ref_loss, "ref_grads": ref_grads, "single_ms": single_ms,
+            "wfb_losses": wfb_losses, "wfb_grads": wfb_grads, "wfb_states": wfb_states,
+            "wfb_yard": wfb_yard, "tp": tp_ref}
+
+
+def phase15_a(jobdir, job, dev, card, counters) -> None:
+    """(a): data parallelism over every card (at most 4) on NCCL."""
+    cards = torch.cuda.device_count()
+    world = max(1, min(cards, 4))
+    res = (run_dist_task(jobdir, "nccl", world) if world > 1
+           else [nccl_in_process(jobdir, dict(job, counters=counters), dev)])
+    r0 = res[0]
+    check(all(r["backend"] == "nccl" for r in res), "(a) did not run on NCCL")
+    la = r0["launches"]
+    log(f"(a) RawFormer-S data={world} (NCCL), global batch 8 @ 512^2 compact uint16: losses "
+        f"{r0['losses']}; first-step launches {la}")
+    for name in ("gram_pass", "apply_pass", "bwd1", "bwd2"):
+        check(la[name] == 7, f"(a) {name} did not run 7 times in the data-parallel step")
+    check(la["weight_grad"] == 6, "(a) the weight-grad pass did not run 6 times")
+    for r in res[1:]:
+        check(all(torch.equal(r["mesh"][k], v) for k, v in r0["mesh"].items()),
+              "(a) the ranks' params differ")
+    if world == 1:
+        same = [k for k, v in r0["single"].items() if not torch.equal(r0["mesh"][k], v)]
+        log(f"(a) one rank against one process after 2 steps: {len(r0['single']) - len(same)}"
+            f" of {len(r0['single'])} leaves bitwise equal")
+        check(not same, f"(a) one rank is not bitwise one process: {same[:5]}")
+    else:
+        err = leaf_errors(r0["grads"], r0["single_grads"])
+        dp = max((r0["mesh"][k] - v).abs().max().item() for k, v in r0["single"].items())
+        log(f"(a) {world} ranks against one process: first-step grads worst "
+            f"{max(err.values()):.3e} (floor {TRAIN_GRAD_FLOOR}), median "
+            f"{np.median(list(err.values())):.3e}; params after 2 steps {dp:.3e} (tol "
+            f"{TRAIN_PARAM_ATOL})")
+        check(max(err.values()) <= TRAIN_GRAD_FLOOR and dp <= TRAIN_PARAM_ATOL,
+              "(a) the data-parallel step disagrees with one process")
+    share = (f", all-reduce of the grads {r0['allreduce_ms']:.3f} ms "
+             f"({r0['allreduce_ms'] / r0['mesh_ms']:.1%} of the step)"
+             if "allreduce_ms" in r0 else " (one rank: no gradient all-reduce)")
+    log(f"(a) train step at global batch 8 @ 512^2: data={world} mesh path "
+        f"{r0['mesh_ms']:.2f} ms, one process {r0['single_ms']:.2f} ms{share} ({card})")
+
+
+def phase15_bc(jobdir, refs, card) -> None:
+    """(b) and (c): gloo ranks sharing the one card."""
+    ref_loss, ref_grads, single_ms = refs["ref_loss"], refs["ref_grads"], refs["single_ms"]
+    wfb_losses, wfb_grads, wfb_states = refs["wfb_losses"], refs["wfb_grads"], refs["wfb_states"]
+    wfb_yard, tp_ref = refs["wfb_yard"], refs["tp"]
+    res = run_dist_task(jobdir, "gloo2", 2, one_card=True)
+    r0, r1 = res
+    check(all(r["backend"] == "gloo" for r in res), "(b) did not run on gloo")
+    lb = r0["launches"]
+    for name in ("gram_pass", "apply_pass", "bwd1", "bwd2"):
+        check(lb[name] == 7, f"(b) {name} did not run 7 times in the DDP step")
+    check(lb["weight_grad"] == 6, "(b) the weight-grad pass did not run 6 times")
+    check(all(torch.equal(r1["grads"][k], v) for k, v in r0["grads"].items()),
+          "(b) the two ranks' averaged grads differ")
+    err = leaf_errors(r0["grads"], ref_grads)
+    median = float(np.median(list(err.values())))
+    dl = abs(r0["loss"] - ref_loss) / abs(ref_loss)
+    worst = max(err, key=err.get)
+    log(f"(b) RawFormer-S data=2 (gloo, one card), global batch 8 @ 512^2: first loss "
+        f"{r0['loss']} vs one process {ref_loss} (rel err {dl:.3e}, tol {TRAIN_LOSS_RTOL}); "
+        f"first-step grads of the leaf max: worst {worst} {err[worst]:.3e} (phase 4b's floor "
+        f"{TRAIN_GRAD_FLOOR}), median {median:.3e} (tol {TRAIN_GRAD_MEDIAN_TOL}); launches "
+        f"{lb}")
+    check(dl <= TRAIN_LOSS_RTOL, "(b) the DDP loss disagrees with one process")
+    check(err[worst] <= TRAIN_GRAD_FLOOR and median <= TRAIN_GRAD_MEDIAN_TOL,
+          "(b) the DDP grads disagree with one process")
+    log(f"(b) DDP step, 2 ranks sharing the card over gloo (not a multi-GPU figure): "
+        f"{r0['ddp_ms']:.2f} ms at 4 rows a rank, one process {single_ms:.2f} ms at 8 rows; "
+        f"gloo all-reduce of the grads {r0['allreduce_ms']:.2f} ms "
+        f"({r0['allreduce_ms'] / r0['ddp_ms']:.1%} of the step) ({card}); rank 0's seconds "
+        f"{ {k: round(v, 1) for k, v in r0['seconds'].items()} }")
+
+    lw = r0["wfb_launches"]
+    check(lw["selective_scan_fwd"] == lw["selective_scan_bwd"] == 7,
+          "(b) S1 with states and S2 did not run 7 times in the WFB DDP step")
+    werr = leaf_errors(r0["wfb_grads"], wfb_grads)
+    allowed = {n: max(3 * wfb_yard[n], WFB_GRAD_FLOOR) for n in werr}
+    wbad = [n for n in werr if werr[n] > allowed[n]]
+    dlw = abs(r0["wfb_losses"][0] - wfb_losses[0]) / abs(wfb_losses[0])
+    dbn = max(((r[1][n] - w).abs().max() / w.abs().max()).item()
+              for r in zip(wfb_states, r0["wfb_states"]) for n, w in r[0].items()
+              if "running" in n)
+    dpw = max((r0["wfb_states"][1][n] - wfb_states[1][n]).abs().max().item()
+              for n in r0["wfb_grads"])
+    log(f"(b) WFB-48 data=2 in fp32 compute, global batch 4 @ 256^2: losses "
+        f"{r0['wfb_losses']} vs {wfb_losses} (first rel err {dlw:.3e}, tol {FP32_LOSS_RTOL});"
+        f" BN running stats after steps 1-2 {dbn:.3e} of their max (tol {DDP_BN_TOL}); "
+        f"first-step grads worst {max(werr.values()):.3e}, {len(wbad)} leaves beyond max(3 x "
+        f"nudged, {WFB_GRAD_FLOOR}); params after 2 steps {dpw:.3e} (tol {TRAIN_PARAM_ATOL}); "
+        f"launches {lw}")
+    check(dlw <= FP32_LOSS_RTOL, "(b) the WFB DDP loss disagrees with one process")
+    check(dbn <= DDP_BN_TOL, "(b) the WFB BatchNorm statistics are not the global batch's")
+    check(not wbad, f"(b) WFB DDP grads disagree with one process: {wbad[:5]}")
+    check(dpw <= TRAIN_PARAM_ATOL, "(b) WFB params after 2 steps disagree")
+    for i, r in enumerate(res):
+        hold_tp(f"(c) RawFormer-S tensor=2 rank {i}", r["tp"], tp_ref)
+
+    # (c) data=2 x tensor=2: four ranks on the card.
+    res = run_dist_task(jobdir, "gloo4", 4, one_card=True)
+    for i, r in enumerate(res):
+        hold_tp(f"(c) RawFormer-S data=2 x tensor=2 rank {i}", r["tp"], tp_ref)
+
+
+def phase15_d(jobdir, card) -> None:
+    """(d): the train CLI over every card for one synthetic epoch, then
+    ``--resume``."""
+    from bayer_low_light_image_enhancement_tpu_torch.cli import train_cli
+
+    cards = torch.cuda.device_count()
+    argv = ["--dataset", "synthetic", "--patch_size", "128", "--batch_size", "8",
+            "--num_chips", str(cards), "--save_dir", jobdir, "--loader", "native"]
+    t0 = time.perf_counter()
+    train_cli.main(argv + ["--epochs", "1"])
+    train_cli.main(argv + ["--epochs", "2", "--resume"])
+    log_txt = open(f"{jobdir}/synthetic/log.txt").read()
+    steps = sorted(int(f[:-3]) for f in os.listdir(f"{jobdir}/synthetic/weights")
+                   if f.endswith(".pt"))
+    state = torch.load(f"{jobdir}/synthetic/weights/2.pt", weights_only=False)["state"]
+    log(f"(d) train CLI --num_chips {cards}: one epoch, then --resume to epoch 2 in "
+        f"{time.perf_counter() - t0:.1f} s; checkpoints {steps}, {state['trainer']['applied']}"
+        f" updates applied")
+    check(steps == [0, 1, 2] and log_txt.count("Training start time") == 2
+          and "Epoch 2/2" in log_txt and state["trainer"]["step"] == 3 * 2,
+          "(d) the train CLI did not resume from its checkpoint")
+
+
+def dist_phase(dev, card, counters, train_cfg) -> None:
+    """Phase 15: multi-GPU training (see the module doc)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    job = phase15_job(dev, train_cfg)
+    refs = phase15_references(job, dev)
+    log(f"phase 15 references on one process: {time.perf_counter() - t_phase:.1f} s")
+    with tempfile.TemporaryDirectory() as jobdir:
+        torch.save(job, f"{jobdir}/job.pt")
+        phase15_a(jobdir, job, dev, card, counters)
+        phase15_bc(jobdir, refs, card)
+        phase15_d(jobdir, card)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return dist_rank_main(*sys.argv[2:5])
     from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
     from bayer_low_light_image_enhancement_tpu_torch.kernels import bayer_pack as bp
     from bayer_low_light_image_enhancement_tpu_torch.data import (
@@ -2753,6 +3245,10 @@ def main() -> int:
     export_launches = export_phase(dev, card)
     log("phase 14 launches per artifact forward in a fresh process: "
         + json.dumps(export_launches))
+
+    # 15. multi-GPU training ------------------------------------------------------
+    torch.cuda.empty_cache()
+    dist_phase(dev, card, counters, train_cfg)
 
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),

@@ -261,7 +261,7 @@ def test_train_cli_synthetic_and_resume(tmp_path, capsys):
     assert "resumed from epoch 1" in out and "epoch 2/2" in out and "epoch 1/2" not in out
     assert (weights / "2.pt").exists()
     for bad, why in ((["--dataset", "SID", "--data_root", str(tmp_path)], "no SID train pairs"),
-                     (["--num_chips", "2"], "later slice")):
+                     (["--num_chips", "2", "--device", "cuda"], "needs 2 devices, have 0")):
         with pytest.raises(SystemExit, match=why):
             train_cli.main(argv + bad)
 
