@@ -6,6 +6,7 @@
     ... --pth RawFormer_S_SID.pth       # a reference checkpoint instead
     ... --model flca_rawformer          # another family of the registry
     ... --device cpu                    # no card
+    ... --spatial_chips 4 [--spatial_w_chips 2]   # one frame over N x M ranks
 
 Port of ``bayer_low_light_image_enhancement_tpu/cli/test_cli.py`` (the
 reference's ``test.py``), with its flags and ``--device``: full-resolution
@@ -23,19 +24,38 @@ as the JAX CLI does off the TPU. ``--ckpt`` reads the port's own
 checkpoints (``train.checkpoint.CheckpointManager``); an orbax directory
 of the JAX package needs JAX to read, so it exits with a message naming
 ``tools/orbax_to_torch.py``, which converts one.
+
+``--spatial_chips N --spatial_w_chips M`` evaluate each frame tiled over a
+(1, N, M, 1) mesh (``parallel/tiled.py``): the CLI starts N x M ranks of
+itself (one card each on NCCL; gloo processes with ``--device cpu``), or
+runs as the rank ``torchrun`` made. Every rank reads the frame, runs its
+block, and receives the whole RGB; rank 0 prints the metrics and writes the
+CSV and the JPEGs. Frames are padded to ``max(pad_to, h_mult * N, 16 *
+M)``, h_mult 32 for RawFormer-WFB and 16 otherwise. RawFormer S/B/L shard
+by H and by H x W, RawFormer-WFB by H only; the other families exit, as
+the JAX CLI does.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from bayer_low_light_image_enhancement_tpu_torch.cli.train_cli import build_model, build_split
+from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
 from bayer_low_light_image_enhancement_tpu_torch.models.common import set_fused_blocks
+from bayer_low_light_image_enhancement_tpu_torch.parallel.tiled import (
+    make_tiled_forward,
+    shard_image,
+)
 from bayer_low_light_image_enhancement_tpu_torch.serving.predictor import Predictor
 from bayer_low_light_image_enhancement_tpu_torch.train.checkpoint import CheckpointManager
 from bayer_low_light_image_enhancement_tpu_torch.train.metrics import psnr, ssim
@@ -86,22 +106,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ship fp32 frames instead of the uint16 / uint8 codes decoded on the "
                    "device (the compact path runs on the card only)")
     p.add_argument("--spatial_chips", type=int, default=1,
-                   help="shard frames over N devices along H (1 here)")
+                   help="shard full-resolution frames over N ranks along H (halo-exchange "
+                   "tiling; 1 = monolithic)")
     p.add_argument("--spatial_w_chips", type=int, default=1,
-                   help="shard frames over M devices along W (1 here)")
+                   help="additionally shard frames along W over M ranks (2D spatial mesh of "
+                   "spatial_chips x spatial_w_chips; RawFormer S/B/L, not WFB, whose "
+                   "raster-order SSM shards along H only)")
     p.add_argument("--no_fused", action="store_true",
                    help="run TransformerBlocks through the module path and Mamba scans "
                    "through the twin instead of the kernels")
+    # The rendezvous of the ranks this CLI starts itself (torchrun's: env://),
+    # and where rank 0 writes its results for the launcher.
+    p.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--result_file", default=None, help=argparse.SUPPRESS)
     return p
 
 
-def load_predictor(args, model, device) -> Predictor:
+def load_predictor(args, model, device, show=print) -> Predictor:
     """A Predictor of ``model`` with the weights ``--pth`` / ``--ckpt`` name
     (the seeded random init when neither is given)."""
     kw = dict(device=device, pad_to=args.pad_to)
     if args.pth:
         pred = Predictor.from_torch(model, args.pth, **kw)
-        print(f"imported torch checkpoint {args.pth}")
+        show(f"imported torch checkpoint {args.pth}")
         return pred
     if args.ckpt:
         if not os.path.isdir(args.ckpt):
@@ -116,31 +143,125 @@ def load_predictor(args, model, device) -> Predictor:
                     "[--model NAME | --model_size S]` and pass --ckpt <dir>")
             raise SystemExit(f"no checkpoint found in {args.ckpt}")
         pred = Predictor(model, state["trainer"]["model"], **kw)
-        print(f"restored checkpoint step {step}")
+        show(f"restored checkpoint step {step}")
         return pred
     return Predictor(model, **kw)
 
 
+MODULE = "bayer_low_light_image_enhancement_tpu_torch.cli.test_cli"
+
+
+class TiledFrames(nn.Module):
+    """A tiled forward (``parallel/tiled.py``) as a model of whole frames:
+    [B, 1, H, W] in, this rank's block through the tiled forward, the whole
+    [B, 3, H, W] RGB out, so that ``Predictor`` pads, decodes and crops as
+    for one device."""
+
+    def __init__(self, tiled, mesh, w_axis):
+        super().__init__()
+        self.tiled, self.mesh, self.w_axis = tiled, mesh, w_axis
+        self.config = tiled.config
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        local = shard_image(x.permute(0, 2, 3, 1), self.mesh, meshlib.AXES.spatial, self.w_axis)
+        return self.tiled(local.contiguous()).permute(0, 3, 1, 2)
+
+
+def spatial_layout(args):
+    """The spatial mesh axis names of ``--spatial_chips`` / ``--spatial_w_chips``
+    -> (model spatial_axis, W axis or None), or (None, None) for one rank;
+    exits with the JAX CLI's messages for a bad count and for WFB over W."""
+    n, m = args.spatial_chips, args.spatial_w_chips
+    if n < 1 or m < 1:
+        raise SystemExit(f"--spatial_chips {n} --spatial_w_chips {m}: want counts >= 1")
+    if n * m == 1:
+        return None, None
+    if m > 1 and args.model == "rawformer_wfb":
+        raise SystemExit("--spatial_w_chips: rawformer_wfb is H-shardable only (its selective "
+                         "scan needs raster-contiguous tokens); use --spatial_chips")
+    axes = meshlib.AXES
+    if m > 1:
+        return (axes.spatial, axes.spatial_w), axes.spatial_w
+    return axes.spatial, None
+
+
+def launch_ranks(argv, world: int) -> dict:
+    """Start ``world`` ranks of this CLI (torchrun's rank variables, a file
+    rendezvous in a temporary directory), wait for them and return rank 0's
+    results; exits with a message when one fails."""
+    with tempfile.TemporaryDirectory() as tmp:
+        result = f"{tmp}/result.json"
+        cmd = [sys.executable, "-m", MODULE, *argv, "--rendezvous", f"file://{tmp}/rendezvous",
+               "--result_file", result]
+        try:
+            meshlib.run_ranks(cmd, world)
+        except RuntimeError as e:
+            raise SystemExit(f"evaluation over {world} ranks failed: {e}") from None
+        with open(result) as f:
+            return json.load(f)
+
+
 def main(argv=None):
     """Evaluate; returns the per-image ``psnr``, ``ssim`` and host-clock
-    ``seconds`` (sample, forward, metrics), and the ``pad_to`` used."""
+    ``seconds`` (sample, forward, metrics), and the ``pad_to`` used (rank
+    0's, from the ranks this CLI starts for a spatial mesh)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.spatial_chips > 1 or args.spatial_w_chips > 1:
-        raise SystemExit("--spatial_chips / --spatial_w_chips: the port evaluates on one "
-                         "device; spatial sharding over several GPUs is a later slice")
+    spatial_axis, w_axis = spatial_layout(args)
+    world = args.spatial_chips * args.spatial_w_chips
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available; pass --device cpu to "
                          "evaluate on the CPU")
-    device = torch.device(args.device)
+    try:
+        model = build_model(args, "cpu", seed=0, spatial_axis=spatial_axis)
+    except TypeError:
+        raise SystemExit(f"--spatial_chips: model {args.model!r} does not support "
+                         "spatially sharded inference (no spatial_axis in its config)") from None
+    launched = "WORLD_SIZE" in os.environ
+    if launched and world != int(os.environ["WORLD_SIZE"]):
+        raise SystemExit(f"--spatial_chips {args.spatial_chips} x --spatial_w_chips "
+                         f"{args.spatial_w_chips} = {world} ranks, but "
+                         f"{os.environ['WORLD_SIZE']} were started")
+    if world > 1 and not launched:
+        if args.device == "cuda":
+            try:
+                meshlib.mesh_shape(torch.cuda.device_count(), data=1, spatial=args.spatial_chips,
+                                   spatial_w=args.spatial_w_chips)
+            except ValueError as e:
+                raise SystemExit(f"--spatial_chips {args.spatial_chips} --spatial_w_chips "
+                                 f"{args.spatial_w_chips}: {e}") from None
+        return launch_ranks(argv, world)
+    mesh, device = None, torch.device(args.device)
+    if world > 1:
+        device = meshlib.initialize_multihost(args.rendezvous, device_type=args.device)
+        mesh = meshlib.create_mesh(data=1, spatial=args.spatial_chips,
+                                   spatial_w=args.spatial_w_chips)
+    try:
+        return evaluate(args, model, device, mesh, w_axis)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def evaluate(args, model, device, mesh, w_axis) -> dict:
+    """The evaluation loop on this rank (the whole run without a mesh)."""
+    show = print if meshlib.rank() == 0 else (lambda *a, **k: None)
     val_ds = build_split(args, training=False)
-    model = build_model(args, "cpu", seed=0)
     if args.no_fused:
         set_fused_blocks(model, False)
+    if mesh is not None:
+        # WFB halves each stage again through its in-stage Haar DWT, so its
+        # per-shard H must be a multiple of 32 (16 for the rest).
+        h_mult = 32 if args.model == "rawformer_wfb" else 16
+        args.pad_to = max(args.pad_to, h_mult * args.spatial_chips, 16 * args.spatial_w_chips)
     if args.model == "rawformer_wfb":
         # WFB needs H/W divisible by 32: space_to_depth, three downsamples
         # and the in-stage Haar DWT halving.
         args.pad_to = max(args.pad_to, 32)
-    pred = load_predictor(args, model, device)
+    pred = load_predictor(args, model, device, show)
+    if mesh is not None:
+        tiled = make_tiled_forward(pred.model, mesh, meshlib.AXES.spatial, w_axis)
+        pred = Predictor(TiledFrames(tiled, mesh, w_axis), device=device, pad_to=args.pad_to)
 
     # Compact H2D on the card: ship the integer codes and decode them there.
     compact = (not args.no_compact_h2d and device.type == "cuda"
@@ -152,11 +273,11 @@ def main(argv=None):
     save_images_dir = os.path.join(args.save_dir, args.dataset, "images")
     save_csv = os.path.join(args.save_dir, args.dataset, "csv", "test_metrics.csv")
     imageio = None
-    if args.save_images:
+    if args.save_images and meshlib.rank() == 0:
         try:
             import imageio.v2 as imageio
         except ImportError:
-            print("imageio is not installed: --save_images writes no JPEGs")
+            show("imageio is not installed: --save_images writes no JPEGs")
         else:
             os.makedirs(save_images_dir, exist_ok=True)
 
@@ -180,16 +301,21 @@ def main(argv=None):
         seconds.append(time.perf_counter() - t0)
         psnrs.append(p)
         ssims.append(s)
-        print(f"image:{idx}\tPSNR:{p:.4f}\tSSIM:{s:.4f}")
+        show(f"image:{idx}\tPSNR:{p:.4f}\tSSIM:{s:.4f}")
 
         if imageio is not None:
             imageio.imwrite(os.path.join(save_images_dir, f"{idx}_gt.jpg"), gt_u8)
             imageio.imwrite(
                 os.path.join(save_images_dir, f"{idx}_psnr_{p:.4f}_ssim_{s:.4f}.jpg"), pred_u8)
 
-    print(f"Average PSNR: {np.mean(psnrs):.4f}, Average SSIM: {np.mean(ssims):.4f}")
-    MetricsLogger().write_metrics_csv(save_csv, psnrs, ssims)
-    return {"psnr": psnrs, "ssim": ssims, "seconds": seconds, "pad_to": args.pad_to}
+    show(f"Average PSNR: {np.mean(psnrs):.4f}, Average SSIM: {np.mean(ssims):.4f}")
+    result = {"psnr": psnrs, "ssim": ssims, "seconds": seconds, "pad_to": args.pad_to}
+    if meshlib.rank() == 0:
+        MetricsLogger().write_metrics_csv(save_csv, psnrs, ssims)
+        if args.result_file:
+            with open(args.result_file, "w") as f:
+                json.dump(result, f)
+    return result
 
 
 if __name__ == "__main__":

@@ -212,12 +212,15 @@ LOADER_LABELS = {"native-compact": "native (compact 16-bit H2D)", "native": "nat
                  "python": "python"}
 
 
-def build_model(args, device, seed: int):
+def build_model(args, device, seed: int, spatial_axis=None):
     """The model ``--model`` names (through the registry), else RawFormer of
     ``--model_size``; exits with the JAX CLI's message for a raw-domain
-    (enhancement-domain) model."""
+    (enhancement-domain) model. ``spatial_axis`` (mesh axis names) builds
+    the model for spatially sharded inference; the registry raises
+    TypeError for a family without it."""
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     gen = torch.Generator().manual_seed(seed)
+    sp = {} if spatial_axis is None else {"spatial_axis": spatial_axis}
     if args.model:
         if is_raw_domain(args.model):
             raise SystemExit(
@@ -228,9 +231,9 @@ def build_model(args, device, seed: int):
                 "(Transformer_FLCA_UNet.py:265-273). Use a RAW->RGB model "
                 "or drive it via the Python API."
             )
-        return get_model(args.model, device=device, generator=gen, dtype=dtype)
-    return RawFormer(RawFormerConfig.from_size(args.model_size, dtype=dtype), device=device,
-                     generator=gen)
+        return get_model(args.model, device=device, generator=gen, dtype=dtype, **sp)
+    return RawFormer(RawFormerConfig.from_size(args.model_size, dtype=dtype, **sp),
+                     device=device, generator=gen)
 
 
 MODULE = "bayer_low_light_image_enhancement_tpu_torch.cli.train_cli"

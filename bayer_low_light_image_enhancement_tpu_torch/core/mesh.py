@@ -7,13 +7,15 @@ card (or a CPU process under gloo), the mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with the same axis names, and
 the port's modules call their collectives themselves: the gradient
 all-reduce of ``DistributedDataParallel`` over ``data``, the BatchNorm
-statistics over ``data`` (``ops/rep_conv.BatchNorm2d``) and the Megatron
-pair over ``tensor`` (``parallel/tensor.py``).
+statistics over ``data`` (``ops/rep_conv.BatchNorm2d``), the Megatron
+pair over ``tensor`` (``parallel/tensor.py``), and the halo exchanges and
+token-global sums of tiled inference over ``spatial`` / ``spatial_w``
+(``parallel/tiled.py``, ``ops/conv.py``).
 
 Axes, in mesh order (``data`` varies slowest, ``tensor`` fastest):
   * ``data``      — batch data parallelism;
-  * ``spatial``   — image-height sharding (not ported yet: 1 only);
-  * ``spatial_w`` — image-width sharding (not ported yet: 1 only);
+  * ``spatial``   — image-height sharding of full-resolution inference;
+  * ``spatial_w`` — image-width sharding (2-D spatial meshes);
   * ``tensor``    — Megatron tensor parallelism of the transformer blocks.
 
 The port's own collectives are ``all_reduce`` and ``broadcast`` only (a
@@ -28,7 +30,7 @@ import dataclasses
 import os
 import subprocess
 import time
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,10 +53,7 @@ def mesh_shape(num_devices: int, data: int = -1, spatial: int = 1, spatial_w: in
     """The (data, spatial, spatial_w, tensor) shape ``create_mesh`` lays
     over ``num_devices`` ranks, with the JAX package's rules and errors:
     ``data=-1`` takes every rank the inner axes leave; a mesh larger than
-    the ranks raises. Spatial sharding is not ported yet."""
-    if spatial != 1 or spatial_w != 1:
-        raise ValueError(f"spatial={spatial}, spatial_w={spatial_w}: spatial sharding "
-                         "(parallel/tiled.py) is not in the port yet; use 1")
+    the ranks raises."""
     inner = spatial * spatial_w * tensor
     if data == -1:
         if num_devices % inner != 0:
@@ -148,6 +147,33 @@ def data_group(mesh):
 
 def tensor_group(mesh):
     return axis_group(mesh, AXES.tensor)
+
+
+def spatial_group(mesh):
+    return axis_group(mesh, AXES.spatial)
+
+
+def spatial_w_group(mesh):
+    return axis_group(mesh, AXES.spatial_w)
+
+
+class BoundAxis(NamedTuple):
+    """A mesh axis as a module of the port sees it: the process group
+    along the axis that holds this rank, the axis size, and this rank's
+    coordinate on it. The counterpart of a JAX mesh-axis name inside
+    ``shard_map`` (``lax.axis_size`` / ``lax.axis_index``)."""
+
+    group: object
+    size: int
+    index: int
+
+
+def bind_axis(mesh, axis: Optional[str]) -> Optional[BoundAxis]:
+    """The ``BoundAxis`` of mesh axis ``axis`` for this rank, or None for
+    no axis or one of size 1 (nothing crosses it)."""
+    if axis is None or axis_size(mesh, axis) == 1:
+        return None
+    return BoundAxis(mesh.get_group(axis), axis_size(mesh, axis), axis_rank(mesh, axis))
 
 
 def rank() -> int:

@@ -11,6 +11,17 @@ Modules take ``device`` and ``dtype`` (parameter storage), and those with
 convs ``compute_dtype``; parameters are initialised by ``reset_parameters_``
 from an explicit ``torch.Generator`` (torch's default conv init,
 U(+-1/sqrt(fan_in)) for kernel and bias).
+
+Spatially sharded inference (``parallel/tiled.py``) binds the mesh's
+spatial axes to a model after it is built (``bind_spatial``): each module
+with a ``spatial`` attribute then holds the bound spec of ``ops/conv.py``
+(None unbound, the monolithic forward). A bound Conv2d exchanges halos, a
+bound ChannelAttention sums its token reductions over the spatial groups,
+and a bound TransformerBlock takes the module path (the JAX package's
+``models/fused_apply._fusable`` gate: a single-device kernel's gram would be
+shard-local). Downsample (a bound stride-1 conv, then pixel_unshuffle of
+even local rows) and Upsample2x (a 2x2 stride-2 transposed conv) stay
+local.
 """
 
 from __future__ import annotations
@@ -25,7 +36,11 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
     fused_transformer_block,
 )
 from bayer_low_light_image_enhancement_tpu_torch.ops.attention import channel_attention
-from bayer_low_light_image_enhancement_tpu_torch.ops.conv import leaky_relu
+from bayer_low_light_image_enhancement_tpu_torch.ops.conv import (
+    conv2d_nchw,
+    leaky_relu,
+    spatial_axes,
+)
 from bayer_low_light_image_enhancement_tpu_torch.ops.norm import channel_layernorm
 from bayer_low_light_image_enhancement_tpu_torch.ops.ssm import MambaBlock
 
@@ -58,7 +73,10 @@ def reset_parameters_(module: nn.Module, generator: torch.Generator) -> None:
 class Conv2d(nn.Conv2d):
     """Conv with torch ``padding = dilation * (k-1) // 2`` (symmetric, also
     at stride 2, as the JAX package's ``ops/conv.conv2d``) that computes in
-    ``compute_dtype`` (parameters are cast per call)."""
+    ``compute_dtype`` (parameters are cast per call); with ``spatial``
+    bound, it exchanges halos along the sharded axes."""
+
+    spatial = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  groups: int = 1, bias: bool = True, stride: int = 1, dilation: int = 1,
@@ -71,6 +89,9 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         b = None if self.bias is None else self.bias.to(cd)
+        if self.spatial is not None:
+            return conv2d_nchw(x.to(cd), self.weight.to(cd), b, self.stride[0], self.groups,
+                               self.dilation[0], self.spatial)
         return F.conv2d(x.to(cd), self.weight.to(cd), b, self.stride, self.padding,
                         self.dilation, self.groups)
 
@@ -113,6 +134,8 @@ class ChannelAttention(nn.Module):
     init) and exponentiates it, as the BayerTORGB reference does; otherwise
     T is stored as ``temperature`` (ones at init)."""
 
+    spatial = None
+
     def __init__(self, dim: int, num_heads: int = 8, log_temperature: bool = False,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
         super().__init__()
@@ -129,7 +152,7 @@ class ChannelAttention(nn.Module):
         qkv = self.qkv_dwconv(self.qkv(x)).permute(0, 2, 3, 1)
         q, k, v = qkv.chunk(3, dim=-1)
         temperature = attention_temperature(self._parameters)
-        out = channel_attention(q, k, v, temperature, self.num_heads)
+        out = channel_attention(q, k, v, temperature, self.num_heads, self.spatial)
         return self.project_out(out.permute(0, 3, 1, 2))
 
 
@@ -159,8 +182,11 @@ class TransformerBlock(nn.Module):
     autograd.Function, whose backward runs B1/B2); wider ones, and every
     block with ``fused`` False (``set_fused_blocks``), run the module path.
     ``apply_kernel`` ("tiled", or "pipelined" for K3P; ``set_apply_kernel``)
-    picks the fused block's apply pass.
+    picks the fused block's apply pass. A spatially bound block
+    (``spatial``) always takes the module path.
     """
+
+    spatial = None
 
     def __init__(self, dim: int, num_heads: int = 8, ffn_expansion: int = 2,
                  log_temperature: bool = False,
@@ -177,7 +203,7 @@ class TransformerBlock(nn.Module):
         self.apply_kernel = "tiled"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and x.shape[1] <= FUSE_CMAX:
+        if self.fused and self.spatial is None and x.shape[1] <= FUSE_CMAX:
             y = fused_transformer_block(
                 x.permute(0, 2, 3, 1), dict(self.named_parameters()), self.num_heads,
                 apply_kernel=self.apply_kernel,
@@ -195,6 +221,19 @@ def set_fused_blocks(module: nn.Module, fused: bool) -> None:
     for m in module.modules():
         if isinstance(m, (TransformerBlock, MambaBlock)):
             m.fused = fused
+
+
+def bind_spatial(module: nn.Module, spatial_axis) -> None:
+    """Bind the spatial axes ``spatial_axis`` (the bound spec of
+    ``ops/conv.py``: None, an H axis, or an (h, w) pair) to every module of
+    ``module`` with a ``spatial`` attribute, and the H axis to every Mamba
+    block's sequence (``MambaBlock.axis_name``); None unbinds."""
+    h_ax, _ = spatial_axes(spatial_axis)
+    for m in module.modules():
+        if isinstance(m, MambaBlock):
+            m.axis_name = h_ax
+        elif hasattr(m, "spatial"):
+            m.spatial = spatial_axis
 
 
 def set_chunk_bytes(module: nn.Module, nbytes) -> None:

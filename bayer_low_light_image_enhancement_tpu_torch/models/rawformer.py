@@ -8,6 +8,11 @@ already clamped and packed [B, 4, H/2, W/2] planes from
 ``kernels/bayer_pack.bayer_pack_normalize(clamp01=True)``.
 
 Sizes: S/B/L = dim 32/48/64, heads (8, 8, 8, 8), FFN expansion 2.
+
+``RawFormerConfig.spatial_axis`` names the mesh axes of spatially sharded
+inference (H, or H and W); ``parallel/tiled.make_tiled_forward`` binds them.
+Parameter names do not depend on it, so a sharded model loads the
+monolithic model's ``state_dict`` and JAX variables.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ class RawFormerConfig:
     clamp_io: bool = True
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py): None,
+    # the H axis name, or an (h, w) pair of names.
+    spatial_axis: Optional[object] = None
 
     @classmethod
     def from_size(cls, size: str, **kw) -> "RawFormerConfig":
@@ -117,6 +125,6 @@ def _make_rawformer(size: str):
     return build
 
 
-register_model("rawformer_s", _make_rawformer("S"))
-register_model("rawformer_b", _make_rawformer("B"))
-register_model("rawformer_l", _make_rawformer("L"))
+register_model("rawformer_s", _make_rawformer("S"), spatial=True)
+register_model("rawformer_b", _make_rawformer("B"), spatial=True)
+register_model("rawformer_l", _make_rawformer("L"), spatial=True)

@@ -20,6 +20,13 @@ is not built.
 ``RawFormerWFBConfig.ssm_kernel`` (default on) sends every Mamba scan to
 the kernels S1/S2 on the card (their twins on the CPU);
 ``ref_token_layout`` reproduces the reference's WM token layouts.
+
+``RawFormerWFBConfig.spatial_axis`` names the H mesh axis of spatially
+sharded inference (``parallel/tiled.py``): the Haar stacks stay local
+(every shard's H is even), the FEBs gather their FFT input along H, and
+each WM's Mamba runs the sequence-parallel scan over the raster tokens,
+which H sharding splits into contiguous pieces. W sharding would break that
+contiguity and is refused, as is ``ref_token_layout`` under sharding.
 """
 
 from __future__ import annotations
@@ -42,13 +49,15 @@ from bayer_low_light_image_enhancement_tpu_torch.models.common import (
 )
 from bayer_low_light_image_enhancement_tpu_torch.models.rawformer import pack_input, unet_forward
 from bayer_low_light_image_enhancement_tpu_torch.models.registry import register_model
-from bayer_low_light_image_enhancement_tpu_torch.ops.conv import leaky_relu
+from bayer_low_light_image_enhancement_tpu_torch.ops.conv import leaky_relu, spatial_axes
 from bayer_low_light_image_enhancement_tpu_torch.ops.dwt import haar_dwt_stack, haar_iwt_stack
 from bayer_low_light_image_enhancement_tpu_torch.ops.fft import FFAB
 from bayer_low_light_image_enhancement_tpu_torch.ops.rep_conv import GatedFeedForward
 from bayer_low_light_image_enhancement_tpu_torch.ops.ssm import MambaBlock
 
 PAD_TO = 32  # H and W of the input must be multiples of this
+W_SHARDING = ("WFB sharding is H-axis only: W-sharding breaks the raster "
+              "token-sequence contiguity the SSM chunk-carry relies on")
 
 
 class IlluminationEstimator(nn.Module):
@@ -72,12 +81,19 @@ class WM(nn.Module):
     LayerNorm over channels (eps 1e-5), a Mamba over the pixel tokens,
     3x3 smooth. Tokens are NHWC pixels, or with ``ref_token_layout`` the
     reference's layouts: NCHW memory read as (b, h*w, c) in, and the tokens
-    transposed and read as NCHW out."""
+    transposed and read as NCHW out. ``spatial_axis``: the mesh axis names
+    of sharded inference, checked here (H only, the natural token layout);
+    ``models.common.bind_spatial`` binds the H group to its Mamba."""
 
     def __init__(self, c: int, d_state: int = 32, d_conv: int = 4, expand: int = 2,
-                 ref_token_layout: bool = False, *, device=None, dtype=torch.float32,
-                 compute_dtype=torch.float32):
+                 ref_token_layout: bool = False, spatial_axis=None, *, device=None,
+                 dtype=torch.float32, compute_dtype=torch.float32):
         super().__init__()
+        h_ax, w_ax = spatial_axes(spatial_axis)
+        if h_ax is not None and ref_token_layout:
+            raise ValueError("sharded WM requires the natural token layout")
+        if w_ax is not None:
+            raise ValueError(W_SHARDING)
         kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
         self.ref_token_layout = ref_token_layout
         self.compute_dtype = compute_dtype
@@ -107,7 +123,8 @@ class WMB(nn.Module):
     """Wavelet-Mamba Block."""
 
     def __init__(self, dim: int, ffn_expansion: float = 2.66, ref_token_layout: bool = False,
-                 *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
+                 spatial_axis=None, *, device=None, dtype=torch.float32,
+                 compute_dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
         self.compute_dtype = compute_dtype
@@ -119,7 +136,7 @@ class WMB(nn.Module):
         # reducer waits for no grad of it.
         self.illu.conv2.requires_grad_(False)
         self.ffab = FFAB(dim, **kw)
-        self.mb = WM(dim, ref_token_layout=ref_token_layout, **kw)
+        self.mb = WM(dim, ref_token_layout=ref_token_layout, spatial_axis=spatial_axis, **kw)
         self.norm2 = LayerNorm2d(dim, device=device, dtype=dtype)
         self.ffn = GatedFeedForward(dim, ffn_expansion, **kw)
 
@@ -140,10 +157,10 @@ class ConvWMB(nn.Module):
     reduce -> 3x3 + LeakyReLU."""
 
     def __init__(self, dim: int, ffn_expansion: float = 2.66, ref_token_layout: bool = False,
-                 **kw):
+                 spatial_axis=None, **kw):
         super().__init__()
         self.conv = Conv2d(dim, dim, 3, **kw)
-        self.Transformer = WMB(dim, ffn_expansion, ref_token_layout, **kw)
+        self.Transformer = WMB(dim, ffn_expansion, ref_token_layout, spatial_axis, **kw)
         self.channel_reduce = Conv2d(dim * 2, dim, 1, **kw)
         self.Conv_out = Conv2d(dim, dim, 3, **kw)
 
@@ -167,6 +184,8 @@ class RawFormerWFBConfig:
     ref_token_layout: bool = False
     # Mamba scans through the kernels S1/S2 on the card (twins on the CPU).
     ssm_kernel: bool = True
+    # H mesh axis name of spatially sharded inference (parallel/tiled.py).
+    spatial_axis: Optional[object] = None
 
 
 class RawFormerWFB(nn.Module):
@@ -177,25 +196,30 @@ class RawFormerWFB(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = cfg = config
+        h_ax, w_ax = spatial_axes(cfg.spatial_axis)
+        if w_ax is not None:
+            raise ValueError(W_SHARDING)
+        if h_ax is not None and cfg.ref_token_layout:
+            raise ValueError("sharded WFB requires the natural token layout")
         kw = dict(device=device, dtype=cfg.param_dtype, compute_dtype=cfg.dtype)
-        d, e, ref = cfg.dim, cfg.ffn_expansion, cfg.ref_token_layout
+        d, e, ref, sp = cfg.dim, cfg.ffn_expansion, cfg.ref_token_layout, cfg.spatial_axis
         self.embedding = Conv2d(cfg.inp_channels * 4, d, 3, **kw)
-        self.conv_tran1 = ConvWMB(d, e, ref, **kw)
+        self.conv_tran1 = ConvWMB(d, e, ref, sp, **kw)
         self.down1 = Downsample(d, **kw)
-        self.conv_tran2 = ConvWMB(d * 2, e, ref, **kw)
+        self.conv_tran2 = ConvWMB(d * 2, e, ref, sp, **kw)
         self.down2 = Downsample(d * 2, **kw)
-        self.conv_tran3 = ConvWMB(d * 4, e, ref, **kw)
+        self.conv_tran3 = ConvWMB(d * 4, e, ref, sp, **kw)
         self.down3 = Downsample(d * 4, **kw)
-        self.conv_tran4 = ConvWMB(d * 8, e, ref, **kw)
+        self.conv_tran4 = ConvWMB(d * 8, e, ref, sp, **kw)
         self.up1 = Upsample2x(d * 8, d * 4, **kw)
         self.channel_reduce1 = Conv2d(d * 8, d * 4, 1, **kw)
-        self.conv_tran5 = ConvWMB(d * 4, e, ref, **kw)
+        self.conv_tran5 = ConvWMB(d * 4, e, ref, sp, **kw)
         self.up2 = Upsample2x(d * 4, d * 2, **kw)
         self.channel_reduce2 = Conv2d(d * 4, d * 2, 1, **kw)
-        self.conv_tran6 = ConvWMB(d * 2, e, ref, **kw)
+        self.conv_tran6 = ConvWMB(d * 2, e, ref, sp, **kw)
         self.up3 = Upsample2x(d * 2, d, **kw)
         self.channel_reduce3 = Conv2d(d * 2, d, 1, **kw)
-        self.conv_tran7 = ConvWMB(d, e, ref, **kw)
+        self.conv_tran7 = ConvWMB(d, e, ref, sp, **kw)
         self.conv_out = Conv2d(d, cfg.out_channels * 4, 3, **kw)
         reset_parameters_(self, generator or torch.Generator().manual_seed(0))
         set_fused_blocks(self, cfg.ssm_kernel)
@@ -211,4 +235,4 @@ def _build(device=None, generator: Optional[torch.Generator] = None, **kw) -> Ra
     return RawFormerWFB(RawFormerWFBConfig(**kw), device=device, generator=generator)
 
 
-register_model("rawformer_wfb", _build)
+register_model("rawformer_wfb", _build, spatial=True)

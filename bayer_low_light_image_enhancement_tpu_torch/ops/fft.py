@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from bayer_low_light_image_enhancement_tpu_torch.models.common import Conv2d
+from bayer_low_light_image_enhancement_tpu_torch.ops.conv import gather_axis, spatial_axes
 
 
 def _spectral_stack(c: int, device, dtype) -> nn.Sequential:
@@ -29,7 +30,15 @@ def _spectral_stack(c: int, device, dtype) -> nn.Sequential:
 
 
 class FEB(nn.Module):
-    """Frequency Enhancement Block; output in ``compute_dtype``."""
+    """Frequency Enhancement Block; output in ``compute_dtype``.
+
+    Spatially bound (``spatial``, ``models.common.bind_spatial``), the FFT
+    needs the whole image: the block gathers its ``fpre`` map along the
+    sharded axes, runs the spectrum pipeline replicated, and slices this
+    rank's block of the inverse back out (the JAX package's FEB). The 1x1
+    convs stay local."""
+
+    spatial = None
 
     def __init__(self, c: int, *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
         super().__init__()
@@ -40,8 +49,12 @@ class FEB(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float().clamp(-10.0, 10.0)
-        h, w = x.shape[-2:]
-        freq = torch.fft.rfft2(self.fpre(x).contiguous(), norm="ortho")
+        pre = self.fpre(x)
+        h_ax, w_ax = spatial_axes(self.spatial)
+        h_local, w_local = pre.shape[-2:]
+        pre = gather_axis(gather_axis(pre, h_ax, 2), w_ax, 3)
+        h, w = pre.shape[-2:]
+        freq = torch.fft.rfft2(pre.contiguous(), norm="ortho")
         re, im = freq.real, freq.imag
         # The DC / Nyquist bins of a real signal are real, but FFT backends
         # leave +-eps imaginary parts there, which flip the angle between
@@ -53,6 +66,10 @@ class FEB(nn.Module):
         pha = self.process2(pha)
         spec = torch.complex(mag * torch.cos(pha), mag * torch.sin(pha))
         out = torch.fft.irfft2(spec, s=(h, w), norm="ortho")
+        if h_ax is not None:
+            out = out.narrow(2, h_ax.index * h_local, h_local)
+        if w_ax is not None:
+            out = out.narrow(3, w_ax.index * w_local, w_local)
         return (out + x).clamp(-10.0, 10.0).to(self.compute_dtype)
 
 

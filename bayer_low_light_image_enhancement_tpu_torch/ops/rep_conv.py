@@ -18,6 +18,10 @@ Port of ``bayer_low_light_image_enhancement_tpu/ops/rep_conv.py``:
   project_out, + identity.
 
 Modules are NCHW (held channels_last) with the reference's parameter names.
+Under spatially sharded inference (``parallel/tiled.py``) the convs are
+bound like every other conv (``models.common.bind_spatial``) and the
+BatchNorms run in eval mode on their running statistics: the JAX package
+shards BatchNorm models only for inference.
 """
 
 from __future__ import annotations

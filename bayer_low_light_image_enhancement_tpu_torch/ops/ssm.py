@@ -29,7 +29,10 @@ u's dtype.
 SiLU -> x_proj -> dt_proj + softplus -> scan -> SiLU(z) gate -> out_proj)
 with the reference's parameter names; its scan goes to the kernel wrapper
 ``kernels.ssm_scan.selective_scan`` (the kernels on the card, these twins on
-the CPU) unless ``fused`` is False.
+the CPU) unless ``fused`` is False or its sequence is sharded over ranks
+(``axis_name``, bound by ``models.common.bind_spatial``): then the
+sequence-parallel twin runs, and the causal conv's warm-up tokens come
+from the preceding ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from bayer_low_light_image_enhancement_tpu_torch.ops.conv import gather_axis
 
 
 def _compute_dtype(*ts: torch.Tensor) -> torch.dtype:
@@ -82,16 +87,38 @@ def selective_scan(
     D: Optional[torch.Tensor] = None,  # [D]
     chunk_size: int = 256,
     state_every: Optional[int] = None,
+    h0: Optional[torch.Tensor] = None,  # [B, D, N] incoming state
+    return_state: bool = False,
+    axis_name=None,
 ):
     """Chunked selective scan -> y [B, L, D] in u's dtype; with
     ``state_every`` (a divisor of ``chunk_size``) also the states entering
-    every ``state_every`` steps, [B, ceil(L / state_every), D, N]."""
+    every ``state_every`` steps, [B, ceil(L / state_every), D, N]; with
+    ``return_state`` also the final state [B, D, N] (last). ``h0`` is the
+    state entering the first step (zeros by default).
+
+    ``axis_name``: the bound mesh axis (``core.mesh.BoundAxis``) whose ranks
+    hold contiguous pieces of the sequence, in rank order (spatial H
+    sharding turns raster token order into exactly this). Every rank scans
+    its piece from zero state, the pieces' summaries ``(exp(sum_t dt_t A),
+    h_out)`` are gathered, the exclusive prefix of ``h -> A_s h + h_out_s``
+    gives each rank its true incoming state, and a second local scan from
+    that state yields the sequence-global outputs: one extra local scan and
+    one all-reduce, no chain of ranks waiting on each other."""
+    if axis_name is not None:
+        if h0 is not None or return_state or state_every is not None:
+            raise ValueError("a sequence-parallel scan takes no h0, state_every or "
+                             "return_state")
+        return _sequence_parallel_scan(u, delta, A, B, C, D, chunk_size, axis_name)
     if state_every is not None and chunk_size % state_every:
         raise ValueError(f"chunk_size {chunk_size} is not a multiple of {state_every}")
     ct = _compute_dtype(u, delta, A, B, C)
     bsz, L, d = u.shape
     uf, dtf, Af, Bf, Cf = (t.to(ct) for t in (u, delta, A, B, C))
-    h = torch.zeros(bsz, d, A.shape[1], dtype=ct, device=u.device)
+    if h0 is None:
+        h = torch.zeros(bsz, d, A.shape[1], dtype=ct, device=u.device)
+    else:
+        h = h0.to(ct)
     ys, states = [], []
     for t0 in range(0, L, chunk_size):
         sl = slice(t0, t0 + chunk_size)
@@ -103,9 +130,25 @@ def selective_scan(
     y = torch.cat(ys, 1)
     if D is not None:
         y = y + uf * D.to(ct)
-    if state_every is None:
-        return y.to(u.dtype)
-    return y.to(u.dtype), torch.stack(states, 1)
+    out = (y.to(u.dtype),)
+    if state_every is not None:
+        out += (torch.stack(states, 1),)
+    if return_state:
+        out += (h,)
+    return out[0] if len(out) == 1 else out
+
+
+def _sequence_parallel_scan(u, delta, A, B, C, D, chunk_size, axis):
+    """``selective_scan`` over the ranks of bound axis ``axis`` (see there)."""
+    ct = _compute_dtype(u, delta, A, B, C)
+    _, h_local = selective_scan(u, delta, A, B, C, None, chunk_size, return_state=True)
+    # prod_t exp(dt_t A) == exp(sum_t dt_t A): this piece's state decay.
+    a_shard = torch.exp(delta.to(ct).sum(1)[..., None] * A.to(ct))
+    summaries = gather_axis(torch.stack([a_shard, h_local])[None], axis, 0)  # [P, 2, B, D, N]
+    h_in = torch.zeros_like(h_local)
+    for s in range(axis.index):
+        h_in = summaries[s, 0] * h_in + summaries[s, 1]
+    return selective_scan(u, delta, A, B, C, D, chunk_size, h0=h_in)
 
 
 def selective_scan_bwd_ref(u, delta, A, B, C, D, dy, chunk_size: int = 64):
@@ -189,6 +232,7 @@ class MambaBlock(nn.Module):
         self.D = nn.Parameter(torch.ones(d_inner, device=device))
         self.out_proj = nn.Linear(d_inner, d_model, bias=False, **kw)
         self.fused = True
+        self.axis_name = None  # the bound axis of a sequence sharded over ranks
 
     def _linear(self, m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
@@ -197,18 +241,38 @@ class MambaBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         xi, z = self._linear(self.in_proj, x).chunk(2, dim=-1)
-        xc = F.conv1d(F.pad(xi.transpose(1, 2), (self.d_conv - 1, 0)), self.conv1d.weight.to(cd),
-                      self.conv1d.bias.to(cd), groups=xi.shape[-1])
+        xpad = torch.cat([self._warm_up(xi), xi], 1)
+        xc = F.conv1d(xpad.transpose(1, 2), self.conv1d.weight.to(cd), self.conv1d.bias.to(cd),
+                      groups=xi.shape[-1])
         xc = F.silu(xc.transpose(1, 2))
         dt, B, C = torch.split(self._linear(self.x_proj, xc),
                                [self.dt_rank, self.d_state, self.d_state], dim=-1)
         dt = F.softplus(self._linear(self.dt_proj, dt))
         A = -torch.exp(self.A_log.float())
-        if self.fused:
+        if self.fused and self.axis_name is None:
             from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan
 
             y = ssm_scan.selective_scan(xc, dt, A, B, C, self.D.float())
         else:
-            y = selective_scan(xc, dt, A, B, C, self.D.float())
+            # A sharded sequence takes the twin: the kernel S1 takes no
+            # incoming state (the JAX package's XLA route, ops/ssm.py).
+            y = selective_scan(xc, dt, A, B, C, self.D.float(), axis_name=self.axis_name)
         y = y * F.silu(z)
         return self._linear(self.out_proj, y)
+
+    def _warm_up(self, xi: torch.Tensor) -> torch.Tensor:
+        """The ``d_conv - 1`` tokens before this sequence that the causal
+        conv reads: zeros (the left pad), or on a sharded sequence the last
+        tokens of the ranks before this one, newest last. A rank may hold
+        fewer tokens than that, so every rank's tail is gathered and the
+        tails before this rank are folded in order; rank 0 keeps zeros."""
+        wu = self.d_conv - 1
+        buf = xi.new_zeros(xi.shape[0], wu, xi.shape[2])
+        ax = self.axis_name
+        if ax is None:
+            return buf
+        t = min(xi.shape[1], wu)
+        tails = gather_axis(xi[None, :, -t:], ax, 0)  # [P, B, t, D]
+        for s in range(ax.index):
+            buf = torch.cat([buf, tails[s]], 1)[:, -wu:]
+        return buf

@@ -200,7 +200,22 @@ Phases (any failed check raises and the script exits non-zero):
    because the machine the script is held on has one card, and gloo is
    the backend that lets several ranks share one; the code is the code
    that runs on NCCL across cards, and its times on one card are labelled
-   as not a multi-GPU figure.
+   as not a multi-GPU figure;
+16. tiled full-resolution inference (``parallel/tiled.py``): four ranks,
+   processes of this script as in phase 15 (NCCL with a card each where
+   the machine has four, else gloo with the ranks sharing card 0), run
+   RawFormer-S at full width (dim 32, seed 16) on one 2832x4240 frame
+   H-sharded over 4 ranks and over a 2 x 2 mesh, and WFB-48 H-sharded over
+   4 ranks at 1024x1024, each in fp32 compute (TF32 off) against one
+   process's monolithic module path / scan twin and in bf16 against the
+   monolithic kernel path (the serving bar); every rank receives the whole
+   RGB; K2 / K3 / K3P / S1 launch 0 times on the tiled path (sharded
+   blocks take the module path and sharded scans the twin) and 7 times on
+   the monolithic kernel paths; the tiled frame forward's host clock per
+   rank with its all-reduces' share and the output gather's, beside the
+   monolithic kernel path's; then the eval CLI with ``--spatial_chips 2``
+   (ranks started as torchrun would) on two 2832x4240 SID frames against
+   the unsharded CLI (``--no_fused``), both in fp32.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -2036,7 +2051,78 @@ def dist_task_gloo4(job: dict, dev) -> dict:
     return {"tp": _tp_run(job, dev, meshlib.create_mesh(data=2, tensor=2))}
 
 
-DIST_TASKS = {"nccl": dist_task_nccl, "gloo2": dist_task_gloo2, "gloo4": dist_task_gloo4}
+def dist_task_tiled(job: dict, dev) -> dict:
+    """Phase 16 on every rank: each case of TILED_CASES through
+    ``make_tiled_forward`` on this rank's block of the case's frame, with the
+    launches; rank 0 holds the gathered RGB against the parent's reference;
+    the timed cases' frame forward by the host clock, and one instrumented
+    forward's all-reduces (see ``collective_ms``)."""
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.parallel.tiled import (
+        make_tiled_forward,
+        shard_image,
+    )
+
+    meshes = {"h4": (meshlib.create_mesh(data=1, spatial=4), None),
+              "2x2": (meshlib.create_mesh(data=1, spatial=2, spatial_w=2), "spatial_w")}
+    out = {"world": meshlib.world_size(), "cases": {}}
+    for name, model_name, layout, dtype, frame, timed in TILED_CASES:
+        t0 = time.perf_counter()
+        mesh, w = meshes[layout]
+        model = get_model(model_name, generator=torch.Generator().manual_seed(TILED_SEED),
+                          dtype=dtype, spatial_axis=("spatial", w) if w else "spatial").to(dev)
+        fn = make_tiled_forward(model, mesh, "spatial", w)
+        x = torch.from_numpy(shard_image(job[frame], mesh, "spatial", w)).to(dev).contiguous()
+        y, launches = counted(job["counters"], lambda: fn(x))
+        rec = {"launches": launches, "sum": float(y.double().sum()), "shape": tuple(y.shape)}
+        if meshlib.rank() == 0:
+            d = (y.cpu() - torch.load(f"{job['dir']}/ref_{name}.pt")).abs()
+            rec["max"], rec["mean"] = d.max().item(), d.mean().item()
+        del y
+        if timed:
+            rec["ms"] = _step_ms(lambda: fn(x))
+            rec["collective"] = collective_ms(lambda: fn(x), x.shape[0] * 3 * np.prod(
+                job[frame].shape[1:3]))
+        rec["seconds"] = time.perf_counter() - t0
+        out["cases"][name] = rec
+        del model, fn, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def collective_ms(fn, out_numel: int) -> dict:
+    """One run of fn() with every ``torch.distributed.all_reduce`` timed by
+    the host clock between synchronisations: -> the whole run's ms, the
+    all-reduces' count and ms, and of them the output gather's (the calls
+    of at least ``out_numel`` elements)."""
+    import torch.distributed as dist
+
+    real, calls = dist.all_reduce, []
+
+    def timed(t, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = real(t, *a, **k)
+        torch.cuda.synchronize()
+        calls.append((t.numel(), (time.perf_counter() - t0) * 1e3))
+        return r
+
+    dist.all_reduce = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.all_reduce = real
+    return {"ms": total, "calls": len(calls), "all_reduce_ms": sum(c[1] for c in calls),
+            "gather_ms": sum(c[1] for c in calls if c[0] >= out_numel)}
+
+
+DIST_TASKS = {"nccl": dist_task_nccl, "gloo2": dist_task_gloo2, "gloo4": dist_task_gloo4,
+              "tiled": dist_task_tiled}
 
 
 def dist_rank_main(jobdir: str, task: str, rendezvous: str) -> int:
@@ -2052,6 +2138,7 @@ def dist_rank_main(jobdir: str, task: str, rendezvous: str) -> int:
     dev = meshlib.initialize_multihost(rendezvous, device_type="cuda")
     try:
         job = torch.load(f"{jobdir}/job.pt", weights_only=False)
+        job["dir"] = jobdir
         job["counters"] = (bayer_pack.bayer_pack_normalize, fused_block.gram_pass,
                            fused_block.apply_pass, fused_block.apply_pass_pipelined,
                            weight_grad.weight_grad, fused_block_bwd.bwd1, fused_block_bwd.bwd2,
@@ -2064,19 +2151,23 @@ def dist_rank_main(jobdir: str, task: str, rendezvous: str) -> int:
     return 0
 
 
-def run_dist_task(jobdir: str, task: str, world: int, one_card: bool = False) -> list:
+def one_card_env() -> dict:
+    """The environment that puts every rank on the first visible card."""
+    return {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]}
+
+
+def run_dist_task(jobdir: str, task: str, world: int, one_card: bool = False,
+                  phase: int = 15) -> list:
     """Start ``world`` ranks of ``task`` on one rendezvous file (all on the
     first visible card when ``one_card``, which makes them gloo ranks); ->
     their results (raises when a rank fails)."""
     from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
 
-    env = {}
-    if one_card:
-        env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    env = one_card_env() if one_card else {}
     t0 = time.perf_counter()
     meshlib.run_ranks([sys.executable, os.path.abspath(__file__), "--dist-rank", jobdir, task,
                        f"file://{jobdir}/{task}.rdzv"], world, env=env, timeout=DIST_TIMEOUT)
-    log(f"phase 15 {task}: {world} rank(s) in {time.perf_counter() - t0:.1f} s")
+    log(f"phase {phase} {task}: {world} rank(s) in {time.perf_counter() - t0:.1f} s")
     return [torch.load(f"{jobdir}/{task}.rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -2335,6 +2426,201 @@ def dist_phase(dev, card, counters, train_cfg) -> None:
         phase15_bc(jobdir, refs, card)
         phase15_d(jobdir, card)
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# Phase 16 (tiled full-resolution inference, ``parallel/tiled.py``): four
+# ranks, processes of this script as in phase 15 (NCCL where each rank has
+# its own card, else gloo with the ranks sharing card 0), run each case of
+# TILED_CASES; the parent computes the references on one process first.
+# Tolerances, stated before the run: in fp32 compute with TF32 off (C5), the
+# tiled RGB against one process's monolithic module path (WFB: its scan
+# twin) within TILED_FP32_ATOL max abs; in bf16 compute against the
+# monolithic kernel path by the serving bar (E2E_MAX_TOL, E2E_MEAN_TOL).
+# Every tiled forward launches K2 / K3 / K3P / S1 0 times (sharded blocks
+# take the module path and sharded scans the twin: the JAX package's
+# fused_apply._fusable and ssm.MambaBlock routes); the monolithic kernel
+# paths 7 times each. The eval CLI with --spatial_chips 2 on two
+# TILED_CLI_FRAME frames against the unsharded CLI (--no_fused, its frames
+# decoded on the host in the expression the sharded ranks evaluate on the
+# card), both in fp32 and padded alike: per-image PSNR within TILED_PSNR_TOL dB and SSIM
+# within TILED_SSIM_TOL. WFB-48 runs at TILED_WFB_FRAME: its scan twin at
+# full-frame token counts would take minutes.
+TILED_FP32_ATOL = 1e-4
+TILED_PSNR_TOL, TILED_SSIM_TOL = 1e-3, 1e-5
+TILED_FRAME, TILED_WFB_FRAME, TILED_CLI_FRAME = (2832, 4240), (1024, 1024), (2832, 4240)
+TILED_SEED = 16
+# (case, model, mesh layout, compute dtype, frame key, timed)
+TILED_CASES = (
+    ("rawformer_s_h4_fp32", "rawformer_s", "h4", torch.float32, "frame", False),
+    ("rawformer_s_h4_bf16", "rawformer_s", "h4", torch.bfloat16, "frame", True),
+    ("rawformer_s_2x2_fp32", "rawformer_s", "2x2", torch.float32, "frame", False),
+    ("rawformer_s_2x2_bf16", "rawformer_s", "2x2", torch.bfloat16, "frame", True),
+    ("wfb48_h4_fp32", "rawformer_wfb", "h4", torch.float32, "wfb_frame", False),
+    ("wfb48_h4_bf16", "rawformer_wfb", "h4", torch.bfloat16, "wfb_frame", False),
+)
+
+
+def tile_frame(x: np.ndarray, multiple: int) -> np.ndarray:
+    """[1, H, W, 1] zero-padded so that H splits into 4 blocks and W into 2
+    (the h4 and 2x2 layouts) of a multiple of ``multiple`` each, as the
+    eval CLI pads a frame for its mesh (``parallel/tiled.pad_to_tile``)."""
+    from bayer_low_light_image_enhancement_tpu_torch.parallel.tiled import pad_to_tile
+
+    x, _ = pad_to_tile(x, 4, multiple)
+    pw = (-x.shape[2]) % (2 * multiple)
+    return np.pad(x, ((0, 0), (0, 0), (0, pw), (0, 0)))
+
+
+def tiled_references(jobdir: str, job: dict, dev, counters, card) -> dict:
+    """Phase 16's references on this one process, saved for rank 0: each
+    model on its whole frame through the monolithic module path (fp32, the
+    scan twin) and the kernel path (bf16), the kernel paths' launches, and
+    the RawFormer-S kernel-path frame's host ms."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.common import set_fused_blocks
+
+    out = {}
+    for model_name, frame, tag in (("rawformer_s", "frame", "rawformer_s"),
+                                   ("rawformer_wfb", "wfb_frame", "wfb48")):
+        x = torch.from_numpy(job[frame]).to(dev).permute(0, 3, 1, 2)
+        for dtype, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            model = get_model(model_name, generator=torch.Generator().manual_seed(TILED_SEED),
+                              dtype=dtype).to(dev).eval()
+            set_fused_blocks(model, kind == "bf16")
+
+            def fwd():
+                with torch.inference_mode():
+                    return model(x).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+            t0 = time.perf_counter()
+            y, launches = counted(counters, fwd)
+            ref = y.float().cpu()
+            for name, *_ in TILED_CASES:
+                if name.startswith(tag) and name.endswith(kind):
+                    torch.save(ref, f"{jobdir}/ref_{name}.pt")
+            rec = {"launches": launches, "seconds": time.perf_counter() - t0}
+            if model_name == "rawformer_s" and kind == "bf16":
+                rec["ms"] = _step_ms(fwd, 5)
+            out[f"{tag}_{kind}"] = rec
+            log(f"phase 16 reference {tag} {kind} ({'kernel path' if kind == 'bf16' else 'module path'}"
+                f") on {tuple(x.shape[2:])}: {rec['seconds']:.1f} s, launches {launches}")
+            del model, y
+            torch.cuda.empty_cache()
+    return out
+
+
+# A CLI rank with this process's TF32 flags (off), run as `python -c`: the
+# CLI sets none, and cuDNN's default allows TF32 in fp32 convs.
+TF32_OFF_CLI = ("import runpy, torch; torch.backends.cudnn.allow_tf32 = False; "
+                "torch.backends.cuda.matmul.allow_tf32 = False; "
+                "runpy.run_module({!r}, run_name='__main__')")
+
+
+def tiled_cli(card, counters, one_card: bool) -> None:
+    """The eval CLI with --spatial_chips 2 (two ranks it does not start
+    itself: torchrun's variables from run_ranks, TF32 off as in this
+    process; the SID codes decoded on the card by ``normalize_sid``)
+    against the unsharded CLI in this process on the module path, its
+    frames decoded on the host in the same fp32 expression (RawFormer's
+    compact route, K1, scales by a rounded reciprocal instead: an ulp off,
+    enough to move SSIM by ~3e-5 on these frames)."""
+    import tempfile
+
+    from bayer_low_light_image_enhancement_tpu_torch.cli import test_cli
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+    from bayer_low_light_image_enhancement_tpu_torch.data.synthetic import write_sid_tree
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiled_") as tmp:
+        root = f"{tmp}/sid"
+        write_sid_tree(root, f"{root}/cache", {"test": [TILED_CLI_FRAME] * 2},
+                       np.random.default_rng(16))
+        base = ["--dataset", "SID", "--data_root", root, "--cache_dir", f"{root}/cache",
+                "--fp32", "--pad_to", "32"]
+        t0 = time.perf_counter()
+        one, launches = counted(counters, lambda: test_cli.main(
+            base + ["--no_fused", "--no_compact_h2d", "--save_dir", f"{tmp}/one"]))
+        t_one = time.perf_counter() - t0
+        no_kernel(launches, "phase 16: the unsharded --no_fused --no_compact_h2d eval CLI")
+        root_dir = os.path.dirname(os.path.abspath(__file__))
+        path = os.pathsep.join(p for p in (root_dir, os.environ.get("PYTHONPATH")) if p)
+        env = dict(one_card_env() if one_card else {}, PYTHONPATH=path)
+        t0 = time.perf_counter()
+        meshlib.run_ranks([sys.executable, "-c", TF32_OFF_CLI.format(test_cli.MODULE), *base,
+                           "--spatial_chips", "2", "--save_dir", f"{tmp}/tiled", "--rendezvous",
+                           f"file://{tmp}/cli.rdzv", "--result_file", f"{tmp}/cli.json"], 2,
+                          env=env, timeout=DIST_TIMEOUT)
+        t_tiled = time.perf_counter() - t0
+        with open(f"{tmp}/cli.json") as f:
+            tiled = json.load(f)
+    dp = np.abs(np.subtract(tiled["psnr"], one["psnr"])).max()
+    ds = np.abs(np.subtract(tiled["ssim"], one["ssim"])).max()
+    log(f"(16) eval CLI --spatial_chips 2 ({'gloo, one card' if one_card else 'NCCL'}) on 2 SID "
+        f"frames at {TILED_CLI_FRAME}, fp32: PSNR {tiled['psnr']} vs unsharded {one['psnr']}, "
+        f"SSIM {tiled['ssim']} vs {one['ssim']}: max differences {dp:.2e} dB (tol "
+        f"{TILED_PSNR_TOL}), {ds:.2e} (tol {TILED_SSIM_TOL}); pad_to {tiled['pad_to']}; "
+        f"{t_tiled:.1f} s with the ranks' start, unsharded {t_one:.1f} s; host seconds per image "
+        f"{[round(t, 3) for t in tiled['seconds']]} vs {[round(t, 3) for t in one['seconds']]} "
+        f"({card})")
+    check(dp <= TILED_PSNR_TOL and ds <= TILED_SSIM_TOL,
+          "phase 16: the sharded eval CLI's metrics differ from the unsharded CLI's")
+
+
+def tiled_phase(dev, card, counters) -> None:
+    """Phase 16: spatially sharded full-resolution inference (see the
+    module doc and the tolerances above)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    one_card = cards < 4
+    backend = "gloo, 4 ranks sharing card 0" if one_card else "NCCL, one card a rank"
+    rng = np.random.default_rng(16)
+    job = {name: tile_frame((mosaics(rng, (1, *shape, 1)).astype(np.float32) - 512.0)
+                            / (16383.0 - 512.0), multiple)
+           for name, shape, multiple in (("frame", TILED_FRAME, 16),
+                                         ("wfb_frame", TILED_WFB_FRAME, 32))}
+    log(f"phase 16 frames: {TILED_FRAME} zero-padded to {job['frame'].shape[1:3]}, "
+        f"{TILED_WFB_FRAME} to {job['wfb_frame'].shape[1:3]} (every rank's block a multiple "
+        "of 16 rows and columns, 32 for WFB, in both layouts)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiled_") as jobdir:
+        refs = tiled_references(jobdir, job, dev, counters, card)
+        for kind in ("rawformer_s_bf16", "wfb48_bf16"):
+            got = refs[kind]["launches"]
+            name = ("gram_pass", "apply_pass") if kind.startswith("rawformer") else (
+                "selective_scan_fwd",)
+            check(all(got[n] == 7 for n in name),
+                  f"phase 16: the monolithic {kind} kernel path did not launch {name} 7 times")
+        torch.save(job, f"{jobdir}/job.pt")
+        res = run_dist_task(jobdir, "tiled", 4, one_card=one_card, phase=16)
+    label = " (not a multi-GPU figure)" if one_card else ""
+    r0 = res[0]
+    for name, model_name, layout, dtype, frame, timed in TILED_CASES:
+        rec = r0["cases"][name]
+        sums = {r["cases"][name]["sum"] for r in res}
+        launched = {k: v for r in res for k, v in r["cases"][name]["launches"].items() if v}
+        fp32 = dtype == torch.float32
+        ok = (rec["max"] <= TILED_FP32_ATOL if fp32
+              else rec["max"] <= E2E_MAX_TOL and rec["mean"] <= E2E_MEAN_TOL)
+        bar = (f"tol {TILED_FP32_ATOL} against the module path" if fp32 else
+               f"tol {E2E_MAX_TOL} / {E2E_MEAN_TOL} against the kernel path")
+        log(f"(16) {name} ({backend}): {rec['shape']} on every rank, max abs err {rec['max']:.3e}"
+            f", mean {rec['mean']:.3e} ({bar}); launches on every rank {launched or 'none'}; "
+            f"rank 0 {rec['seconds']:.1f} s")
+        check(ok, f"phase 16: {name} disagrees with the monolithic reference")
+        check(len(sums) == 1, f"phase 16: {name}: the ranks received different outputs")
+        check(not launched, f"phase 16: {name}: a hand kernel launched on the tiled path "
+              f"({launched})")
+        if timed:
+            per_rank = [round(r["cases"][name]["ms"], 2) for r in res]
+            c = rec["collective"]
+            log(f"time {name} tiled frame forward, host clock per rank (median of 3){label}: "
+                f"{per_rank} ms; one instrumented forward on rank 0: {c['ms']:.2f} ms, "
+                f"{c['calls']} all-reduces {c['all_reduce_ms']:.2f} ms "
+                f"({c['all_reduce_ms'] / c['ms']:.1%}), of them the output gather "
+                f"{c['gather_ms']:.2f} ms; the monolithic kernel path "
+                f"{refs['rawformer_s_bf16']['ms']:.2f} ms on one process ({card})")
+    tiled_cli(card, counters, cards < 2)
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def main() -> int:
@@ -3249,6 +3535,10 @@ def main() -> int:
     # 15. multi-GPU training ------------------------------------------------------
     torch.cuda.empty_cache()
     dist_phase(dev, card, counters, train_cfg)
+
+    # 16. tiled full-resolution inference -------------------------------------------
+    torch.cuda.empty_cache()
+    tiled_phase(dev, card, counters)
 
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),

@@ -25,6 +25,9 @@ LAYOUTS = [
     (8, dict(tensor=2)), (8, dict(data=2, tensor=4)), (8, dict(data=2)),
     (4, dict(tensor=3)), (4, dict(data=4, tensor=2)), (6, dict(data=-1, tensor=4)),
     (2, dict(data=3)),
+    (4, dict(data=1, spatial=4)), (8, dict(spatial=2, spatial_w=2)), (8, dict(spatial=4)),
+    (8, dict(data=2, spatial=2, tensor=2)), (6, dict(spatial=4)), (4, dict(spatial_w=3)),
+    (4, dict(data=1, spatial=4, spatial_w=2)), (8, dict(data=-1, spatial=2, spatial_w=2)),
 ]
 
 
@@ -50,9 +53,14 @@ def test_mesh_shape_matches_jax(n, layout):
 
 
 def test_spatial_axes_are_refused():
-    for layout in (dict(spatial=2), dict(spatial_w=2)):
-        with pytest.raises(ValueError, match="not in the port yet"):
-            meshlib.mesh_shape(8, **layout)
+    """Spatial layouts follow the JAX rules: one larger than the ranks, or
+    one the ranks do not divide under data=-1, is refused with the JAX
+    error; create_mesh needs a process group; device_type is cuda or cpu."""
+    for n, layout in ((2, dict(data=1, spatial=4)), (4, dict(spatial=2, spatial_w=3)),
+                      (6, dict(spatial=4))):
+        with pytest.raises(ValueError) as e:
+            meshlib.mesh_shape(n, **layout)
+        assert str(e.value) == jax_shape(n, layout)
     with pytest.raises(RuntimeError, match="initialised process group"):
         meshlib.create_mesh()
     with pytest.raises(ValueError, match="device_type"):
@@ -61,10 +69,12 @@ def test_spatial_axes_are_refused():
 
 def test_create_mesh_on_a_gloo_world(tmp_path):
     """Four gloo ranks: the meshes' shapes, axis names, each rank's
-    coordinates (tensor fastest, data slowest, as the JAX device array) and
-    group sizes; the JAX errors for the layouts that do not fit."""
+    coordinates (tensor fastest, then spatial_w, spatial, data slowest, as
+    the JAX device array) and group sizes, the spatial layouts among them;
+    the JAX errors for the layouts that do not fit."""
     layouts = [{}, dict(data=2, tensor=2), dict(data=1, tensor=4), dict(tensor=3),
-               dict(data=4, tensor=2)]
+               dict(data=4, tensor=2), dict(data=1, spatial=4), dict(spatial=2, spatial_w=2),
+               dict(data=2, spatial=2), dict(spatial=2, tensor=2)]
     res = workers.run_job(workers.write_job(tmp_path / "job.pt", kind="mesh", layouts=layouts), 4)
     for r, out in enumerate(res):
         for layout, got in zip(layouts, out):
@@ -74,10 +84,9 @@ def test_create_mesh_on_a_gloo_world(tmp_path):
                 continue
             kind, shape, names, coords, groups, ranks = got
             assert kind == "mesh" and shape == want and names == meshlib.MESH_AXES
-            d, _, _, t = shape
             assert ranks == list(range(4))
-            assert coords == {"data": r // t, "spatial": 0, "spatial_w": 0, "tensor": r % t}
-            assert groups == {"data": d, "spatial": 1, "spatial_w": 1, "tensor": t}
+            assert coords == dict(zip(meshlib.MESH_AXES, map(int, np.unravel_index(r, shape))))
+            assert groups == dict(zip(meshlib.MESH_AXES, shape))
 
 
 def split_batches(make_loader, parts):

@@ -201,6 +201,7 @@ def test_port_imports_no_jax():
         "import bayer_low_light_image_enhancement_tpu_torch.utils.debug\n"
         "import bayer_low_light_image_enhancement_tpu_torch.core.mesh\n"
         "import bayer_low_light_image_enhancement_tpu_torch.parallel.tensor\n"
+        "import bayer_low_light_image_enhancement_tpu_torch.parallel.tiled\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'bayer_low_light_image_enhancement_tpu']\n"
         "assert not bad, bad\n"

@@ -18,7 +18,17 @@ Jobs (``kind``):
   * "forward": the model, sharded by ``Trainer`` over the mesh, on the whole
     first batch in eval mode (no grad);
   * "mesh": ``create_mesh`` over the world for each layout of the job,
-    recording each mesh's shape and group sizes or the error.
+    recording each mesh's shape and group sizes or the error;
+  * "tiled_ops": each case of the job (an op of ``ops/conv.py``,
+    ``ops/attention.py`` or ``ops/ssm.py``, or ``parallel/tiled.shard_image``)
+    on this rank's block of its inputs, over the spatial axes of the case's
+    layout ("h": ``spatial`` = world; "hw": ``spatial`` x ``spatial_w`` =
+    2 x world / 2); the result is the list of this rank's outputs;
+  * "tiled": each case's model (``build_model`` with the case's
+    ``spatial_axis``) holding the case's state, through
+    ``parallel/tiled.make_tiled_forward`` on this rank's block of the case's
+    frame: the whole output every rank receives, and how often the fused
+    block wrapper and the scan kernel wrapper were called (0 by design).
 """
 
 import sys
@@ -143,6 +153,111 @@ def _mesh(job):
     return out
 
 
+LAYOUTS = {"h": ("spatial", None), "hw": ("spatial", "spatial_w")}
+
+
+def tiled_mesh(layout):
+    """The (1, spatial, spatial_w, 1) mesh of a tiled case's layout over the
+    world, and its (h, w) axis names."""
+    world = meshlib.world_size()
+    h, w = LAYOUTS[layout]
+    mesh = (meshlib.create_mesh(data=1, spatial=world) if w is None
+            else meshlib.create_mesh(data=1, spatial=2, spatial_w=world // 2))
+    return mesh, h, w
+
+
+def _tiled_op(case, cache):
+    from bayer_low_light_image_enhancement_tpu_torch.ops import attention, conv, ssm
+    from bayer_low_light_image_enhancement_tpu_torch.parallel.tiled import shard_image
+
+    layout = case.get("layout", "h")
+    if layout not in cache:
+        cache[layout] = tiled_mesh(layout)
+    mesh, h, w = cache[layout]
+    axes = (meshlib.bind_axis(mesh, h), meshlib.bind_axis(mesh, w))
+    spec = axes if w else axes[0]
+    a = {k: torch.from_numpy(v) if hasattr(v, "shape") else v for k, v in case["args"].items()}
+
+    def local(t):
+        return shard_image(t, mesh, h, w).contiguous()
+
+    op = case["op"]
+    if op == "conv2d":
+        return conv.conv2d(local(a["x"]), a["w"], a.get("b"), stride=a.get("stride", 1),
+                           groups=a.get("groups", 1), dilation=a.get("dilation", 1),
+                           spatial_axis=spec)
+    if op in ("global_mean", "global_max", "global_min"):
+        xl = local(a["x"])  # the reduction broadcast back to the block
+        return getattr(conv, op)(xl, a["dims"], spec).expand_as(xl).contiguous()
+    if op == "channel_attention":
+        attention.ROW_SUM_TOKENS = a.get("row_sum_tokens", attention.ROW_SUM_TOKENS)
+        return attention.channel_attention(local(a["q"]), local(a["k"]), local(a["v"]),
+                                           a["temperature"], a["heads"], spec)
+    if op == "selective_scan":
+        return ssm.selective_scan(local(a["u"]), local(a["delta"]), a["A"], local(a["B"]),
+                                  local(a["C"]), a["D"], chunk_size=a["chunk_size"],
+                                  axis_name=axes[0])
+    if op == "mamba":
+        block = ssm.MambaBlock(a["d_model"], d_state=a["d_state"])
+        block.load_state_dict(a["state"])
+        block.axis_name = axes[0]
+        with torch.no_grad():
+            return block(local(a["x"]))
+    if op == "module":  # Downsample / Upsample2x, bound like a tiled model's
+        from bayer_low_light_image_enhancement_tpu_torch.models import common
+
+        m = (common.Downsample(a["cin"]) if a["kind"] == "downsample"
+             else common.Upsample2x(a["cin"], a["cout"]))
+        m.load_state_dict(a["state"])
+        common.bind_spatial(m, spec)
+        with torch.no_grad():
+            y = m(local(a["x"]).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+        return y.permute(0, 2, 3, 1).contiguous()
+    if op in ("haar_dwt_stack", "haar_iwt_stack"):
+        from bayer_low_light_image_enhancement_tpu_torch.ops import dwt
+
+        return getattr(dwt, op)(local(a["x"]))
+    if op == "gather_spatial":
+        return conv.gather_spatial(local(a["x"]), spec, 1)
+    if op == "shard_image":
+        return local(a["x"])
+    raise ValueError(op)
+
+
+def _tiled(job):
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+    from bayer_low_light_image_enhancement_tpu_torch.parallel.tiled import (
+        make_tiled_forward,
+        shard_image,
+    )
+
+    calls = {"fused_block": 0, "ssm_kernel": 0}
+
+    def counting(name, fn):
+        def wrapper(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    common.fused_transformer_block = counting("fused_block", common.fused_transformer_block)
+    ssm_scan.selective_scan = counting("ssm_kernel", ssm_scan.selective_scan)
+    out, meshes = [], {}
+    for case in job["cases"]:
+        if case["layout"] not in meshes:
+            meshes[case["layout"]] = tiled_mesh(case["layout"])
+        mesh, h, w = meshes[case["layout"]]
+        kind, kw = case["model"]
+        model = build_model((kind, dict(kw, spatial_axis=(h, w) if w else h)))
+        model.load_state_dict(case["state"])
+        fn = make_tiled_forward(model, mesh, h, w)
+        for k in calls:
+            calls[k] = 0
+        y = fn(torch.from_numpy(shard_image(case["x"], mesh, h, w)))
+        out.append({"out": y.clone(), "calls": dict(calls)})
+    return out
+
+
 def main(path, rendezvous):
     torch.set_num_threads(1)
     job = torch.load(path, weights_only=False)
@@ -151,6 +266,11 @@ def main(path, rendezvous):
     try:
         if job["kind"] == "mesh":
             out = _mesh(job)
+        elif job["kind"] == "tiled_ops":
+            cache = {}
+            out = [_tiled_op(case, cache) for case in job["cases"]]
+        elif job["kind"] == "tiled":
+            out = _tiled(job)
         else:
             mesh = meshlib.create_mesh(**job["mesh"])
             out = (_train if job["kind"] == "train" else _forward)(job, mesh)
