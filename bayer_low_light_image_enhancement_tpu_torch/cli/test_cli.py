@@ -31,9 +31,11 @@ itself (one card each on NCCL; gloo processes with ``--device cpu``), or
 runs as the rank ``torchrun`` made. Every rank reads the frame, runs its
 block, and receives the whole RGB; rank 0 prints the metrics and writes the
 CSV and the JPEGs. Frames are padded to ``max(pad_to, h_mult * N, 16 *
-M)``, h_mult 32 for RawFormer-WFB and 16 otherwise. RawFormer S/B/L shard
-by H and by H x W, RawFormer-WFB by H only; the other families exit, as
-the JAX CLI does.
+M)``, h_mult 32 for RawFormer-WFB and 16 otherwise. Every RAW -> RGB
+model of the registry shards by H and by H x W, RawFormer-WFB by H only; a
+2-D mesh builds the model with the (``spatial``, ``spatial_w``) pair, so
+that its resizes, reductions and token attention cross both axes (the JAX
+CLI builds the zoo models with the H axis alone, ROADMAP C17).
 """
 
 from __future__ import annotations
@@ -87,8 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_size", default="S", choices=["S", "B", "L"])
     p.add_argument("--model", default=None,
                    help="registry model name (rawformer_s|b|l, rawformer_wfb, flca_rawformer, "
-                   "multilvl_flca_rawformer, truecolor_rawformer, bayertorgb_rawformer); "
-                   "overrides --model_size")
+                   "multilvl_flca_rawformer, truecolor_rawformer, bayertorgb_rawformer, "
+                   "luma_mhsa_rawformer, wavkan_rawformer); overrides --model_size")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="evaluate on the card (default) or on the CPU")
     p.add_argument("--batch_size", type=int, default=1)
@@ -110,7 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "tiling; 1 = monolithic)")
     p.add_argument("--spatial_w_chips", type=int, default=1,
                    help="additionally shard frames along W over M ranks (2D spatial mesh of "
-                   "spatial_chips x spatial_w_chips; RawFormer S/B/L, not WFB, whose "
+                   "spatial_chips x spatial_w_chips; every model but rawformer_wfb, whose "
                    "raster-order SSM shards along H only)")
     p.add_argument("--no_fused", action="store_true",
                    help="run TransformerBlocks through the module path and Mamba scans "
@@ -212,11 +214,7 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available; pass --device cpu to "
                          "evaluate on the CPU")
-    try:
-        model = build_model(args, "cpu", seed=0, spatial_axis=spatial_axis)
-    except TypeError:
-        raise SystemExit(f"--spatial_chips: model {args.model!r} does not support "
-                         "spatially sharded inference (no spatial_axis in its config)") from None
+    model = build_model(args, "cpu", seed=0, spatial_axis=spatial_axis)
     launched = "WORLD_SIZE" in os.environ
     if launched and world != int(os.environ["WORLD_SIZE"]):
         raise SystemExit(f"--spatial_chips {args.spatial_chips} x --spatial_w_chips "

@@ -216,8 +216,7 @@ def build_model(args, device, seed: int, spatial_axis=None):
     """The model ``--model`` names (through the registry), else RawFormer of
     ``--model_size``; exits with the JAX CLI's message for a raw-domain
     (enhancement-domain) model. ``spatial_axis`` (mesh axis names) builds
-    the model for spatially sharded inference; the registry raises
-    TypeError for a family without it."""
+    the model for spatially sharded inference."""
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     gen = torch.Generator().manual_seed(seed)
     sp = {} if spatial_axis is None else {"spatial_axis": spatial_axis}

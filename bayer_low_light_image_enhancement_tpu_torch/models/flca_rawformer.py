@@ -13,6 +13,13 @@ fused kernels K2 / K3, the C = 384 one the module path.
 
 ``GuidedStage`` and ``GuidedUNet`` are shared with
 ``models/multilvl_flca.py`` and ``models/truecolor.py``.
+
+``FLCARawFormerConfig.spatial_axis`` names the mesh axes of spatially
+sharded inference (H, or H and W; ``parallel/tiled.make_tiled_forward``
+binds them): the luma max, the guidance resizes and the SE pools then
+cross the spatial groups, the convs exchange halos, and the
+TransformerBlocks take the module path. Parameter names do not depend on
+it, so a sharded model loads the monolithic ``state_dict``.
 """
 
 from __future__ import annotations
@@ -69,7 +76,10 @@ class FLCAStage(GuidedStage):
 
 class GuidedUNet(nn.Module):
     """The RawFormer U-Net whose seven stages all take the guidance planes:
-    ``stage(dim, heads)`` builds a stage, ``down(dim)`` a downsample."""
+    ``stage(dim, heads)`` builds a stage, ``down(dim)`` a downsample;
+    ``spatial``: the bound spatial axes of a sharded rank (the luma max)."""
+
+    spatial = None
 
     def build_unet(self, cfg, stage: Callable[[int, int], nn.Module],
                    down: Callable[[int], nn.Module], kw) -> None:
@@ -112,10 +122,12 @@ def pack_planes(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.pixel_unshuffle(x.to(dtype), 2).contiguous(memory_format=torch.channels_last)
 
 
-def luma_guidance(x_ds: torch.Tensor, dtype: torch.dtype):
+def luma_guidance(x_ds: torch.Tensor, dtype: torch.dtype, spatial_axis=None):
     """(y, cr, cb) [B, 1, H/2, W/2] from the packed planes: BT.601 luma,
-    per-image max normalised, computed in fp32 and cast to ``dtype``."""
-    return tuple(nchw(t).to(dtype) for t in bayer_luma_chroma(nhwc(x_ds).float()))
+    per-image max normalised (over the spatial groups of a bound
+    ``spatial_axis``), computed in fp32 and cast to ``dtype``."""
+    return tuple(nchw(t).to(dtype)
+                 for t in bayer_luma_chroma(nhwc(x_ds).float(), spatial_axis=spatial_axis))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +139,9 @@ class FLCARawFormerConfig:
     ffn_expansion: int = 2
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py): None,
+    # the H axis name, or an (h, w) pair of names.
+    spatial_axis: Optional[object] = None
 
 
 class FLCARawFormer(GuidedUNet):
@@ -144,7 +159,8 @@ class FLCARawFormer(GuidedUNet):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x_ds = pack_planes(x, self.config.dtype)
-        out = leaky_relu(self.unet(x_ds, *luma_guidance(x_ds, self.config.dtype)), 0.2)
+        guide = luma_guidance(x_ds, self.config.dtype, self.spatial)
+        out = leaky_relu(self.unet(x_ds, *guide), 0.2)
         return F.pixel_shuffle(out, 2).float()
 
 

@@ -19,6 +19,14 @@ parameters carry the reference's PyTorch names (``enc1.blocks.0.rb.body.0``,
 ``trans.attn.in_proj_weight``, ``dec1.fuse.2``, ``tail.0``, ``enhTail.2``),
 which the JAX package's ``import_flca_unet_state_dict`` reads. No hand
 kernel runs in this model.
+
+``FLCAUNetConfig.spatial_axis`` names the mesh axes of spatially sharded
+inference (``parallel/tiled.py``). Bound: the luma max, the guidance
+resizes and the SE pools cross the spatial groups, the convs (strided and
+dilated too) exchange halos, the bottleneck token attention is gather-kv
+(``TokenTransformer``); the Haar DWT of ``unet_luma_dwt``'s FLCA stays
+local. A shard's packed H and W are multiples of 16 (four stride-2
+convs), so ``align`` never resizes there.
 """
 
 from __future__ import annotations
@@ -67,7 +75,9 @@ class PoolFLCA(nn.Module):
     ``feat (1 + alpha sigmoid(low) + beta tanh(high) + gamma sigmoid(chroma))``
     (bias-free 3x3 convs ``low_attn.0`` / ``high_attn.0`` /
     ``chroma_attn.0``; the fp32 balances make the sum fp32), then the SE
-    gate ``se``."""
+    gate ``se``; ``spatial``: the bound axes of a sharded rank."""
+
+    spatial = None
 
     def __init__(self, c: int, *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
         super().__init__()
@@ -80,8 +90,8 @@ class PoolFLCA(nn.Module):
             setattr(self, name, nn.Parameter(torch.ones((), device=device, dtype=dtype)))
 
     def forward(self, feat, y, cr, cb):
-        y, cr, cb = guidance_at(feat, y, cr, cb)
-        y_low, y_high = frequency_split(y, 3)
+        y, cr, cb = guidance_at(feat, y, cr, cb, self.spatial)
+        y_low, y_high = frequency_split(y, 3, self.spatial)
         a_low = torch.sigmoid(self.low_attn(y_low).float())
         a_high = torch.tanh(self.high_attn(y_high).float())
         a_chr = torch.sigmoid(self.chroma_attn(torch.cat([cr, cb], 1)).float())
@@ -171,10 +181,14 @@ class FLCAUNetConfig:
     guidance: str = "pool"  # "pool" (flca_unet) or "dwt" (unet_luma_dwt)
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py): None,
+    # the H axis name, or an (h, w) pair of names.
+    spatial_axis: Optional[object] = None
 
 
 class TransformerFLCAUNet(nn.Module):
     state_dict_from_jax = staticmethod(jax_params.flca_unet_state_dict_from_jax)
+    spatial = None  # the bound axes of a sharded rank (the luma max)
 
     def __init__(self, config: FLCAUNetConfig = FLCAUNetConfig(), device=None,
                  generator: Optional[torch.Generator] = None):
@@ -204,7 +218,7 @@ class TransformerFLCAUNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         x = x.to(cfg.dtype).contiguous(memory_format=torch.channels_last)
-        guide = luma_guidance(x, cfg.dtype)
+        guide = luma_guidance(x, cfg.dtype, self.spatial)
         x1, s1 = self.enc1(x, *guide)
         x2, s2 = self.enc2(x1, *guide)
         x3, s3 = self.enc3(x2, *guide)

@@ -28,6 +28,17 @@ over packed planes [B, 4, H, W] -> [B, 4, H, W] (NCHW, H and W divisible
 by 8) with a token transformer (``TokenTransformer``: flax's
 ``MultiHeadDotProductAttention`` on ``token_attention`` in the compute
 dtype, in chunks) and an additive FLCA at every scale.
+
+Spatially sharded inference (the configs' ``spatial_axis``;
+``parallel/tiled.make_tiled_forward`` binds the axes to every module with
+a ``spatial`` attribute): the token attentions are gather-kv, their
+queries local and their keys / values gathered along every sharded axis
+(attention does not depend on the order of the keys), so each rank's
+scores cover the whole image's keys; the luma's min / max and the
+inverse-luma mean cross the spatial groups; the convs, the 3x3 box of the
+inverse luma and the 15-tap box split exchange halos (or gather the axis
+where the halo exceeds the shard); the luma pools and ``max_pool2`` stay
+local (a shard's H and W are multiples of 16 mosaic pixels, 8 packed).
 """
 
 from __future__ import annotations
@@ -54,6 +65,8 @@ from bayer_low_light_image_enhancement_tpu_torch.models.common import (
 from bayer_low_light_image_enhancement_tpu_torch.models.registry import register_model
 from bayer_low_light_image_enhancement_tpu_torch.ops.conv import (
     conv2d,
+    conv2d_nchw,
+    gather_spatial,
     global_max,
     global_mean,
     global_min,
@@ -79,20 +92,23 @@ _CFA_TAPS = {
 }
 
 
-def bayer_luma_cfa(mosaic: torch.Tensor, pattern: str = "rggb") -> torch.Tensor:
+def bayer_luma_cfa(mosaic: torch.Tensor, pattern: str = "rggb",
+                   spatial_axis=None) -> torch.Tensor:
     """[B, 1, H, W] mosaic -> [B, 1, H, W] fp32 luma: a 3x3 CFA conv (stride
     1, zero padding 1) to r, g, b, their BT.601 sum, min-max normalised per
-    image. As in the reference the taps are the same at every pixel,
-    whatever its CFA phase."""
+    image (over the spatial groups of a bound ``spatial_axis``). As in the
+    reference the taps are the same at every pixel, whatever its CFA
+    phase."""
     taps = _CFA_TAPS[pattern.lower()]
     kernel = torch.zeros(3, 3, 1, 3)  # HWIO
     for ci, ch in enumerate("rgb"):
         for (i, j), wgt in taps[ch]:
             kernel[i, j, 0, ci] = wgt
-    rgb = conv2d(mosaic.float().permute(0, 2, 3, 1), kernel.to(mosaic.device))
+    rgb = conv2d(mosaic.float().permute(0, 2, 3, 1), kernel.to(mosaic.device),
+                 spatial_axis=spatial_axis)
     luma = (rgb * torch.tensor(BT601, device=mosaic.device)).sum(-1, keepdim=True)
-    lo = global_min(luma, (1, 2, 3))
-    hi = global_max(luma, (1, 2, 3))
+    lo = global_min(luma, (1, 2, 3), spatial_axis)
+    hi = global_max(luma, (1, 2, 3), spatial_axis)
     return ((luma - lo) / (hi - lo + 1e-6)).permute(0, 3, 1, 2)
 
 
@@ -122,9 +138,11 @@ class LumaCond(nn.Module):
 
 def token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     chunk_bytes: Optional[int], fp32_scores: bool = True) -> torch.Tensor:
-    """softmax(q k^T / sqrt(dh)) v over [B, heads, N, dh] tokens -> q's
+    """softmax(q k^T / sqrt(dh)) v over [B, heads, N, dh] queries and [B,
+    heads, M, dh] keys / values (M = N but on a gather-kv rank) -> q's
     shape in v's dtype. Query rows go in chunks of at most ``chunk_bytes``
-    of scores (None: one chunk), each recomputed in backward when grad is
+    of scores (a chunk's rows are M long; None: one chunk), each
+    recomputed in backward when grad is
     enabled; the chunks take k and v in fp32 and cast them for their
     products, so that their gradients sum over the chunks in fp32 (a bf16
     sum over hundreds of chunks would lose the gradient's low bits that one
@@ -157,7 +175,7 @@ def token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     if chunk_bytes is None:
         return rows(qs, kt, vf)
-    step = max(1, chunk_bytes // (b * heads * n * qs.element_size()))
+    step = max(1, chunk_bytes // (b * heads * k.shape[2] * qs.element_size()))
     recompute = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     parts = []
     for i in range(0, n, step):
@@ -170,7 +188,11 @@ def token_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class LuminanceAwareMHSA(nn.Module):
     """Token MHSA with luma FiLM on q, k and v and the centred inverse-luma
     query bias ``alpha * (box3x3(1 - luma) - mean)``; ``chunk_bytes``: see
-    ``token_attention``."""
+    ``token_attention``. Bound (``spatial``), gather-kv: k and v are
+    gathered along the sharded axes, the bias mean crosses the spatial
+    groups and the box exchanges halos."""
+
+    spatial = None
 
     def __init__(self, dim: int, num_heads: int = 8, *, device=None, dtype=torch.float32,
                  compute_dtype=torch.float32):
@@ -195,11 +217,13 @@ class LuminanceAwareMHSA(nn.Module):
         g, bta = (tokens(t) for t in self.luma_cond(luma))
         q, k, v = g * q + bta, g * k + bta, g * v + bta
 
+        sp = self.spatial
         inv = 1.0 - luma
         box = torch.full((1, 1, 3, 3), 1.0 / 9.0, device=x.device)
-        inv = F.conv2d(inv.float(), box, padding=1).to(inv.dtype)
-        inv = (inv - global_mean(inv, (1, 2, 3))).reshape(b, n)
+        inv = conv2d_nchw(inv.float(), box, spatial_axis=sp).to(inv.dtype)
+        inv = (inv - global_mean(inv, (1, 2, 3), sp, nchw=True)).reshape(b, n)
         q = q + self.alpha.to(q.dtype) * inv[:, None, :, None]
+        k, v = gather_spatial(k, sp, 2), gather_spatial(v, sp, 2)
 
         out = token_attention(q, k, v, self.chunk_bytes)  # [B, heads, N, dh]
         out = out.transpose(1, 2).reshape(b, h, w, heads * dh).permute(0, 3, 1, 2)
@@ -236,10 +260,14 @@ class LumaMHSAConfig:
     bayer_pattern: str = "rggb"
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py): None,
+    # the H axis name, or an (h, w) pair of names.
+    spatial_axis: Optional[object] = None
 
 
 class LumaMHSARawFormer(nn.Module):
     state_dict_from_jax = staticmethod(jax_params.luma_mhsa_state_dict_from_jax)
+    spatial = None  # the bound axes of a sharded rank (the luma's min / max)
 
     def __init__(self, config: LumaMHSAConfig = LumaMHSAConfig(), device=None,
                  generator: Optional[torch.Generator] = None):
@@ -267,7 +295,7 @@ class LumaMHSARawFormer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.config.dtype
-        luma = bayer_luma_cfa(x, self.config.bayer_pattern).to(cd)
+        luma = bayer_luma_cfa(x, self.config.bayer_pattern, self.spatial).to(cd)
         lumas = {s: avg_pool(luma, s) for s in (2, 4, 8, 16)}
         x = F.pixel_unshuffle(x.to(cd), 2).contiguous(memory_format=torch.channels_last)
         x1 = self.enc1(self.embedding(x), lumas[2])
@@ -300,7 +328,9 @@ class TokenMHA(nn.Module):
     projected channels head-major, as flax's (heads, head_dim) features
     do. Computes in ``compute_dtype``; the attention is ``token_attention``
     with flax's dtypes (``fp32_scores=False``) in chunks of at most
-    ``chunk_bytes`` of scores."""
+    ``chunk_bytes`` of scores. ``forward(t, kv)`` projects q from ``t`` and
+    k / v from ``kv`` (flax's ``attn(inputs_q, inputs_kv)``, gather-kv on
+    a sharded rank); ``kv`` None is ``t``."""
 
     def __init__(self, dim: int, num_heads: int, *, device=None, dtype=torch.float32,
                  compute_dtype=torch.float32):
@@ -317,11 +347,17 @@ class TokenMHA(nn.Module):
         for p in (self.in_proj_weight, self.in_proj_bias):
             p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, c = t.shape
-        cd = self.compute_dtype
-        qkv = F.linear(t.to(cd), self.in_proj_weight.to(cd), self.in_proj_bias.to(cd))
-        q, k, v = qkv.reshape(b, n, 3, self.num_heads, c // self.num_heads).permute(2, 0, 3, 1, 4)
+        cd, heads = self.compute_dtype, self.num_heads
+        w, bias = self.in_proj_weight.to(cd), self.in_proj_bias.to(cd)
+        if kv is None:
+            qkv = F.linear(t.to(cd), w, bias)
+            q, k, v = qkv.reshape(b, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+        else:
+            q = F.linear(t.to(cd), w[:c], bias[:c]).reshape(b, n, heads, c // heads).transpose(1, 2)
+            k, v = F.linear(kv.to(cd), w[c:], bias[c:]).reshape(
+                b, kv.shape[1], 2, heads, c // heads).permute(2, 0, 3, 1, 4)
         out = token_attention(q, k, v, self.chunk_bytes, fp32_scores=False)
         return self.out_proj(out.transpose(1, 2).reshape(b, n, c))
 
@@ -335,7 +371,11 @@ class TokenTransformer(nn.Module):
     (``residual_scale`` s = 0.2, ``norms=("ln1", "ln2")``) and
     ``lumachroma_transformer.LocalEnhanceTransformer`` (``local=True``: a
     3x3 depthwise conv of x -> GELU, ``local_enhance.0``, added after the
-    attention)."""
+    attention). Bound (``spatial``), gather-kv: the attention's keys and
+    values come from the normalised tokens gathered along the sharded
+    axes, its queries from this rank's."""
+
+    spatial = None
 
     def __init__(self, dim: int, num_heads: int = 4, mlp_ratio: float = 4.0,
                  residual_scale: float = 1.0, norms: Tuple[str, str] = ("norm1", "norm2"),
@@ -364,7 +404,9 @@ class TokenTransformer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         t = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        t = t + self._scaled(self.attn(self._norm(0, t)))
+        tn = self._norm(0, t)
+        kv = None if self.spatial is None else gather_spatial(tn, self.spatial, 1)
+        t = t + self._scaled(self.attn(tn, kv))
         if self.local_enhance is not None:
             loc = self.local_enhance[0](x)
             t = t + F.gelu(loc.float()).to(loc.dtype).permute(0, 2, 3, 1).reshape(b, h * w, c)
@@ -374,18 +416,23 @@ class TokenTransformer(nn.Module):
         return t.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
-def guidance_at(feat: torch.Tensor, y: torch.Tensor, cr: torch.Tensor, cb: torch.Tensor):
+def guidance_at(feat: torch.Tensor, y: torch.Tensor, cr: torch.Tensor, cb: torch.Tensor,
+                spatial_axis=None):
     """The [B, 1, H, W] guidance planes bilinearly resized to ``feat``'s
-    resolution (fp32 resize) and cast to its dtype."""
+    resolution (fp32 resize; the sharded one of ``ops/flca.py`` on a bound
+    ``spatial_axis``) and cast to its dtype."""
     hf, wf = feat.shape[-2:]
-    return tuple(nchw(resize_bilinear(nhwc(t), hf, wf)).to(feat.dtype) for t in (y, cr, cb))
+    return tuple(nchw(resize_bilinear(nhwc(t), hf, wf, spatial_axis)).to(feat.dtype)
+                 for t in (y, cr, cb))
 
 
 class SimpleFLCA(nn.Module):
     """FLCA with a 15-tap box split, additive:
     ``feat (1 + sigmoid(low)) + feat tanh(high) + feat sigmoid(chroma)``,
     the three maps from 3x3 convs with bias (``low_attn.0``, ...), each
-    activation in fp32."""
+    activation in fp32; ``spatial``: the bound axes of a sharded rank."""
+
+    spatial = None
 
     def __init__(self, c: int, *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
         super().__init__()
@@ -395,8 +442,8 @@ class SimpleFLCA(nn.Module):
         self.chroma_attn = nn.Sequential(Conv2d(2, c, 3, **kw))
 
     def forward(self, feat, y, cr, cb):
-        y, cr, cb = guidance_at(feat, y, cr, cb)
-        y_low, y_high = frequency_split(y, 15)
+        y, cr, cb = guidance_at(feat, y, cr, cb, self.spatial)
+        y_low, y_high = frequency_split(y, 15, self.spatial)
         low_a = torch.sigmoid(self.low_attn(y_low).float()).to(feat.dtype)
         high_a = torch.tanh(self.high_attn(y_high).float()).to(feat.dtype)
         chroma_a = torch.sigmoid(self.chroma_attn(torch.cat([cr, cb], 1)).float()).to(feat.dtype)
@@ -422,6 +469,8 @@ class SimpleFLCAUNetConfig:
     heads: int = 4
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py).
+    spatial_axis: Optional[object] = None
 
 
 class SimpleFLCAUNet(nn.Module):

@@ -22,6 +22,14 @@ Contract: input NCHW [B, 4, H, W] packed planes, any H, W; output
 ``bottleneck.conv_up``, ``dec1.fuse.3``, ``tail.2``), which the JAX
 package's ``import_lumachroma_transformer_state_dict`` reads. No hand
 kernel runs in this model.
+
+``LumaChromaTransformerConfig.spatial_axis`` names the mesh axes of
+spatially sharded inference (``parallel/tiled.py``). Bound (``spatial`` of
+the modules below): the InstanceNorm means and the luma max cross the
+spatial groups, the guidance resizes are the sharded ones of
+``ops/flca.py``, the 7 / 15 / 31-tap box splits exchange halos (or gather
+the axis where the halo exceeds the shard), the convs exchange halos, and
+the token blocks are gather-kv (``TokenTransformer``).
 """
 
 from __future__ import annotations
@@ -49,13 +57,14 @@ from bayer_low_light_image_enhancement_tpu_torch.ops.conv import global_mean, le
 from bayer_low_light_image_enhancement_tpu_torch.ops.flca import frequency_split
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, spatial_axis=None) -> torch.Tensor:
     """Per image and channel over H, W of NCHW x, no affine, in fp32 and
     back in x's dtype, with the JAX package's one-pass variance
-    ``E[x^2] - mu^2`` (``F.instance_norm`` takes the two-pass one)."""
+    ``E[x^2] - mu^2`` (``F.instance_norm`` takes the two-pass one); both
+    means over the spatial groups of a bound ``spatial_axis``."""
     xf = x.float()
-    mu = global_mean(xf, (2, 3))
-    var = global_mean(xf * xf, (2, 3)) - mu * mu
+    mu = global_mean(xf, (2, 3), spatial_axis, nchw=True)
+    var = global_mean(xf * xf, (2, 3), spatial_axis, nchw=True) - mu * mu
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -65,6 +74,8 @@ class MultiKernelFLCA(nn.Module):
     ``high`` its residues under each of ``freq_kernels`` (channels), the
     maps from bias-free 3x3 convs (``low_attn.0``, ...), ``refine`` a
     bias-free 1x1; the sum in the compute dtype."""
+
+    spatial = None
 
     def __init__(self, c: int, freq_kernels: Tuple[int, ...] = (7, 15, 31),
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
@@ -77,13 +88,15 @@ class MultiKernelFLCA(nn.Module):
         self.refine = Conv2d(c, c, 1, bias=False, **kw)
 
     def forward(self, feat, y, cr, cb):
-        y, cr, cb = guidance_at(feat, y, cr, cb)
-        low, _ = frequency_split(y, 15)
-        highs = torch.cat([frequency_split(y, k)[1] for k in self.freq_kernels], 1)
-        low_a = torch.sigmoid(instance_norm(self.low_attn(low)).float()).to(feat.dtype)
-        high_a = torch.tanh(instance_norm(self.high_attn(highs)).float()).to(feat.dtype)
+        sp = self.spatial
+        y, cr, cb = guidance_at(feat, y, cr, cb, sp)
+        low, _ = frequency_split(y, 15, sp)
+        highs = torch.cat([frequency_split(y, k, sp)[1] for k in self.freq_kernels], 1)
+        low_a = torch.sigmoid(instance_norm(self.low_attn(low), spatial_axis=sp).float())
+        high_a = torch.tanh(instance_norm(self.high_attn(highs), spatial_axis=sp).float())
         chroma_a = torch.sigmoid(
-            instance_norm(self.chroma_attn(torch.cat([cr, cb], 1))).float()).to(feat.dtype)
+            instance_norm(self.chroma_attn(torch.cat([cr, cb], 1)), spatial_axis=sp).float())
+        low_a, high_a, chroma_a = (a.to(feat.dtype) for a in (low_a, high_a, chroma_a))
         out = feat * (1.0 + low_a + high_a + chroma_a)
         return out + self.refine(out)
 
@@ -95,14 +108,16 @@ def in_conv_block(cin: int, cout: int, kw) -> nn.Sequential:
                          Conv2d(cout, cout, 3, **kw), nn.InstanceNorm2d(cout), nn.LeakyReLU(0.2))
 
 
-def in_conv_forward(block: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    x = leaky_relu(instance_norm(block[0](x)), 0.2)
-    return leaky_relu(instance_norm(block[3](x)), 0.2)
+def in_conv_forward(block: nn.Sequential, x: torch.Tensor, spatial_axis=None) -> torch.Tensor:
+    x = leaky_relu(instance_norm(block[0](x), spatial_axis=spatial_axis), 0.2)
+    return leaky_relu(instance_norm(block[3](x), spatial_axis=spatial_axis), 0.2)
 
 
 class EncoderStage(nn.Module):
     """``in_conv``, ``blocks``, ``trans`` (local-enhance), ``flca``, ``down``;
     -> (downsampled, skip)."""
+
+    spatial = None
 
     def __init__(self, cin: int, cout: int, cfg, kw):
         super().__init__()
@@ -115,7 +130,7 @@ class EncoderStage(nn.Module):
     def forward(self, x, *guide):
         x = self.in_conv(x)
         for block in self.blocks:
-            x = in_conv_forward(block, x)
+            x = in_conv_forward(block, x, self.spatial)
         skip = self.flca(self.trans(x), *guide)
         return self.down(skip), skip
 
@@ -138,6 +153,8 @@ class DecoderStage(nn.Module):
     """``up``, re-aligned to the skip, concat, ``fuse`` (conv, IN, GELU,
     conv, IN, GELU; convs at 0 and 3)."""
 
+    spatial = None
+
     def __init__(self, cin: int, cout: int, kw):
         super().__init__()
         self.up = Upsample2x(cin, cout, **kw)
@@ -147,8 +164,9 @@ class DecoderStage(nn.Module):
 
     def forward(self, x, skip):
         x = align(self.up(x), skip)
-        x = gelu(instance_norm(self.fuse[0](torch.cat([x, skip.to(x.dtype)], 1))))
-        return gelu(instance_norm(self.fuse[3](x)))
+        sp = self.spatial
+        x = gelu(instance_norm(self.fuse[0](torch.cat([x, skip.to(x.dtype)], 1)), spatial_axis=sp))
+        return gelu(instance_norm(self.fuse[3](x), spatial_axis=sp))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,10 +179,14 @@ class LumaChromaTransformerConfig:
     heads: int = 4
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py): None,
+    # the H axis name, or an (h, w) pair of names.
+    spatial_axis: Optional[object] = None
 
 
 class BayerLumaChromaTransformer(nn.Module):
     state_dict_from_jax = staticmethod(jax_params.lumachroma_state_dict_from_jax)
+    spatial = None  # the bound axes of a sharded rank (the luma max)
 
     def __init__(self, config: LumaChromaTransformerConfig = LumaChromaTransformerConfig(),
                  device=None, generator: Optional[torch.Generator] = None):
@@ -188,7 +210,7 @@ class BayerLumaChromaTransformer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         raw = x.to(cfg.dtype).contiguous(memory_format=torch.channels_last)
-        guide = luma_guidance(raw, cfg.dtype)
+        guide = luma_guidance(raw, cfg.dtype, self.spatial)
         x1, s1 = self.enc1(raw, *guide)
         x2, s2 = self.enc2(x1, *guide)
         x3, s3 = self.enc3(x2, *guide)

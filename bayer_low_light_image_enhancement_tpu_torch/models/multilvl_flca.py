@@ -10,6 +10,10 @@ the FLCA U-Net with ``FLCAPyramid`` stages, plus two output corrections:
 
 And the companion ``color_consistency_loss``. The downsamples are bare
 Sequentials (``down{j}.0.weight``), as in the reference.
+
+``MultiLvlFLCAConfig.spatial_axis``: as ``models/flca_rawformer.py``'s;
+bound, the colour anchor's two means cross the spatial groups and the LL
+anchor's resize is the sharded one of ``ops/flca.py``.
 """
 
 from __future__ import annotations
@@ -47,11 +51,12 @@ def demosaic_from_packed(planes: torch.Tensor) -> torch.Tensor:
 
 
 def color_anchor_correction(out_rgb: torch.Tensor, packed: torch.Tensor,
-                            alpha: float = 0.12) -> torch.Tensor:
+                            alpha: float = 0.12, spatial_axis=None) -> torch.Tensor:
     """Mean-shift NHWC ``out_rgb`` toward the linear-demosaic mean of the
-    NHWC ``packed`` planes (means are resize-invariant: no upsample)."""
-    in_mean = global_mean(demosaic_from_packed(packed), (1, 2))
-    return out_rgb + alpha * (in_mean - global_mean(out_rgb, (1, 2)))
+    NHWC ``packed`` planes (means are resize-invariant: no upsample), both
+    means over the spatial groups of a bound ``spatial_axis``."""
+    in_mean = global_mean(demosaic_from_packed(packed), (1, 2), spatial_axis)
+    return out_rgb + alpha * (in_mean - global_mean(out_rgb, (1, 2), spatial_axis))
 
 
 def color_consistency_loss(pred_rgb: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
@@ -93,6 +98,8 @@ class MultiLvlFLCAConfig:
     ll_nudge: float = 0.03
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py).
+    spatial_axis: Optional[object] = None
 
 
 class MultiLvlFLCARawFormer(GuidedUNet):
@@ -109,10 +116,10 @@ class MultiLvlFLCARawFormer(GuidedUNet):
         reset_parameters_(self, generator or torch.Generator().manual_seed(0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
+        cfg, sp = self.config, self.spatial
         x_ds = pack_planes(x, cfg.dtype)
         planes = nhwc(x_ds).float()
-        y, cr, cb = bayer_luma_chroma(planes)
+        y, cr, cb = bayer_luma_chroma(planes, spatial_axis=sp)
         ll_anchor = y
         for _ in range(2):
             ll_anchor, _ = haar_dwt_fb(ll_anchor)
@@ -120,9 +127,9 @@ class MultiLvlFLCARawFormer(GuidedUNet):
         guide = (nchw(t).to(cfg.dtype) for t in (y, cr, cb))
         out = leaky_relu(self.unet(x_ds, *guide), 0.2)
         out = nhwc(F.pixel_shuffle(out, 2).float())
-        out = color_anchor_correction(out, planes, cfg.anchor_alpha)
+        out = color_anchor_correction(out, planes, cfg.anchor_alpha, sp)
 
-        ll_up = resize_bilinear(ll_anchor, out.shape[1], out.shape[2])
+        ll_up = resize_bilinear(ll_anchor, out.shape[1], out.shape[2], sp)
         wr, wg, wb = BT601
         out_y = wr * out[..., 0:1] + wg * out[..., 1:2] + wb * out[..., 2:3]
         return nchw(out + (ll_up - out_y) * cfg.ll_nudge)

@@ -125,6 +125,6 @@ def _make_rawformer(size: str):
     return build
 
 
-register_model("rawformer_s", _make_rawformer("S"), spatial=True)
-register_model("rawformer_b", _make_rawformer("B"), spatial=True)
-register_model("rawformer_l", _make_rawformer("L"), spatial=True)
+register_model("rawformer_s", _make_rawformer("S"))
+register_model("rawformer_b", _make_rawformer("B"))
+register_model("rawformer_l", _make_rawformer("L"))

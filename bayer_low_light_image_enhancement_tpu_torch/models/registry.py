@@ -8,10 +8,11 @@ port registers the JAX registry's 14 models: the RAW -> RGB
 and the raw-domain ``flca_unet``, ``unet_luma_dwt``, ``simple_flca_unet``
 and ``lumachroma_transformer``.
 
-``get_model(name, spatial_axis=...)`` builds a model for spatially sharded
-inference (``parallel/tiled.py``): RawFormer S/B/L (H, or H and W) and
-RawFormer-WFB (H). Every other family raises TypeError, which the eval
-CLI turns into its "does not support" exit, as the JAX CLI does.
+``get_model(name, spatial_axis=...)`` builds any of them for spatially
+sharded inference (``parallel/tiled.py``), by H or by H and W; RawFormer-WFB
+shards by H only (its config refuses a W axis). The parameter names do not
+depend on ``spatial_axis``, so a sharded model loads the monolithic
+``state_dict``.
 """
 
 from __future__ import annotations
@@ -20,22 +21,17 @@ from typing import Callable, Dict, List
 
 _REGISTRY: Dict[str, Callable] = {}
 _RAW_DOMAIN: set = set()
-_SPATIAL: set = set()
 
 
-def register_model(name: str, builder: Callable, raw_domain: bool = False,
-                   spatial: bool = False) -> None:
+def register_model(name: str, build: Callable, raw_domain: bool = False) -> None:
     """``raw_domain=True`` marks models that map packed Bayer planes to
     enhanced planes ([B,H,W,4] -> [B,H,W,4]) rather than RAW -> RGB; the
-    train and eval CLIs refuse them. ``spatial=True`` marks a builder that
-    takes ``spatial_axis``."""
+    train and eval CLIs refuse them."""
     if name in _REGISTRY:
         raise ValueError(f"model {name!r} already registered")
-    _REGISTRY[name] = builder
+    _REGISTRY[name] = build
     if raw_domain:
         _RAW_DOMAIN.add(name)
-    if spatial:
-        _SPATIAL.add(name)
 
 
 def is_raw_domain(name: str) -> bool:
@@ -48,9 +44,6 @@ def get_model(name: str, **kwargs):
         builder = _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}") from None
-    if "spatial_axis" in kwargs and name not in _SPATIAL:
-        raise TypeError(f"model {name!r} takes no spatial_axis: its spatially sharded "
-                        f"inference is not ported yet (ported: {sorted(_SPATIAL)})")
     return builder(**kwargs)
 
 

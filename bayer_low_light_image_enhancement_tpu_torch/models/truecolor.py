@@ -9,7 +9,9 @@ FLCA-style dual branches whose guidance adds the rgb guide. Output head:
 ReLU (not leaky) -> pixel_shuffle -> ``ColorCorrection``.
 
 Contract: as ``models/flca_rawformer.py`` (fp32 [B, 3, H, W] out, already
-in [0, 1] by the colour correction's clip).
+in [0, 1] by the colour correction's clip). ``TrueColorConfig.spatial_axis``
+as there: bound, ``BayerProcessor`` and ``EnhancedFLCA`` take their sharded
+forms (``ops/isp.py``); the colour correction is pointwise.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ class TrueColorConfig:
     bayertorgb: bool = False  # the BayerTORGB variant's switches
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py).
+    spatial_axis: Optional[object] = None
 
 
 class TrueColorRawFormer(GuidedUNet):

@@ -24,6 +24,13 @@ BatchNorm2d``). No hand kernel runs in this model.
 
 Contract: input [B, 1, H, W] RAW mosaic, H and W divisible by 16, output
 [B, 3, H, W] fp32, both NCHW (LeakyReLU head, nothing clamped).
+
+``WavKANConfig.spatial_axis`` names the mesh axes of spatially sharded
+inference (``parallel/tiled.py``). Bound: the channel attention sums its
+gram and sums of squares over the spatial groups (``ops/attention.py``),
+the convs (``qkv``'s and the FFN's depthwise ones among them) exchange
+halos, and ``KANLinear`` and its BatchNorm (running statistics in eval
+mode) are per pixel and stay local.
 """
 
 from __future__ import annotations
@@ -131,7 +138,10 @@ class GELU32(nn.Module):
 
 class KANAttention(nn.Module):
     """``qkv`` (KANLinear to 3C, then a 3x3 depthwise conv) -> channel
-    attention with the per-head temperature ``scale`` -> KANLinear ``proj``."""
+    attention with the per-head temperature ``scale`` -> KANLinear ``proj``;
+    ``spatial``: the bound axes of a sharded rank (the attention's sums)."""
+
+    spatial = None
 
     def __init__(self, dim: int, num_heads: int = 8, wavelet_type: str = "mexican_hat", **kw):
         super().__init__()
@@ -144,7 +154,7 @@ class KANAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.qkv(x).permute(0, 2, 3, 1).chunk(3, dim=-1)
-        out = channel_attention(q, k, v, self.scale, self.num_heads)
+        out = channel_attention(q, k, v, self.scale, self.num_heads, self.spatial)
         return self.proj(out.permute(0, 3, 1, 2))
 
 
@@ -225,6 +235,9 @@ class WavKANConfig:
     ref_decoder_heads: bool = False
     dtype: torch.dtype = torch.float32        # compute
     param_dtype: torch.dtype = torch.float32  # storage
+    # Mesh axes of spatially sharded inference (parallel/tiled.py): None,
+    # the H axis name, or an (h, w) pair of names.
+    spatial_axis: Optional[object] = None
 
 
 class WavKANRawFormer(nn.Module):

@@ -235,4 +235,4 @@ def _build(device=None, generator: Optional[torch.Generator] = None, **kw) -> Ra
     return RawFormerWFB(RawFormerWFBConfig(**kw), device=device, generator=generator)
 
 
-register_model("rawformer_wfb", _build, spatial=True)
+register_model("rawformer_wfb", _build)

@@ -46,10 +46,12 @@ def spatial_axes(spatial_axis) -> tuple:
     return spatial_axis, None
 
 
-def reduce_axis_names(spatial_axis, axes: Tuple[int, ...]) -> tuple:
-    """The bound axes a reduction over NHWC tensor ``axes`` must also cross."""
+def reduce_axis_names(spatial_axis, axes: Tuple[int, ...], nchw: bool = False) -> tuple:
+    """The bound axes a reduction over tensor ``axes`` must also cross: H and
+    W are dims 1 and 2 of NHWC, 2 and 3 of NCHW (``nchw``)."""
     h_ax, w_ax = spatial_axes(spatial_axis)
-    return tuple(a for a, d in ((h_ax, 1), (w_ax, 2)) if a is not None and d in axes)
+    h_dim, w_dim = (2, 3) if nchw else (1, 2)
+    return tuple(a for a, d in ((h_ax, h_dim), (w_ax, w_dim)) if a is not None and d in axes)
 
 
 def gather_axis(t: torch.Tensor, axis, dim: int) -> torch.Tensor:
@@ -183,26 +185,30 @@ def _reduce(m: torch.Tensor, axes, op) -> torch.Tensor:
     return m
 
 
-def global_mean(x: torch.Tensor, dims: Tuple[int, ...], spatial_axis=None) -> torch.Tensor:
+def global_mean(x: torch.Tensor, dims: Tuple[int, ...], spatial_axis=None,
+                nchw: bool = False) -> torch.Tensor:
     """Mean over ``dims``, kept as size-1 dims (x's dtype); over the ranks
-    too where NHWC dims 1 / 2 are sharded (every shard holds as many
-    elements, so the mean of the shards' means is the global mean)."""
-    axes = reduce_axis_names(spatial_axis, dims)
+    too where H / W (NHWC dims 1 / 2, NCHW's 2 / 3 with ``nchw``) are
+    sharded (every shard holds as many elements, so the mean of the shards'
+    means is the global mean)."""
+    axes = reduce_axis_names(spatial_axis, dims, nchw)
     m = _reduce(x.mean(dim=dims, keepdim=True), axes, dist.ReduceOp.SUM)
     for ax in axes:
         m = m / ax.size
     return m
 
 
-def global_max(x: torch.Tensor, dims: Tuple[int, ...], spatial_axis=None) -> torch.Tensor:
+def global_max(x: torch.Tensor, dims: Tuple[int, ...], spatial_axis=None,
+               nchw: bool = False) -> torch.Tensor:
     """Max over ``dims``, kept as size-1 dims; over the ranks too where
     sharded."""
-    return _reduce(x.amax(dim=dims, keepdim=True), reduce_axis_names(spatial_axis, dims),
+    return _reduce(x.amax(dim=dims, keepdim=True), reduce_axis_names(spatial_axis, dims, nchw),
                    dist.ReduceOp.MAX)
 
 
-def global_min(x: torch.Tensor, dims: Tuple[int, ...], spatial_axis=None) -> torch.Tensor:
+def global_min(x: torch.Tensor, dims: Tuple[int, ...], spatial_axis=None,
+               nchw: bool = False) -> torch.Tensor:
     """Min over ``dims``, kept as size-1 dims; over the ranks too where
     sharded."""
-    return _reduce(x.amin(dim=dims, keepdim=True), reduce_axis_names(spatial_axis, dims),
+    return _reduce(x.amin(dim=dims, keepdim=True), reduce_axis_names(spatial_axis, dims, nchw),
                    dist.ReduceOp.MIN)

@@ -1,18 +1,30 @@
 """Frequency-aware Luma-Chroma Attention (FLCA) and SE channel attention.
 
-Port of ``bayer_low_light_image_enhancement_tpu/ops/flca.py`` (single
-device). A Haar DWT of the luma guidance yields a low band and a
-high-frequency magnitude map; these plus the chroma planes are bilinearly
-resized to the feature resolution and turned into spatial attention maps
-that modulate the features, followed by an SE (squeeze-excitation) channel
-gate. ``FLCAPyramid`` is the multi-level variant with gated,
-tanh-bounded residuals.
+Port of ``bayer_low_light_image_enhancement_tpu/ops/flca.py``. A Haar DWT
+of the luma guidance yields a low band and a high-frequency magnitude map;
+these plus the chroma planes are bilinearly resized to the feature
+resolution and turned into spatial attention maps that modulate the
+features, followed by an SE (squeeze-excitation) channel gate.
+``FLCAPyramid`` is the multi-level variant with gated, tanh-bounded
+residuals.
 
 The modules take NCHW tensors (features and the [B, 1, H, W] guidance
 planes, computed once per forward at packed resolution); the DWT and the
 resize run on NHWC views. Parameters carry the reference's PyTorch names
 (``low_attn.0``, ``se.1`` / ``se.3``, ``freq_gate_head.{l}``,
 ``res_proj.0`` / ``.2``, ...).
+
+Spatially sharded inference (``parallel/tiled.py``): modules with a
+``spatial`` attribute hold the bound spec of ``ops/conv.py`` once
+``models.common.bind_spatial`` binds them (None: the monolithic forward,
+bitwise as before). Bound, a guidance resize gathers its input along the
+sharded axes, resizes the whole map with the monolithic call and slices
+this rank's block back (a resize's edge clamping and a boundary row's
+source pixels are global properties; the gather is exact, so the block is
+bitwise the monolithic map's); the SE pool and the pyramid's band and
+chroma means are local partials averaged over the spatial groups; the box
+filter of ``frequency_split`` exchanges halos, or gathers the axis where
+its halo exceeds the shard (``ops/conv.conv2d_nchw``).
 """
 
 from __future__ import annotations
@@ -24,29 +36,47 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bayer_low_light_image_enhancement_tpu_torch.models.common import Conv2d
-from bayer_low_light_image_enhancement_tpu_torch.ops.conv import global_mean
+from bayer_low_light_image_enhancement_tpu_torch.ops.conv import (
+    conv2d_nchw,
+    gather_axis,
+    global_mean,
+    spatial_axes,
+)
 from bayer_low_light_image_enhancement_tpu_torch.ops.dwt import haar_dwt_fb
 
 
-def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, h: int, w: int, spatial_axis=None) -> torch.Tensor:
     """Bilinear resize of NHWC x [B, H, W, C] to [B, h, w, C] with
     half-pixel centers, edge-clamped and without antialiasing on downsample
     (``F.interpolate(mode="bilinear", align_corners=False)``), computed in
-    fp32 and cast back to x's dtype."""
+    fp32 and cast back to x's dtype.
+
+    With ``spatial_axis`` bound, x and (h, w) are this rank's block sizes
+    and the result is its block of the whole frame's resize: x is gathered
+    along the sharded axes, resized whole, and the block sliced back."""
     if tuple(x.shape[1:3]) == (h, w):
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
+    h_ax, w_ax = spatial_axes(spatial_axis)
+    x = gather_axis(gather_axis(x, h_ax, 1), w_ax, 2)
+    size = (h * h_ax.size if h_ax else h, w * w_ax.size if w_ax else w)
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=size, mode="bilinear",
                       align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1).to(x.dtype)
+    y = y.permute(0, 2, 3, 1).to(x.dtype)
+    if h_ax is not None:
+        y = y.narrow(1, h_ax.index * h, h)
+    if w_ax is not None:
+        y = y.narrow(2, w_ax.index * w, w)
+    return y
 
 
-def frequency_split(x: torch.Tensor, kernel_size: int = 3):
+def frequency_split(x: torch.Tensor, kernel_size: int = 3, spatial_axis=None):
     """NCHW x -> (low, x - low): ``low`` the k x k box filter of each channel
     (stride 1, zero padding (k-1)//2, a fixed divisor k^2, its taps in x's
-    dtype), as the JAX package's ``models/flca_unet.frequency_split``."""
+    dtype), as the JAX package's ``models/flca_unet.frequency_split``; with
+    ``spatial_axis`` bound, through the halo conv."""
     c, k = x.shape[1], kernel_size
     box = torch.full((c, 1, k, k), 1.0 / (k * k), dtype=x.dtype, device=x.device)
-    low = F.conv2d(x, box, padding=(k - 1) // 2, groups=c)
+    low = conv2d_nchw(x, box, groups=c, spatial_axis=spatial_axis)
     return low, x - low
 
 
@@ -73,6 +103,8 @@ class SqueezeExcite(nn.Sequential):
     the reference's Sequential (convs at indices 1 and 3). Returns the
     [B, C, 1, 1] gate in x's dtype."""
 
+    spatial = None
+
     def __init__(self, c: int, reduction: int = 8, min_hidden: int = 8,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
         hidden = max(min_hidden, c // reduction)
@@ -81,7 +113,7 @@ class SqueezeExcite(nn.Sequential):
                          Conv2d(hidden, c, 1, **kw), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = F.relu(self[1](global_mean(x, (2, 3))))
+        g = F.relu(self[1](global_mean(x, (2, 3), self.spatial, nchw=True)))
         return torch.sigmoid(self[3](g).float()).to(x.dtype)
 
 
@@ -94,6 +126,8 @@ class FLCA(nn.Module):
     """Frequency-aware luma-chroma attention block:
     ``feat * (1 + alpha sigmoid(low) + beta tanh(high) + gamma sigmoid(chroma))``
     then the SE gate."""
+
+    spatial = None
 
     def __init__(self, c: int, eps: float = 1e-8,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
@@ -109,12 +143,12 @@ class FLCA(nn.Module):
 
     def forward(self, feat, y, cr, cb):
         hf, wf = feat.shape[-2:]
-        cd = self.compute_dtype
+        cd, sp = self.compute_dtype, self.spatial
         ll, highs = haar_dwt_fb(nhwc(y).float())
-        y_low = resize_bilinear(ll, hf, wf).to(cd)
-        y_high = resize_bilinear(high_magnitude(highs, self.eps), hf, wf).to(cd)
-        cr_r = resize_bilinear(nhwc(cr), hf, wf).to(cd)
-        cb_r = resize_bilinear(nhwc(cb), hf, wf).to(cd)
+        y_low = resize_bilinear(ll, hf, wf, sp).to(cd)
+        y_high = resize_bilinear(high_magnitude(highs, self.eps), hf, wf, sp).to(cd)
+        cr_r = resize_bilinear(nhwc(cr), hf, wf, sp).to(cd)
+        cb_r = resize_bilinear(nhwc(cb), hf, wf, sp).to(cd)
         a_low = torch.sigmoid(guide_conv(self.low_attn, y_low)).to(cd)
         a_high = torch.tanh(guide_conv(self.high_attn, y_high)).to(cd)
         a_chr = torch.sigmoid(guide_conv(self.chroma_attn, torch.cat([cr_r, cb_r], -1))).to(cd)
@@ -130,6 +164,8 @@ class FLCAPyramid(nn.Module):
     maps gated by sigmoids of pooled band statistics give a residual bounded
     by ``tanh(.) * max_residual_scale``; then a gated chroma residual and
     the SE gate."""
+
+    spatial = None
 
     def __init__(self, c: int, levels: int = 2, max_residual_scale: float = 0.2,
                  eps: float = 1e-8,
@@ -152,7 +188,7 @@ class FLCAPyramid(nn.Module):
 
     def forward(self, feat, y, cr, cb):
         hf, wf = feat.shape[-2:]
-        cd = self.compute_dtype
+        cd, sp = self.compute_dtype, self.spatial
         lows: List[torch.Tensor] = []
         highs: List[torch.Tensor] = []
         cur = nhwc(y).float()
@@ -163,20 +199,21 @@ class FLCAPyramid(nn.Module):
 
         x = feat
         for l in range(self.levels):
-            y_low = resize_bilinear(lows[l], hf, wf).to(cd)
-            y_high = resize_bilinear(highs[l], hf, wf).to(cd)
+            y_low = resize_bilinear(lows[l], hf, wf, sp).to(cd)
+            y_high = resize_bilinear(highs[l], hf, wf, sp).to(cd)
             a_low = torch.sigmoid(guide_conv(self.low_attn[l], y_low)).to(cd)
             a_high = torch.tanh(guide_conv(self.high_attn[l], y_high)).to(cd)
-            pooled = torch.cat([global_mean(y_low, (1, 2)), global_mean(y_high, (1, 2))], -1)
+            pooled = torch.cat([global_mean(y_low, (1, 2), sp), global_mean(y_high, (1, 2), sp)],
+                               -1)
             gates = torch.sigmoid(guide_conv(self.freq_gate_head[l], pooled)).to(cd)
             spatial = gates[:, 0:1] * a_low + gates[:, 1:2] * a_high
             x = self._residual(x, x * spatial)
 
-        cr_r = resize_bilinear(nhwc(cr).float(), hf, wf).to(cd)
-        cb_r = resize_bilinear(nhwc(cb).float(), hf, wf).to(cd)
+        cr_r = resize_bilinear(nhwc(cr).float(), hf, wf, sp).to(cd)
+        cb_r = resize_bilinear(nhwc(cb).float(), hf, wf, sp).to(cd)
         a_chr = torch.sigmoid(guide_conv(self.chroma_attn, torch.cat([cr_r, cb_r], -1))).to(cd)
         chr_mag = torch.sqrt(cr_r.float() ** 2 + cb_r.float() ** 2 + self.eps)
         gamma = torch.sigmoid(guide_conv(self.chroma_gate,
-                                         global_mean(chr_mag.to(cd), (1, 2)))).to(cd)
+                                         global_mean(chr_mag.to(cd), (1, 2), sp))).to(cd)
         x = self._residual(x, x * (gamma * a_chr))
         return x * self.se(x)

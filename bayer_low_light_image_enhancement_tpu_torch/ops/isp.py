@@ -1,7 +1,6 @@
 """Learned-ISP components of the TrueColor model family.
 
-Port of ``bayer_low_light_image_enhancement_tpu/ops/isp.py`` (single
-device):
+Port of ``bayer_low_light_image_enhancement_tpu/ops/isp.py``:
 
 * ``BayerProcessor``: learnable white-balance gains, conv demosaic
   refinement, a learnable 3x4 colour matrix, BT.709 luma (per-image max
@@ -20,6 +19,12 @@ device):
 Modules take NCHW tensors; parameters carry the reference's PyTorch names
 (``demosaic_refine.0`` / ``.2``, ``chroma_extractor.0`` / ``.2``,
 ``color_transform.0`` / ``.2``, ``tone_curve.0`` / ``.2``, ...).
+
+Spatially sharded inference (``spatial`` bound by
+``models.common.bind_spatial``, None for the monolithic forward):
+``BayerProcessor``'s luma max is combined over the spatial groups,
+``EnhancedFLCA``'s resizes and SE pool are those of ``ops/flca.py``, the
+convs exchange halos, and ``ColorCorrection`` is pointwise.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ def _mlp(cin: int, hidden: int, cout: int, k: int, act: nn.Module, kw) -> nn.Seq
 class BayerProcessor(nn.Module):
     """Learned Bayer -> guidance front end: planes [B, 4, H, W] (R, G1, G2,
     B) -> (y, cr, cb, rgb_guide), [B, 1|1|1|3, H, W]."""
+
+    spatial = None
 
     def __init__(self, positive_gains: bool = False, eps: float = 1e-6,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
@@ -81,7 +88,7 @@ class BayerProcessor(nn.Module):
 
         wts = torch.tensor(BT709, device=planes.device).view(1, 3, 1, 1)
         y = (rgb_linear.float() * wts).sum(1, keepdim=True)
-        y = (y / global_max(y, (1, 2, 3)).clamp_min(self.eps)).to(cd)
+        y = (y / global_max(y, (1, 2, 3), self.spatial, nchw=True).clamp_min(self.eps)).to(cd)
 
         ch = self.chroma_extractor[0](torch.cat([r, g, b, y], 1))
         ch = torch.tanh(self.chroma_extractor[2](F.relu(ch)).float()).to(cd)
@@ -133,6 +140,8 @@ class EnhancedFLCA(nn.Module):
     high magnitudes), tanh-bounded frequency attention, and a tanh-bounded
     0.2-scaled residual projection before the SE gate."""
 
+    spatial = None
+
     def __init__(self, c: int, levels: int = 1, eps: float = 1e-8,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
         super().__init__()
@@ -151,7 +160,7 @@ class EnhancedFLCA(nn.Module):
         pyramid = self.levels > 1
 
         def resized(t: torch.Tensor) -> torch.Tensor:
-            return resize_bilinear(t, hf, wf)
+            return resize_bilinear(t, hf, wf, self.spatial)
 
         cur, high_mags = nhwc(y).float(), []
         for _ in range(max(1, self.levels)):

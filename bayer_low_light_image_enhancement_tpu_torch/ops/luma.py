@@ -2,7 +2,9 @@
 
 Port of ``bayer_low_light_image_enhancement_tpu/ops/luma.py``: luma from
 the packed (R, G1, G2, B) NHWC planes with G = avg(G1, G2), optionally
-normalised by the per-image max, chroma cr = r - y, cb = b - y.
+normalised by the per-image max, chroma cr = r - y, cb = b - y. On a
+spatially sharded rank (``spatial_axis`` bound, ``ops/conv.py``) the max
+is combined over the spatial groups.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ def bayer_luma_chroma(
     normalize: bool = True,
     weights: Tuple[float, float, float] = BT601,
     eps: float = 1e-6,
+    spatial_axis=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """planes: [B, H, W, 4] (R, G1, G2, B) -> (y, cr, cb) each [B, H, W, 1]."""
     r = planes[..., 0:1]
@@ -30,5 +33,5 @@ def bayer_luma_chroma(
     wr, wg, wb = weights
     y = wr * r + wg * g + wb * b
     if normalize:
-        y = y / global_max(y, (1, 2, 3)).clamp_min(eps)
+        y = y / global_max(y, (1, 2, 3), spatial_axis).clamp_min(eps)
     return y, r - y, b - y

@@ -5,14 +5,27 @@ frame is split over the mesh's ``spatial`` axis by rows, or over
 ``spatial`` x ``spatial_w`` as a 2-D grid; each rank holds a contiguous
 block and runs the model on it:
 
-* stride-1 convs exchange their ``(eff_k-1)//2`` boundary rows (and
-  columns) with the neighbouring ranks, the image edges receiving zeros,
-  which is the monolithic zero pad (``ops/conv.py``);
-* channel attention's token-global reductions (the gram and the q / k sums
-  of squares) are local partials summed over the spatial groups
-  (``ops/attention.py``); the RawFormer-WFB FFT islands gather their input
-  along H (``ops/fft.FEB``) and its Mamba scans run sequence-parallel over
-  the H ranks (``ops/ssm.py``).
+* convs exchange their ``(eff_k-1)//2`` boundary rows (and columns)
+  with the neighbouring ranks, the image edges receiving zeros, which is
+  the monolithic zero pad; strided and dilated convs too, and a conv whose
+  halo exceeds the shard (a deep stage's 15- or 31-tap box filter)
+  gathers the axis and slices its block back (``ops/conv.py``);
+* token-global reductions are local partials combined over the spatial
+  groups: channel attention's gram and q / k sums of squares
+  (``ops/attention.py``), the SE pools, the luma max (and luma-MHSA's
+  min), InstanceNorm's means, the pyramid FLCA's band means and the
+  colour anchors (``global_mean`` / ``global_max`` / ``global_min``);
+* the bilinear guidance resizes of the FLCA / TrueColor family and the
+  raw-domain U-Nets gather their 1-3 channel maps along the sharded axes,
+  resize them whole and slice the block back (``ops/flca.py``);
+* token attention (luma-MHSA's at every stage, the raw-domain U-Nets'
+  token blocks) is gather-kv: queries local, keys and values gathered
+  along every sharded axis (``models/luma_variants.py``);
+* the RawFormer-WFB FFT islands gather their input along H
+  (``ops/fft.FEB``) and its Mamba scans run sequence-parallel over the H
+  ranks (``ops/ssm.py``);
+* pixel-local work stays local: pixel_unshuffle, the Haar DWT, the
+  pools, the transposed-conv upsamples, KANLinear, the colour correction.
 
 In fp32 the result equals the monolithic forward. The collectives are
 all-reduces (``core/mesh.py``), so the same code runs on NCCL across cards,
@@ -24,10 +37,15 @@ device and S1 takes no incoming state (the JAX package's
 ``models/fused_apply._fusable`` and ``ops/ssm.MambaBlock`` routes), so the
 tiled forward launches none of them.
 
-Constraints: each rank's block of the [B, H, W, 1] mosaic has H (and W)
-divisible by 16 (one pixel_unshuffle and three downsamples; 32 for
-RawFormer-WFB, whose stages halve once more through the Haar DWT): use
-``pad_to_tile`` for arbitrary frames.
+Every registry model has a spatial half (its config's ``spatial_axis``):
+by H and by H x W, RawFormer-WFB by H only. Constraints: each rank's
+block of the input has H (and W) divisible by 16 (the [B, H, W, 1] mosaic:
+one pixel_unshuffle and three downsamples; 32 for RawFormer-WFB, whose
+stages halve once more through the Haar DWT; the raw-domain models'
+[B, H, W, 4] packed planes: four stride-2 convs or three pools): use
+``pad_to_tile`` for arbitrary frames. Token attention holds every key on
+every rank: a rank's attention work is the monolithic one's over the
+ranks, still quadratic in the frame's tokens.
 """
 
 from __future__ import annotations
@@ -78,10 +96,12 @@ def shard_image(x, mesh, spatial_axis: str = AXES.spatial,
 
 
 class TiledForward(nn.Module):
-    """``model`` bound to the spatial axes of ``mesh``: called on this
-    rank's [B, h, w, C] block (NHWC, ``shard_image``), it returns the whole
-    [B, H, W, 3] output on every rank, gathered by all-reduce (the JAX
-    package's result is fully replicated). Eval mode, no grad."""
+    """``model`` (any model whose config has ``spatial_axis``) bound to the
+    spatial axes of ``mesh``: called on this rank's [B, h, w, C] block
+    (NHWC, ``shard_image``), it returns the whole output on every rank,
+    gathered by all-reduce (the JAX package's result is fully replicated):
+    [B, H, W, 3] RGB of a RAW -> RGB model, [B, H, W, 4] planes of a
+    raw-domain one. Eval mode, no grad."""
 
     def __init__(self, model: nn.Module, mesh, spatial_axis: str, spatial_w_axis: Optional[str],
                  clip01: bool):
@@ -114,6 +134,7 @@ def make_tiled_forward(model: nn.Module, mesh, spatial_axis: str = AXES.spatial,
     w_axis)`` in its config, on every rank, with the same weights) to the
     spatial groups of ``mesh`` and return its tiled forward: ``fn(x_local)``
     with x_local this rank's [B, h, w, C] block, h (and w, if sharded)
-    divisible by 16 (32 for RawFormer-WFB), -> the whole [B, H, W, 3]
-    output (clipped to [0, 1] with ``clip01``) on every rank."""
+    divisible by 16 (32 for RawFormer-WFB), -> the whole [B, H, W, 3] RGB
+    or [B, H, W, 4] planes (clipped to [0, 1] with ``clip01``) on every
+    rank."""
     return TiledForward(model, mesh, spatial_axis, spatial_w_axis, clip01)

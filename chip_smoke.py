@@ -215,7 +215,24 @@ Phases (any failed check raises and the script exits non-zero):
    rank with its all-reduces' share and the output gather's, beside the
    monolithic kernel path's; then the eval CLI with ``--spatial_chips 2``
    (ranks started as torchrun would) on two 2832x4240 SID frames against
-   the unsharded CLI (``--no_fused``), both in fp32.
+   the unsharded CLI (``--no_fused``), both in fp32;
+17. tiled inference of the rest of the zoo: four ranks as in phase 16
+   run the ten other registry models, seeded at full width (dim 48, the
+   raw-domain models at their JAX default widths, BayerTORGB's colour
+   correction spread as in phase 10): the FLCA / TrueColor family on the
+   phase-16 frame H-sharded over 4 ranks (``flca_rawformer`` and
+   ``bayertorgb_rawformer`` also over 2 x 2), ``flca_unet`` /
+   ``unet_luma_dwt`` on its packed planes (``flca_unet`` also 2 x 2),
+   WavKAN at 1024x1024, luma-MHSA at 512x512 and ``simple_flca_unet`` /
+   ``lumachroma_transformer`` on packed 256x256 planes (luma-MHSA and
+   lumachroma also 2 x 2), each in fp32 against one process's monolithic
+   module path and in bf16 against the monolithic bf16 forward (the
+   family's kernel path), the family's head input too; every rank
+   receives the same whole output; K2 / K3 / K3P launch 0 times on every
+   tiled forward and 6 times on the family's kernel-path references; the
+   timed cases' tiled forward per rank beside the monolithic one; then the
+   eval CLI with ``--model flca_rawformer`` over 2 x 2 ranks on two SID
+   frames against the unsharded CLI in fp32.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -2516,14 +2533,17 @@ TF32_OFF_CLI = ("import runpy, torch; torch.backends.cudnn.allow_tf32 = False; "
                 "runpy.run_module({!r}, run_name='__main__')")
 
 
-def tiled_cli(card, counters, one_card: bool) -> None:
-    """The eval CLI with --spatial_chips 2 (two ranks it does not start
-    itself: torchrun's variables from run_ranks, TF32 off as in this
-    process; the SID codes decoded on the card by ``normalize_sid``)
-    against the unsharded CLI in this process on the module path, its
-    frames decoded on the host in the same fp32 expression (RawFormer's
-    compact route, K1, scales by a rounded reciprocal instead: an ulp off,
-    enough to move SSIM by ~3e-5 on these frames)."""
+def tiled_cli(card, counters, one_card: bool, model_args=(), mesh=(2, 1),
+              phase: int = 16) -> None:
+    """The eval CLI of ``model_args`` (RawFormer-S by default) over a
+    ``mesh`` = (N, M) spatial mesh (--spatial_chips N --spatial_w_chips M:
+    N x M ranks it does not start itself, torchrun's variables from
+    run_ranks, TF32 off as in this process; the SID codes decoded on the
+    card by ``normalize_sid``) against the unsharded CLI in this process on
+    the module path, its frames decoded on the host in the same fp32
+    expression (RawFormer's compact route, K1, scales by a rounded
+    reciprocal instead: an ulp off, enough to move SSIM by ~3e-5 on these
+    frames)."""
     import tempfile
 
     from bayer_low_light_image_enhancement_tpu_torch.cli import test_cli
@@ -2535,26 +2555,29 @@ def tiled_cli(card, counters, one_card: bool) -> None:
         write_sid_tree(root, f"{root}/cache", {"test": [TILED_CLI_FRAME] * 2},
                        np.random.default_rng(16))
         base = ["--dataset", "SID", "--data_root", root, "--cache_dir", f"{root}/cache",
-                "--fp32", "--pad_to", "32"]
+                "--fp32", "--pad_to", "32", *model_args]
+        n, m = mesh
+        flags = ["--spatial_chips", str(n)] + (["--spatial_w_chips", str(m)] if m > 1 else [])
         t0 = time.perf_counter()
         one, launches = counted(counters, lambda: test_cli.main(
             base + ["--no_fused", "--no_compact_h2d", "--save_dir", f"{tmp}/one"]))
         t_one = time.perf_counter() - t0
-        no_kernel(launches, "phase 16: the unsharded --no_fused --no_compact_h2d eval CLI")
+        no_kernel(launches, f"phase {phase}: the unsharded --no_fused --no_compact_h2d eval CLI")
         root_dir = os.path.dirname(os.path.abspath(__file__))
         path = os.pathsep.join(p for p in (root_dir, os.environ.get("PYTHONPATH")) if p)
         env = dict(one_card_env() if one_card else {}, PYTHONPATH=path)
         t0 = time.perf_counter()
         meshlib.run_ranks([sys.executable, "-c", TF32_OFF_CLI.format(test_cli.MODULE), *base,
-                           "--spatial_chips", "2", "--save_dir", f"{tmp}/tiled", "--rendezvous",
-                           f"file://{tmp}/cli.rdzv", "--result_file", f"{tmp}/cli.json"], 2,
+                           *flags, "--save_dir", f"{tmp}/tiled", "--rendezvous",
+                           f"file://{tmp}/cli.rdzv", "--result_file", f"{tmp}/cli.json"], n * m,
                           env=env, timeout=DIST_TIMEOUT)
         t_tiled = time.perf_counter() - t0
         with open(f"{tmp}/cli.json") as f:
             tiled = json.load(f)
     dp = np.abs(np.subtract(tiled["psnr"], one["psnr"])).max()
     ds = np.abs(np.subtract(tiled["ssim"], one["ssim"])).max()
-    log(f"(16) eval CLI --spatial_chips 2 ({'gloo, one card' if one_card else 'NCCL'}) on 2 SID "
+    log(f"({phase}) eval CLI {' '.join([*model_args, *flags])} "
+        f"({'gloo, one card' if one_card else 'NCCL'}) on 2 SID "
         f"frames at {TILED_CLI_FRAME}, fp32: PSNR {tiled['psnr']} vs unsharded {one['psnr']}, "
         f"SSIM {tiled['ssim']} vs {one['ssim']}: max differences {dp:.2e} dB (tol "
         f"{TILED_PSNR_TOL}), {ds:.2e} (tol {TILED_SSIM_TOL}); pad_to {tiled['pad_to']}; "
@@ -2562,7 +2585,7 @@ def tiled_cli(card, counters, one_card: bool) -> None:
         f"{[round(t, 3) for t in tiled['seconds']]} vs {[round(t, 3) for t in one['seconds']]} "
         f"({card})")
     check(dp <= TILED_PSNR_TOL and ds <= TILED_SSIM_TOL,
-          "phase 16: the sharded eval CLI's metrics differ from the unsharded CLI's")
+          f"phase {phase}: the sharded eval CLI's metrics differ from the unsharded CLI's")
 
 
 def tiled_phase(dev, card, counters) -> None:
@@ -2621,6 +2644,282 @@ def tiled_phase(dev, card, counters) -> None:
                 f"{refs['rawformer_s_bf16']['ms']:.2f} ms on one process ({card})")
     tiled_cli(card, counters, cards < 2)
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# Phase 17 (tiled inference of the rest of the zoo, ``parallel/tiled.py``):
+# four ranks, processes of this script as in phase 16 (NCCL where each rank
+# has its own card, else gloo with the ranks sharing card 0), run each case
+# of ``zoo_tiled_cases``; the parent computes the references on one process
+# first. The models are seeded at full width as phases 10, 12 and 13 build
+# them (dim 48; the raw-domain models at their JAX default widths), with
+# BayerTORGB's colour correction moved off saturation by phase 10's
+# spread_color_correction before both runs (ROADMAP C14), and the weights
+# shipped to the ranks. Tolerances, stated before the run: in fp32 compute
+# with TF32 off (C5), the tiled output against one process's monolithic
+# module path within TILED_FP32_ATOL max abs (the [0, 1] RGB; the
+# raw-domain planes, which are not clipped, within TILED_FP32_ATOL x their
+# largest magnitude, as phase 13 scales its bar); in bf16 compute against
+# the monolithic bf16 forward by the serving bar (E2E_MAX_TOL,
+# E2E_MEAN_TOL, x the largest magnitude for the raw-domain planes), the
+# FLCA / TrueColor family's reference being the kernel path. For the FLCA /
+# TrueColor family the head's input (conv_out's whole output) is held the
+# same way relative to its largest magnitude (TrueColor's seeded RGB is
+# flat: C14). Every rank receives the same whole output; K2 / K3 / K3P
+# launch 0 times on every tiled forward (sharded blocks take the module
+# path) and 6 times each on the FLCA / TrueColor kernel-path references
+# (phase 10's count); the other six models launch no hand kernel. Then the
+# eval CLI with --model flca_rawformer over 2 x 2 ranks on two
+# TILED_CLI_FRAME SID frames against the unsharded CLI, both fp32: PSNR
+# within TILED_PSNR_TOL dB and SSIM within TILED_SSIM_TOL. The token
+# attention models run on the small ZOO_TILED_FRAMES: their gathered keys
+# make each rank's attention quadratic in the whole image's tokens.
+ZOO_TILED_SEED = 17
+ZOO_TILED_GUIDED = ("flca_rawformer", "multilvl_flca_rawformer", "truecolor_rawformer",
+                    "bayertorgb_rawformer")
+# The inputs beside phase 16's frame ("frame") and its packed planes
+# ("packed"): key -> (shape [H, W], channels: 1 a mosaic, 4 packed planes).
+ZOO_TILED_FRAMES = {"wavkan": ((1024, 1024), 1), "luma": ((512, 512), 1),
+                    "packed256": ((256, 256), 4)}
+# (model, frame key, layouts, timing: 0 none, 1 the bf16 forward by H by the
+# host clock, 2 also one instrumented forward's all-reduces, ``collective_ms``)
+ZOO_TILED_MODELS = (
+    ("flca_rawformer", "frame", ("h4", "2x2"), 2),
+    ("multilvl_flca_rawformer", "frame", ("h4",), 0),
+    ("truecolor_rawformer", "frame", ("h4",), 0),
+    ("bayertorgb_rawformer", "frame", ("h4", "2x2"), 0),
+    ("flca_unet", "packed", ("h4", "2x2"), 1),
+    ("unet_luma_dwt", "packed", ("h4",), 0),
+    ("wavkan_rawformer", "wavkan", ("h4",), 0),
+    ("luma_mhsa_rawformer", "luma", ("h4", "2x2"), 1),
+    ("simple_flca_unet", "packed256", ("h4",), 1),
+    ("lumachroma_transformer", "packed256", ("h4", "2x2"), 2),
+)
+
+
+def zoo_tiled_cases(models=ZOO_TILED_MODELS):
+    """(case, model, layout, compute dtype, frame key, timing) of phase 17:
+    each model over each of its layouts in fp32 and in bf16 (a timed
+    model's bf16 run by H timed: the gloo ranks' times on one card vary by
+    2x between runs, and every timed forward adds to the phase)."""
+    return [(f"{name}_{layout}_{tag}", name, layout, dtype, frame,
+             timed if (tag, layout) == ("bf16", "h4") else 0)
+            for name, frame, layouts, timed in models for layout in layouts
+            for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))]
+
+
+def zoo_tiled_frames(rng) -> dict:
+    """Phase 17's inputs: the phase-16 frame's normalised mosaic and its
+    packed planes at 2832x4240, and smaller mosaics / packed planes for the
+    WavKAN and token-attention models, each zero-padded as phase 16 pads
+    (``tile_frame``: 4 blocks of a multiple of 16 rows by H, 2 x 2 too)."""
+    def norm(shape):
+        return (mosaics(rng, (1, *shape, 1)).astype(np.float32) - 512.0) / (16383.0 - 512.0)
+
+    def pack(x):
+        t = torch.nn.functional.pixel_unshuffle(torch.from_numpy(x).permute(0, 3, 1, 2), 2)
+        return t.permute(0, 2, 3, 1).contiguous().numpy()
+
+    frame = norm(TILED_FRAME)
+    out = {"frame": tile_frame(frame, 16), "packed": tile_frame(pack(frame), 16)}
+    for key, ((h, w), c) in ZOO_TILED_FRAMES.items():
+        out[key] = tile_frame(norm((h, w)) if c == 1 else pack(norm((2 * h, 2 * w))), 16)
+    return out
+
+
+def zoo_tiled_references(jobdir: str, job: dict, dev, counters, card,
+                         models=ZOO_TILED_MODELS) -> dict:
+    """Phase 17's references on this one process, saved for rank 0: each
+    model's seeded weights (BayerTORGB's spread first) on its whole input
+    through the fp32 module path and the bf16 forward (the kernel path of
+    the FLCA / TrueColor family), with the head's input of that family; the
+    launches; the timed models' bf16 forward by the host clock (median of
+    2). The weights
+    go into ``job["states"]``."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.common import set_fused_blocks
+    from bayer_low_light_image_enhancement_tpu_torch.models.registry import is_raw_domain
+
+    out, job["states"] = {}, {}
+    for name, frame, _, timed in models:
+        x = torch.from_numpy(job[frame]).to(dev).permute(0, 3, 1, 2)
+        guided, raw = name in ZOO_TILED_GUIDED, is_raw_domain(name)
+        state = None
+        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            t0 = time.perf_counter()
+            model = get_model(name, generator=torch.Generator().manual_seed(ZOO_TILED_SEED),
+                              dtype=dtype).to(dev).eval()
+            if state is None:
+                set_fused_blocks(model, False)
+                with torch.no_grad():
+                    spread_color_correction(model, lambda: model(x[..., :512, :512]))
+                state = {k: v.cpu() for k, v in model.state_dict().items()}
+                job["states"][name] = state
+            model.load_state_dict(state)
+            set_fused_blocks(model, tag == "bf16")
+            heads, hook = [], None
+            if guided:
+                hook = model.conv_out.register_forward_hook(
+                    lambda m, i, o: heads.append(o.float()))
+
+            def fwd():
+                with torch.inference_mode():
+                    y = model(x)
+                    return (y if raw else y.clamp(0.0, 1.0)).permute(0, 2, 3, 1)
+
+            y, launches = counted(counters, fwd)
+            torch.save({"out": y.float().cpu(),
+                        "head": heads[0].permute(0, 2, 3, 1).cpu() if heads else None},
+                       f"{jobdir}/ref_{name}_{tag}.pt")
+            rec = {"launches": launches, "seconds": time.perf_counter() - t0,
+                   "shape": tuple(y.shape), "finite": bool(torch.isfinite(y).all())}
+            if hook is not None:
+                hook.remove()
+            if timed and tag == "bf16":
+                rec["ms"] = _step_ms(fwd, 2)
+            out[f"{name}_{tag}"] = rec
+            path = ("kernel path" if guided and tag == "bf16" else "module path" if guided
+                    else "no hand kernel")
+            log(f"phase 17 reference {name} {tag} ({path}) on {tuple(x.shape[2:])}: "
+                f"{rec['seconds']:.1f} s, launches {launches}")
+            del model, y, heads
+            torch.cuda.empty_cache()
+    return out
+
+
+def dist_task_zoo_tiled(job: dict, dev) -> dict:
+    """Phase 17 on every rank: each case of ``job["cases"]`` through
+    ``make_tiled_forward`` on this rank's block of its input (the raw-domain
+    planes not clipped), with the launches; rank 0 holds the whole output
+    (and the FLCA / TrueColor family's gathered head input) against the
+    parent's references; the timed cases' forward by the host clock (median
+    of 2) and, at timing 2, one instrumented forward's all-reduces."""
+    from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.registry import is_raw_domain
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import gather_axis
+    from bayer_low_light_image_enhancement_tpu_torch.parallel.tiled import (
+        make_tiled_forward,
+        shard_image,
+    )
+
+    meshes = {"h4": (meshlib.create_mesh(data=1, spatial=4), None),
+              "2x2": (meshlib.create_mesh(data=1, spatial=2, spatial_w=2), "spatial_w")}
+    out = {"world": meshlib.world_size(), "cases": {}}
+    for name, model_name, layout, dtype, frame, timed in job["cases"]:
+        t0 = time.perf_counter()
+        mesh, w = meshes[layout]
+        raw = is_raw_domain(model_name)
+        model = get_model(model_name, dtype=dtype,
+                          spatial_axis=("spatial", w) if w else "spatial")
+        model.load_state_dict(job["states"][model_name])
+        fn = make_tiled_forward(model.to(dev), mesh, "spatial", w, clip01=not raw)
+        heads, hook = [], None
+        if model_name in ZOO_TILED_GUIDED:
+            hook = model.conv_out.register_forward_hook(lambda m, i, o: heads.append(
+                gather_axis(gather_axis(o.float(), fn.axes[0], 2), fn.axes[1], 3)))
+        x = torch.from_numpy(shard_image(job[frame], mesh, "spatial", w)).to(dev).contiguous()
+        y, launches = counted(job["counters"], lambda: fn(x))
+        rec = {"launches": launches, "sum": float(y.double().sum()), "shape": tuple(y.shape)}
+        if meshlib.rank() == 0:
+            ref = torch.load(f"{job['dir']}/ref_{model_name}_{name.rsplit('_', 1)[1]}.pt")
+            for key, got in (("out", y), ("head", heads[0].permute(0, 2, 3, 1) if heads else None)):
+                if got is None:
+                    continue
+                d = (got.float().cpu() - ref[key]).abs()
+                rec[key] = {"max": d.max().item(), "mean": d.mean().item(),
+                            "scale": ref[key].abs().max().item(),
+                            "finite": bool(torch.isfinite(got).all())}
+        del y
+        heads.clear()
+        if hook is not None:
+            hook.remove()
+        if timed:
+            rec["ms"] = _step_ms(lambda: fn(x), 2)
+        if timed == 2:
+            rec["collective"] = collective_ms(lambda: fn(x), int(np.prod(rec["shape"])))
+        rec["seconds"] = time.perf_counter() - t0
+        out["cases"][name] = rec
+        del model, fn, x, heads
+        torch.cuda.empty_cache()
+    return out
+
+
+DIST_TASKS["zoo_tiled"] = dist_task_zoo_tiled
+
+
+def zoo_tiled_phase(dev, card, counters, models=ZOO_TILED_MODELS, cli: bool = True) -> None:
+    """Phase 17: spatially sharded inference of the rest of the zoo (see the
+    tolerances above); ``models`` and ``cli`` cut it to a part."""
+    import tempfile
+
+    from bayer_low_light_image_enhancement_tpu_torch.models.registry import is_raw_domain
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    one_card = cards < 4
+    backend = "gloo, 4 ranks sharing card 0" if one_card else "NCCL, one card a rank"
+    log(f"phase 17 backend: {backend}")
+    job = zoo_tiled_frames(np.random.default_rng(ZOO_TILED_SEED))
+    job["cases"] = zoo_tiled_cases(models)
+    log("phase 17 inputs: " + ", ".join(f"{k} {tuple(v.shape[1:])}" for k, v in job.items()
+                                        if k != "cases")
+        + " (zero-padded as phase 16 pads)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_tiled_") as jobdir:
+        refs = zoo_tiled_references(jobdir, job, dev, counters, card, models)
+        for name, *_ in models:
+            for tag in ("fp32", "bf16"):
+                got = refs[f"{name}_{tag}"]["launches"]
+                check(refs[f"{name}_{tag}"]["finite"], f"phase 17: {name} {tag} reference "
+                      "not finite")
+                if name in ZOO_TILED_GUIDED and tag == "bf16":
+                    check(got["gram_pass"] == got["apply_pass"] == 6 and sum(got.values()) == 12,
+                          f"phase 17: the {name} kernel path did not launch K2 / K3 6 times "
+                          f"each and nothing else ({got})")
+                else:
+                    no_kernel(got, f"phase 17: the monolithic {name} {tag} forward")
+        torch.save(job, f"{jobdir}/job.pt")
+        res = run_dist_task(jobdir, "zoo_tiled", 4, one_card=one_card, phase=17)
+    label = " (not a multi-GPU figure)" if one_card else ""
+    r0 = res[0]
+    for name, model_name, layout, dtype, frame, timed in job["cases"]:
+        rec = r0["cases"][name]
+        sums = {r["cases"][name]["sum"] for r in res}
+        launched = {k: v for r in res for k, v in r["cases"][name]["launches"].items() if v}
+        fp32, raw = dtype == torch.float32, is_raw_domain(model_name)
+        for key in ("out", "head"):
+            if key not in rec:
+                continue
+            e = rec[key]
+            scale = e["scale"] if raw or key == "head" else 1.0
+            ok = e["finite"] and (e["max"] <= TILED_FP32_ATOL * scale if fp32 else
+                                  e["max"] <= E2E_MAX_TOL * scale
+                                  and e["mean"] <= E2E_MEAN_TOL * scale)
+            bar = (f"tol {TILED_FP32_ATOL}" if fp32 else f"tols {E2E_MAX_TOL} / {E2E_MEAN_TOL}")
+            bar += f" x {scale:.3e}" if scale != 1.0 else ""
+            what = "output" if key == "out" else "head's input"
+            path = ("module path" if fp32 else "kernel path" if model_name in ZOO_TILED_GUIDED
+                    else "bf16 forward")
+            log(f"(17) {name} ({backend}): {what} max abs err {e['max']:.3e}, mean "
+                f"{e['mean']:.3e} ({bar}, against the monolithic {path})")
+            check(ok, f"phase 17: {name}: the tiled {what} disagrees with the monolithic one")
+        log(f"(17) {name}: {rec['shape']} on every rank; launches on every rank "
+            f"{launched or 'none'}; rank 0 {rec['seconds']:.1f} s")
+        check(len(sums) == 1, f"phase 17: {name}: the ranks received different outputs")
+        check(not launched, f"phase 17: {name}: a hand kernel launched on the tiled path "
+              f"({launched})")
+        if timed:
+            per_rank = [round(r["cases"][name]["ms"], 2) for r in res]
+            c = rec.get("collective")
+            inst = "" if c is None else (
+                f"; one instrumented forward on rank 0: {c['ms']:.2f} ms, {c['calls']} "
+                f"all-reduces {c['all_reduce_ms']:.2f} ms ({c['all_reduce_ms'] / c['ms']:.1%}), "
+                f"of them the output gather {c['gather_ms']:.2f} ms")
+            log(f"time {name} tiled forward on {tuple(job[frame].shape[1:3])}, host clock per "
+                f"rank (median of 2){label}: {per_rank} ms{inst}; the monolithic bf16 forward "
+                f"{refs[f'{model_name}_bf16']['ms']:.2f} ms on one process ({card})")
+    if cli:
+        tiled_cli(card, counters, one_card, ["--model", "flca_rawformer"], (2, 2), 17)
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def main() -> int:
@@ -3539,6 +3838,10 @@ def main() -> int:
     # 16. tiled full-resolution inference -------------------------------------------
     torch.cuda.empty_cache()
     tiled_phase(dev, card, counters)
+
+    # 17. tiled inference of the rest of the zoo --------------------------------------
+    torch.cuda.empty_cache()
+    zoo_tiled_phase(dev, card, counters)
 
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),

@@ -260,9 +260,8 @@ def test_compact_batch_decodes_to_the_host_path(train_tree):
 
 def test_eval_cli_refusals(tmp_path, monkeypatch):
     base = ["--dataset", "synthetic", "--patch_size", "32", "--save_dir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="does not support spatially sharded inference"):
-        test_cli.main(base + ["--device", "cpu", "--model", "wavkan_rawformer",
-                              "--spatial_chips", "2"])
+    with pytest.raises(SystemExit, match="enhancement-domain model"):
+        test_cli.main(base + ["--device", "cpu", "--model", "flca_unet", "--spatial_chips", "2"])
     orbax = tmp_path / "orbax"
     (orbax / "3").mkdir(parents=True)
     with pytest.raises(SystemExit, match="orbax.*tools/orbax_to_torch.py"):

@@ -2,10 +2,11 @@
 ``--spatial_chips 2 --spatial_w_chips 2`` start 2 and 4 gloo ranks of the
 CLI (``--device cpu``), each frame is tiled over them and rank 0 reports;
 the per-image PSNR / SSIM equal the single-device run's in fp32 (within
-1e-3 dB / 1e-5), for RawFormer-S and for RawFormer-WFB by H; rank 0 alone
-writes the CSV. And the CLI's exits: WFB over W, a family without a
-spatial half, a bad count, no card, and ranks started by torchrun that do
-not match the flags."""
+1e-3 dB / 1e-5), for RawFormer-S, for RawFormer-WFB by H, for
+``flca_rawformer`` by H and over 2 x 2 (built with both axes: ROADMAP C17)
+and for ``luma_mhsa_rawformer`` by H; rank 0 alone writes the CSV. And the
+CLI's exits: WFB over W, a bad count, no card, and ranks started by
+torchrun that do not match the flags."""
 
 import numpy as np
 import pytest
@@ -30,6 +31,9 @@ def base(tmp_path, *extra):
     ([], ["--spatial_chips", "2"]),
     ([], ["--spatial_chips", "2", "--spatial_w_chips", "2"]),
     (["--model", "rawformer_wfb"], ["--spatial_chips", "2"]),
+    (["--model", "flca_rawformer"], ["--spatial_chips", "2"]),
+    (["--model", "flca_rawformer"], ["--spatial_chips", "2", "--spatial_w_chips", "2"]),
+    (["--model", "luma_mhsa_rawformer"], ["--spatial_chips", "2"]),
 ])
 def test_eval_cli_over_a_spatial_mesh_matches_one_device(tmp_path, capfd, model, mesh):
     one = test_cli.main(base(tmp_path / "one", *model))
@@ -40,8 +44,9 @@ def test_eval_cli_over_a_spatial_mesh_matches_one_device(tmp_path, capfd, model,
     np.testing.assert_allclose(tiled["psnr"], one["psnr"], rtol=0, atol=PSNR_TOL)
     np.testing.assert_allclose(tiled["ssim"], one["ssim"], rtol=0, atol=SSIM_TOL)
     n = int(mesh[1])
-    h_mult = 32 if model else 16
-    assert tiled["pad_to"] == max(h_mult * n, 32 if model else 16)
+    wfb = model == ["--model", "rawformer_wfb"]
+    h_mult = 32 if wfb else 16
+    assert tiled["pad_to"] == max(h_mult * n, 32 if wfb else 16)
     assert out.count("image:0\t") == 1 and out.count("Average PSNR") == 1  # rank 0 alone
     rows = (tmp_path / "tiled" / "synthetic" / "csv" / "test_metrics.csv").read_text().split()
     assert len(rows) == 4
@@ -51,8 +56,6 @@ def test_eval_cli_spatial_exits(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="H-shardable only"):
         test_cli.main(base(tmp_path, "--model", "rawformer_wfb", "--spatial_chips", "2",
                            "--spatial_w_chips", "2"))
-    with pytest.raises(SystemExit, match="does not support spatially sharded inference"):
-        test_cli.main(base(tmp_path, "--model", "flca_rawformer", "--spatial_chips", "2"))
     with pytest.raises(SystemExit, match="want counts >= 1"):
         test_cli.main(base(tmp_path, "--spatial_chips", "0"))
     monkeypatch.setenv("WORLD_SIZE", "3")  # started by torchrun with three ranks

@@ -10,8 +10,9 @@ bar of tests/test_sharding.py (fp32, rtol 1e-4, atol 1e-5). Every rank's
 tiled forward calls the fused block wrapper and the scan kernel wrapper no
 time (sharded blocks take the module path, sharded scans the twin). Also
 the refusals: WFB over W, WFB's reference token layout under sharding,
-the families without a spatial half, and a tiled forward over other axes
-than the model's."""
+and a tiled forward over other axes than the model's; and every registry
+name builds with a spatial_axis and loads the monolithic state. The rest
+of the zoo tiles in tests/test_torch_tiled_zoo_*.py."""
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 import torch_dist_workers as workers
-from torch_parity import filled_variables
+from torch_parity import SMALL, filled_variables
 from bayer_low_light_image_enhancement_tpu.core.mesh import create_mesh
 from bayer_low_light_image_enhancement_tpu.models import get_model as jax_get_model
 from bayer_low_light_image_enhancement_tpu.models.rawformer import (
@@ -29,7 +30,12 @@ from bayer_low_light_image_enhancement_tpu.models.rawformer import (
 )
 from bayer_low_light_image_enhancement_tpu.parallel import tiled as jtiled
 from bayer_low_light_image_enhancement_tpu_torch.compat import jax_params as jp
-from bayer_low_light_image_enhancement_tpu_torch.models import RawFormer, RawFormerConfig, get_model
+from bayer_low_light_image_enhancement_tpu_torch.models import (
+    RawFormer,
+    RawFormerConfig,
+    get_model,
+    list_models,
+)
 from bayer_low_light_image_enhancement_tpu_torch.models.wfb import WM
 from bayer_low_light_image_enhancement_tpu_torch.parallel import tiled
 
@@ -145,10 +151,16 @@ def test_wfb_refuses_the_reference_token_layout_under_sharding():
     get_model("rawformer_wfb", dim=8, ref_token_layout=True)  # unsharded: allowed
 
 
-@pytest.mark.parametrize("name", ["flca_rawformer", "luma_mhsa_rawformer", "flca_unet"])
-def test_families_without_a_spatial_half_raise_type_error(name):
-    with pytest.raises(TypeError, match="spatially sharded inference is not ported"):
-        get_model(name, spatial_axis="spatial")
+@pytest.mark.parametrize("name", list_models())
+def test_every_model_builds_sharded_and_loads_the_monolithic_state(name):
+    """All 14 registry names take spatial_axis (WFB by H alone: its W
+    refusal is tested above); the parameter names and shapes do not depend
+    on it."""
+    axes = "spatial" if name == "rawformer_wfb" else ("spatial", "spatial_w")
+    mono = get_model(name, **SMALL[name])
+    sharded = get_model(name, spatial_axis=axes, **SMALL[name])
+    sharded.load_state_dict(mono.state_dict())
+    assert sharded.config.spatial_axis == axes
 
 
 @pytest.mark.parametrize("size", ["s", "b", "l"])

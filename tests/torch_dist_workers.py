@@ -27,8 +27,12 @@ Jobs (``kind``):
   * "tiled": each case's model (``build_model`` with the case's
     ``spatial_axis``) holding the case's state, through
     ``parallel/tiled.make_tiled_forward`` on this rank's block of the case's
-    frame: the whole output every rank receives, and how often the fused
-    block wrapper and the scan kernel wrapper were called (0 by design).
+    frame: the whole output every rank receives (and of a model with a
+    ``conv_out``, that conv's whole output, the head's input), and how
+    often the fused block wrapper and the scan kernel wrapper were called
+    (0 by design);
+  * "tiled_zoo": a "tiled" job's cases (``models``) and, beside them, the
+    cases of a "tiled_ops" job (``ops``), in one spawn.
 """
 
 import sys
@@ -62,7 +66,8 @@ class BNNet(nn.Module):
 
 
 def build_model(spec):
-    """("rawformer" | "wfb" | "bnnet", config kwargs) -> the port model."""
+    """("rawformer" | "wfb" | "bnnet" | a registry name, config kwargs) ->
+    the port model."""
     kind, kw = spec
     if kind == "rawformer":
         from bayer_low_light_image_enhancement_tpu_torch.models import RawFormer, RawFormerConfig
@@ -77,7 +82,9 @@ def build_model(spec):
         return RawFormerWFB(RawFormerWFBConfig(**kw))
     if kind == "bnnet":
         return BNNet(**kw)
-    raise ValueError(kind)
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+
+    return get_model(kind, **kw)
 
 
 def write_job(path, **job):
@@ -213,6 +220,36 @@ def _tiled_op(case, cache):
         with torch.no_grad():
             y = m(local(a["x"]).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
         return y.permute(0, 2, 3, 1).contiguous()
+    if op == "resize_bilinear":  # to the whole frame's (h, w), this rank's block
+        from bayer_low_light_image_enhancement_tpu_torch.ops.flca import resize_bilinear
+
+        sizes = [ax.size if ax else 1 for ax in axes]
+        return resize_bilinear(local(a["x"]), a["h"] // sizes[0], a["w"] // sizes[1], spec)
+    if op == "bayer_luma_chroma":
+        from bayer_low_light_image_enhancement_tpu_torch.ops.luma import bayer_luma_chroma
+
+        return torch.cat(bayer_luma_chroma(local(a["x"]), spatial_axis=spec), -1)
+    if op in ("instance_norm", "frequency_split", "token_transformer"):  # NCHW modules
+        xl = local(a["x"]).permute(0, 3, 1, 2)
+        if op == "instance_norm":
+            from bayer_low_light_image_enhancement_tpu_torch.models.lumachroma_transformer import (
+                instance_norm,
+            )
+
+            y = instance_norm(xl, spatial_axis=spec)
+        elif op == "frequency_split":
+            from bayer_low_light_image_enhancement_tpu_torch.ops.flca import frequency_split
+
+            y = torch.cat(frequency_split(xl, a["k"], spec), 1)
+        else:
+            from bayer_low_light_image_enhancement_tpu_torch.models import common, luma_variants
+
+            m = luma_variants.TokenTransformer(a["dim"], a["heads"])
+            m.load_state_dict(a["state"])
+            common.bind_spatial(m, spec)
+            with torch.no_grad():
+                y = m(xl)
+        return y.permute(0, 2, 3, 1).contiguous()
     if op in ("haar_dwt_stack", "haar_iwt_stack"):
         from bayer_low_light_image_enhancement_tpu_torch.ops import dwt
 
@@ -227,6 +264,7 @@ def _tiled_op(case, cache):
 def _tiled(job):
     from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan
     from bayer_low_light_image_enhancement_tpu_torch.models import common
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import gather_axis
     from bayer_low_light_image_enhancement_tpu_torch.parallel.tiled import (
         make_tiled_forward,
         shard_image,
@@ -251,10 +289,16 @@ def _tiled(job):
         model = build_model((kind, dict(kw, spatial_axis=(h, w) if w else h)))
         model.load_state_dict(case["state"])
         fn = make_tiled_forward(model, mesh, h, w)
+        heads = []
+        if hasattr(model, "conv_out"):
+            model.conv_out.register_forward_hook(lambda m, i, o: heads.append(
+                gather_axis(gather_axis(o, fn.axes[0], 2), fn.axes[1], 3)))
         for k in calls:
             calls[k] = 0
         y = fn(torch.from_numpy(shard_image(case["x"], mesh, h, w)))
         out.append({"out": y.clone(), "calls": dict(calls)})
+        if heads:
+            out[-1]["head"] = heads[0].permute(0, 2, 3, 1).contiguous()
     return out
 
 
@@ -271,6 +315,9 @@ def main(path, rendezvous):
             out = [_tiled_op(case, cache) for case in job["cases"]]
         elif job["kind"] == "tiled":
             out = _tiled(job)
+        elif job["kind"] == "tiled_zoo":
+            cache = {}
+            out = {"models": _tiled(job), "ops": [_tiled_op(c, cache) for c in job["ops"]]}
         else:
             mesh = meshlib.create_mesh(**job["mesh"])
             out = (_train if job["kind"] == "train" else _forward)(job, mesh)

@@ -179,3 +179,115 @@ def eager_rgb(model, x):
 BLOCK_OPS = ["blle.apply_pass", "blle.gram_pass"]
 GRAPH_OPS = {"rawformer_wfb": ["blle.selective_scan_fwd"], "luma_mhsa_rawformer": [],
              "wavkan_rawformer": []}
+
+
+# The zoo's tiled cases at tests/test_sharding.py's sizes (dim / base 8, two
+# heads, one block), by H over 4 ranks ("h") and over 2 x 2 ("hw").
+TILED_SMALL = {
+    **{name: dict(dim=8, num_heads=HEADS)
+       for name in ("flca_rawformer", "multilvl_flca_rawformer", "truecolor_rawformer",
+                    "bayertorgb_rawformer", "luma_mhsa_rawformer", "wavkan_rawformer")},
+    "flca_unet": dict(base=8, blocks=(1, 1, 1), heads=2),
+    "unet_luma_dwt": dict(base=8, blocks=(1, 1, 1), heads=2),
+    "simple_flca_unet": dict(base_ch=8, heads=2),
+    "lumachroma_transformer": dict(base=8, num_blocks=1, heads=2),
+}
+TILED_AXES = {"h": "spatial", "hw": ("spatial", "spatial_w")}
+TILED_FRAME = (64, 64)  # 4 blocks of 16 rows by H, 2 x 2 blocks of 32 x 32
+
+
+def tiled_zoo(names, tmp_path, jax_tiled=(), ops=(), seed=0):
+    """Each registry model of ``names`` at its TILED_SMALL config on one
+    seeded TILED_FRAME frame (a [1, H, W, 1] mosaic, or [1, H, W, 4] planes
+    of a raw-domain model; uniform, so that the blocks differ), its weights
+    a seeded JAX model's (``filled_variables``; WavKAN's ``jax_variables``)
+    carried by its class's importer, tiled over both layouts by four ``torch_dist_workers`` ranks
+    (job kind "tiled_zoo", one spawn, the "tiled_ops" cases ``ops`` beside
+    them) -> ({(name, layout): dict(jax=JAX's monolithic forward, port=the
+    port's monolithic forward, ranks=[each rank's {"out", "calls"} and, of
+    a model with a ``conv_out``, "head": that conv's whole output; and
+    ``jax_head`` / ``port_head``, the monolithic ones],
+    jax_tiled=JAX's ``make_tiled_forward`` over 4 of the conftest's CPU
+    devices for the (name, layout) of ``jax_tiled``, else None)}, [each
+    rank's ``ops`` results]). Every output is clipped to [0, 1], as
+    tests/test_sharding.py clips."""
+    import jax.numpy as jnp
+
+    import torch_dist_workers as workers
+    from bayer_low_light_image_enhancement_tpu.core.mesh import create_mesh
+    from bayer_low_light_image_enhancement_tpu.models import get_model as jax_get_model
+    from bayer_low_light_image_enhancement_tpu.parallel import tiled as jtiled
+    from bayer_low_light_image_enhancement_tpu_torch.compat import jax_params as jp
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(seed)
+    cases, refs = [], {}
+    for name in names:
+        kw = TILED_SMALL[name]
+        x = rng.uniform(0, 1, (1, *TILED_FRAME, 4 if name in RAW_DOMAIN else 1))
+        x = x.astype(np.float32)
+        jmodel = jax_get_model(name, **kw)
+        if name == "wavkan_rawformer":
+            # filled_variables fills KANLinear's ``weight`` as a norm's, near
+            # 1, and the output grows to ~3e4, where fp32 rounding exceeds
+            # the bar: the JAX init's variables instead.
+            v = jax_variables(jmodel, jnp.asarray(x[:, :16, :16]), seed=seed, jit=True)
+        else:
+            v = filled_variables(jmodel, jnp.asarray(x[:, :16, :16]), seed=seed)
+        cc = v["params"].get("color_correction")
+        if cc is not None:  # a gamma near 0 would make x ** (1 / gamma) overflow
+            cc["gamma"] = np.float32(2.2) + cc["gamma"]
+        model = get_model(name, **kw)
+        state = getattr(type(model), "state_dict_from_jax", jp.state_dict_from_jax)(v)
+        model.load_state_dict(state)
+        ref = {}
+        if hasattr(model, "conv_out"):  # the head's input too (C14)
+            want, head = jax.jit(lambda v, x: jmodel.apply(
+                v, x, mutable=["intermediates"],
+                capture_intermediates=lambda m, _: m.name == "conv_out"))(v, jnp.asarray(x))
+            ref["jax_head"] = np.asarray(head["intermediates"]["conv_out"]["__call__"][0])
+            port, head = torch_run_with_head(model.eval(), t(x))
+            ref["port_head"] = n(head)
+        else:
+            want = jax.jit(jmodel.apply)(v, jnp.asarray(x))
+            with torch.no_grad():
+                port = model.eval()(t(x))
+        want = np.clip(np.asarray(want), 0.0, 1.0)
+        port = n(port.clamp(0.0, 1.0))
+        for layout, axes in TILED_AXES.items():
+            jt = None
+            if (name, layout) in jax_tiled:
+                w = "spatial_w" if layout == "hw" else None
+                mesh = (create_mesh(data=1, spatial=4, devices=jax.devices()[:4]) if w is None
+                        else create_mesh(data=1, spatial=2, spatial_w=2,
+                                         devices=jax.devices()[:4]))
+                fn = jtiled.make_tiled_forward(jax_get_model(name, spatial_axis=axes, **kw),
+                                               mesh, "spatial", w)
+                jt = np.asarray(fn(v, jtiled.shard_image(jnp.asarray(x), mesh,
+                                                         spatial_w_axis=w)))
+            refs[name, layout] = dict(jax=want, port=port, jax_tiled=jt, **ref)
+            cases.append(dict(name=f"{name}_{layout}", layout=layout, model=(name, kw),
+                              state=state, x=x))
+    path = workers.write_job(tmp_path / "job.pt", kind="tiled_zoo", cases=cases, ops=list(ops))
+    ranks = workers.run_job(path, 4)
+    for i, key in enumerate(refs):
+        refs[key]["ranks"] = [r["models"][i] for r in ranks]
+    return refs, [r["ops"] for r in ranks]
+
+
+def hold_tiled(case, against, atol, rtol=1e-4):
+    """Every rank's tiled output of a ``tiled_zoo`` case against its
+    ``against`` reference ("port", "jax" or "jax_tiled")."""
+    for i, got in enumerate(case["ranks"]):
+        np.testing.assert_allclose(got["out"].numpy(), case[against], rtol=rtol, atol=atol,
+                                   err_msg=f"rank {i} against {against}")
+
+
+def blocks(y, layout):
+    """The blocks of NHWC ``y`` that the ranks of ``layout`` hold (4 by H,
+    or 2 x 2)."""
+    h, w = y.shape[1:3]
+    if layout == "h":
+        return [y[:, i * h // 4:(i + 1) * h // 4] for i in range(4)]
+    return [y[:, i * h // 2:(i + 1) * h // 2, j * w // 2:(j + 1) * w // 2]
+            for i in range(2) for j in range(2)]
