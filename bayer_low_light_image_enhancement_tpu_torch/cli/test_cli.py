@@ -36,6 +36,12 @@ model of the registry shards by H and by H x W, RawFormer-WFB by H only; a
 2-D mesh builds the model with the (``spatial``, ``spatial_w``) pair, so
 that its resizes, reductions and token attention cross both axes (the JAX
 CLI builds the zoo models with the H axis alone, ROADMAP C17).
+
+On one card, a canonical RawFormer S/B/L frame (no ``--model``) of H >= 1024
+at batch 1 on the kernel path runs banded (``models/fused_apply.py``): H
+padded to a multiple of 128 and cut into ``pick_bands(H)`` bands riding the
+batch axis, the JAX CLI's route (``band_count``). Every other frame keeps the
+monolithic forward.
 """
 
 from __future__ import annotations
@@ -54,6 +60,10 @@ import torch.nn as nn
 from bayer_low_light_image_enhancement_tpu_torch.cli.train_cli import build_model, build_split
 from bayer_low_light_image_enhancement_tpu_torch.core import mesh as meshlib
 from bayer_low_light_image_enhancement_tpu_torch.models.common import set_fused_blocks
+from bayer_low_light_image_enhancement_tpu_torch.models.fused_apply import (
+    make_banded_forward,
+    pick_bands,
+)
 from bayer_low_light_image_enhancement_tpu_torch.parallel.tiled import (
     make_tiled_forward,
     shard_image,
@@ -151,6 +161,25 @@ def load_predictor(args, model, device, show=print) -> Predictor:
 
 
 MODULE = "bayer_low_light_image_enhancement_tpu_torch.cli.test_cli"
+
+# The band route's pad and smallest padded height (the JAX CLI's).
+BAND_PAD, BAND_MIN_H = 128, 1024
+
+
+def band_count(args, shape, device) -> int:
+    """The bands the single-card full-frame route cuts a frame of ``shape``
+    ([B, H, W, 1], [H, W, 1] or [H, W]) into, 1 for the monolithic forward:
+    ``pick_bands`` of H padded to a multiple of max(pad_to, 128) for a
+    canonical RawFormer S/B/L (no ``--model``) on the card's kernel path (not
+    ``--no_fused``, not ``--device cpu``, no spatial mesh) at batch 1 where
+    that height is at least 1024 (the JAX CLI's route)."""
+    if (args.model is not None or args.no_fused or torch.device(device).type != "cuda"
+            or args.spatial_chips * args.spatial_w_chips != 1):
+        return 1
+    b, h = (shape[0], shape[1]) if len(shape) == 4 else (1, shape[0])
+    pad = max(args.pad_to, BAND_PAD)
+    hp = -(-h // pad) * pad
+    return pick_bands(hp) if b == 1 and hp >= BAND_MIN_H else 1
 
 
 class TiledFrames(nn.Module):
@@ -281,10 +310,16 @@ def evaluate(args, model, device, mesh, w_axis) -> dict:
 
     rng = np.random.default_rng(0)
     psnrs, ssims, seconds = [], [], []
+    banded = {}  # bands -> the Predictor of the banded forward
     for idx in range(len(val_ds)):
         t0 = time.perf_counter()
         inp, gt, ratio = val_ds.sample(idx, rng)
-        out = pred.codes(inp, ratio, decode) if compact else pred(inp)
+        k = band_count(args, inp.shape, device)
+        if k > 1 and k not in banded:
+            banded[k] = Predictor(make_banded_forward(pred.model, k), device=device,
+                                  pad_to=max(args.pad_to, BAND_PAD))
+        fwd = banded[k] if k > 1 else pred
+        out = fwd.codes(inp, ratio, decode) if compact else fwd(inp)
 
         pred_u8 = (np.clip(out, 0, 1) * 255).astype(np.uint8)
         gt_u8 = (np.clip(gt, 0, 1) * 255).astype(np.uint8)

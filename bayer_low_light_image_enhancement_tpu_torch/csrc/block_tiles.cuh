@@ -1,6 +1,7 @@
 // The tiled passes of the fused TransformerBlock forward, K2 (gram) and K3
 // (apply + FFN), as templates shared by the translation units that
 // instantiate them: fused_block.cu (the production K2 and K3),
+// fused_block_banded.cu (K2 and K3 in band mode, BAND = true),
 // fused_attention.cu (A1's gram and apply passes: K2 and K3's phase 1
 // without their LayerNorm) and
 // probes_bisect.cu (K3 cut after an earlier stage). fused_block.cu says what
@@ -425,6 +426,63 @@ int resident_blocks(Kernel kernel, int threads, int smem) {
 }
 
 // ---------------------------------------------------------------------------
+// Band mode (models/fused_apply.py `make_banded_forward`): each frame is cut
+// into `bands` bands of H rows riding the batch axis (image b is band
+// b % bands of its frame), and each band's input carries halo rows filled
+// from its neighbour bands (zeros past the frame's edges). A kernel's output
+// row r of image b then reads input row r + din of a buffer of hin rows, and
+// is frame row fr0 + (b % bands) * hband + r. The 1x1 outputs that feed a
+// dw3x3 are zeroed outside the FRAME (rows [0, frame_h)), not outside the
+// band: the halo rows carry the neighbours' real values, which the band's
+// edge rows need (the TPU kernels' `_real_mask` with `row_seg` / `h_tot`).
+// The gram counts only own rows inside the frame, so each frame pixel once.
+// BAND false is the plain image: every call reduces to inside(r, c, H, W).
+// ---------------------------------------------------------------------------
+template <bool BAND>
+struct RowMap {
+  int hin, din, fr0, bands, hband, frame_h;
+  // Rows of an image's input buffer, for output images of H rows.
+  __device__ __forceinline__ int in_rows(int H) const {
+    if constexpr (BAND) return hin; else return H;
+  }
+  __device__ __forceinline__ int in_row(int r) const {
+    if constexpr (BAND) return r + din; else return r;
+  }
+  // Frame row of output row 0 of image b.
+  __device__ __forceinline__ int frame_off(int b) const {
+    if constexpr (BAND) return fr0 + (b % bands) * hband; else return 0;
+  }
+  // Whether output-coordinate pixel (r, c) of the image at frame offset off
+  // holds a real input (the pre-dw masks).
+  __device__ __forceinline__ bool real(int off, int r, int c, int H, int W) const {
+    if constexpr (BAND) {
+      const int ir = r + din, fr = off + r;
+      return ir >= 0 && ir < hin && fr >= 0 && fr < frame_h && c >= 0 && c < W;
+    } else {
+      return inside(r, c, H, W);
+    }
+  }
+  // Whether own pixel (r, c) enters the gram.
+  __device__ __forceinline__ bool counted(int off, int r, int c, int H, int W) const {
+    if constexpr (BAND) return inside(r, c, H, W) && off + r >= 0 && off + r < frame_h;
+    else return inside(r, c, H, W);
+  }
+};
+// The maps of a band-mode block: x is [B, H + 4, W, C] (2 halo rows a side),
+// K2 and K3's phase 2 produce the band's H own rows, K3's phase 1 y on H + 2
+// rows (band rows -1 .. H) into a [B, H + 2, W, C] buffer, so that phase 2
+// finds its 1-row halo of y in its own input.
+__host__ __device__ inline RowMap<true> band_gram_map(int H, int bands, int frame_h) {
+  return {H + 4, 2, 0, bands, H, frame_h};
+}
+__host__ __device__ inline RowMap<true> band_apply1_map(int H, int bands, int frame_h) {
+  return {H + 4, 1, -1, bands, H, frame_h};
+}
+__host__ __device__ inline RowMap<true> band_apply2_map(int H, int bands, int frame_h) {
+  return {H + 2, 1, 0, bands, H, frame_h};
+}
+
+// ---------------------------------------------------------------------------
 // K2, pass A: per image the gram q^T k and the sums of q^2 and k^2. With LN
 // false the 1x1 reads x itself (A1, the standalone channel attention).
 //
@@ -461,11 +519,11 @@ struct GramCfg {
                 "K2 geometry");
 };
 
-template <int C, bool LN>
+template <int C, bool LN, bool BAND = false>
 __global__ void __launch_bounds__(GramCfg<C>::NT, GramCfg<C>::NT == 256 ? 2 : 1) gram_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ wqk, const float* __restrict__ bqk,
     const float* __restrict__ dwqk, const float* __restrict__ bdwqk,
-    float* __restrict__ partials, int H, int W, int tiles_h, int tiles_w) {
+    float* __restrict__ partials, int H, int W, int tiles_h, int tiles_w, RowMap<BAND> rm) {
   using G = GramCfg<C>;
   constexpr int NT = G::NT;
   unsigned char* sm = dyn_smem();
@@ -478,13 +536,14 @@ __global__ void __launch_bounds__(GramCfg<C>::NT, GramCfg<C>::NT == 256 ? 2 : 1)
   const int T = tiles_h * tiles_w;
   const int first = (int)((long long)T * blockIdx.x / gridDim.x);
   const int last = (int)((long long)T * (blockIdx.x + 1) / gridDim.x);
-  const bf16* xb = x + (size_t)b * H * W * C;
+  const int HX = rm.in_rows(H), off = rm.frame_off(b);
+  const bf16* xb = x + (size_t)b * HX * W * C;
   // Column n of the block's [q|k] -> column of the [C, 2C] weights.
   auto col = [&](int n) { return n < G::CB ? bi * G::CB + n : C + bj * G::CB + n - G::CB; };
   auto load_win = [&](int L) {
     const int r0 = (L % tiles_h) * G::TH, c0 = (L / tiles_h) * G::TW;
-    load_window_async<C>(win[(L - first) & 1], G::LDX, G::RP, xb, H, W, r0 - 1, c0 - 1, G::WR,
-                         G::WC, threadIdx.x, NT);
+    load_window_async<C>(win[(L - first) & 1], G::LDX, G::RP, xb, HX, W, rm.in_row(r0 - 1),
+                         c0 - 1, G::WR, G::WC, threadIdx.x, NT);
   };
   auto load_chunk = [&](int g) {  // the chunk of global step g into its ring slot
     const int n0 = (g % G::NCH) * G::NC;
@@ -540,7 +599,7 @@ __global__ void __launch_bounds__(GramCfg<C>::NT, GramCfg<C>::NT == 256 ? 2 : 1)
           xs, G::LDX, wc, G::LDW, [&](int row, int c, float v0, float v1) {
             const int wr = row / G::WC, wcc = row % G::WC;
             float2 o = make_float2(0.f, 0.f);
-            if (row < G::R && inside(r0 - 1 + wr, c0 - 1 + wcc, H, W)) {
+            if (row < G::R && rm.real(off, r0 - 1 + wr, c0 - 1 + wcc, H, W)) {
               const float2 bb = ld2(vt + G::V_B + ch * G::NC + c);
               o = make_float2(v0 + bb.x, v1 + bb.y);
             }
@@ -551,7 +610,7 @@ __global__ void __launch_bounds__(GramCfg<C>::NT, GramCfg<C>::NT == 256 ? 2 : 1)
       dw3x3_own<NT, G::TH, G::TW, G::NC>(
           z, G::LDZ, vt + ch * G::NC, G::N2, vt + G::V_BDW + ch * G::NC,
           [&](int p, int cq, float4 a) {
-            const bool in = inside(r0 + p / G::TW, c0 + p % G::TW, H, W);
+            const bool in = rm.counted(off, r0 + p / G::TW, c0 + p % G::TW, H, W);
             st_bf4(qk + p * G::LDQ + ch * G::NC + 4 * cq,
                    in ? a : make_float4(0.f, 0.f, 0.f, 0.f));
           });
@@ -625,17 +684,17 @@ long long gram_workspace_floats(int B, int H, int W, int C) {
   }
 }
 
-template <int C, bool LN>
+template <int C, bool LN, bool BAND = false>
 cudaError_t gram_run(const void* x, const void* wqk, const void* bqk, const void* dwqk,
                      const void* bdwqk, float* ws, float* out, int B, int H, int W, int ncta,
-                     cudaStream_t s) {
+                     cudaStream_t s, RowMap<BAND> rm = {}) {
   using G = GramCfg<C>;
   const int th = cdiv(H, G::TH), tw = cdiv(W, G::TW);
   if (ncta <= 0) ncta = gram_ctas<C, LN>(B, H, W);
   if (ncta > th * tw) return cudaErrorInvalidValue;
-  cudaError_t err = launch(gram_kernel<C, LN>, dim3(ncta, G::NBLK, B), dim3(G::NT), G::SMEM, s,
-                           (const bf16*)x, (const bf16*)wqk, (const float*)bqk,
-                           (const float*)dwqk, (const float*)bdwqk, ws, H, W, th, tw);
+  cudaError_t err = launch(gram_kernel<C, LN, BAND>, dim3(ncta, G::NBLK, B), dim3(G::NT), G::SMEM,
+                           s, (const bf16*)x, (const bf16*)wqk, (const float*)bqk,
+                           (const float*)dwqk, (const float*)bdwqk, ws, H, W, th, tw, rm);
   if (err != cudaSuccess) return err;
   return launch(gram_reduce_kernel, dim3(cdiv(G::E, 256), G::NBLK, B), dim3(256), 0, s,
                 (const float*)ws, out, C, G::S, ncta);
@@ -643,15 +702,16 @@ cudaError_t gram_run(const void* x, const void* wqk, const void* bqk, const void
 
 // The whole gram pass: the tile kernel on ncta CTAs per (image, channel
 // block) (<= 0: gram_ctas, the occupancy API's), then the fixed-order
-// reduction.
-template <bool LN>
+// reduction. BAND: x is [B, H + 4, W, C] of band_gram_map (out holds each
+// band's partial: the caller sums a frame's bands).
+template <bool LN, bool BAND = false>
 cudaError_t gram_pass(const void* x, const void* wqk, const void* bqk, const void* dwqk,
                       const void* bdwqk, void* workspace, void* out, int B, int H, int W,
-                      int C, int ncta, cudaStream_t s) {
+                      int C, int ncta, cudaStream_t s, RowMap<BAND> rm = {}) {
   float *ws = (float*)workspace, *o = (float*)out;
   switch (C) {
 #define BLLE_RUN(c) \
-  case c: return gram_run<c, LN>(x, wqk, bqk, dwqk, bdwqk, ws, o, B, H, W, ncta, s);
+  case c: return gram_run<c, LN, BAND>(x, wqk, bqk, dwqk, bdwqk, ws, o, B, H, W, ncta, s, rm);
     BLLE_WIDTHS(BLLE_RUN)
 #undef BLLE_RUN
     default: return cudaErrorInvalidValue;
@@ -704,13 +764,13 @@ struct Apply1Cfg {
 };
 
 // LN false skips LN1: the v 1x1 reads x itself (A1's apply pass, at STAGE 2).
-template <int C, int STAGE, bool LN = true>
+template <int C, int STAGE, bool LN = true, bool BAND = false>
 __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 : 1)
     apply1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ apply,
                   const bf16* __restrict__ wv, const float* __restrict__ bv,
                   const float* __restrict__ dwv, const float* __restrict__ bdwv,
                   const float* __restrict__ bproj, bf16* __restrict__ out, int H, int W,
-                  int tiles_h, int tiles_w, long long total) {
+                  int tiles_h, int tiles_w, long long total, RowMap<BAND> rm) {
   using A = Apply1Cfg<C>;
   constexpr int NT = A::NT, STEPS = 2 * A::NCH;  // streamed chunks a tile: wv, then apply
   unsigned char* sm = dyn_smem();
@@ -722,10 +782,11 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
   float* const vt = reinterpret_cast<float*>(sm + A::OFF_VT);
   const long long first = total * blockIdx.x / gridDim.x;
   const long long last = total * (blockIdx.x + 1) / gridDim.x;
+  const int HX = rm.in_rows(H);
   auto load_win = [&](long long L) {
     const TilePos3 t = tile_pos<A::TH, A::TW>(L, tiles_h, tiles_w);
-    load_window_async<C>(win[(L - first) & 1], A::LDX, A::RP, x + (size_t)t.b * H * W * C, H, W,
-                         t.r0 - 1, t.c0 - 1, A::WR, A::WC, threadIdx.x, NT);
+    load_window_async<C>(win[(L - first) & 1], A::LDX, A::RP, x + (size_t)t.b * HX * W * C, HX,
+                         W, rm.in_row(t.r0 - 1), t.c0 - 1, A::WR, A::WC, threadIdx.x, NT);
   };
   // Streamed: global step g's chunk (the walk's tile (g / STEPS) of image b).
   auto load_step = [&](long long g, int b) {
@@ -749,6 +810,7 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
   int cur_b = -1;
   for (long long L = first; L < last; ++L) {
     const TilePos3 t = tile_pos<A::TH, A::TW>(L, tiles_h, tiles_w);
+    const int off = rm.frame_off(t.b);
     bf16* const xs = win[(L - first) & 1];
     const long long g0 = (L - first) * STEPS;
     // The step after g: the next chunk of this tile or the first of the next.
@@ -792,7 +854,7 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
       product<A::NW, A::RP / 16, A::NC / 8, C>(
           xs, A::LDX, wc, A::LDW, [&](int row, int c, float v0, float v1) {
             float2 o = make_float2(0.f, 0.f);
-            if (row < A::R && inside(t.r0 - 1 + row / A::WC, t.c0 - 1 + row % A::WC, H, W)) {
+            if (row < A::R && rm.real(off, t.r0 - 1 + row / A::WC, t.c0 - 1 + row % A::WC, H, W)) {
               const float2 bb = ld2(vt + A::V_B + n0 + c);
               o = make_float2(v0 + bb.x, v1 + bb.y);
             }
@@ -822,7 +884,9 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
         const float2 bp = ld2(vt + A::V_BP + n);
         float a0 = v0 + bp.x, a1 = v1 + bp.y;
         if constexpr (STAGE != 2) {
-          const float2 xv = ld_bf2(x + idx);
+          size_t xi = idx;
+          if constexpr (BAND) xi = (((size_t)t.b * HX + rm.in_row(t.r0 + i)) * W + t.c0 + j) * C + n;
+          const float2 xv = ld_bf2(x + xi);
           a0 += xv.x, a1 += xv.y;
         }
         st_bf2(out + idx, a0, a1);
@@ -873,13 +937,13 @@ struct Apply2Cfg {
   static_assert(P % 16 == 0 && CH % NC == 0 && NC % 16 == 0 && CH % KC == 0, "K3 phase 2 geometry");
 };
 
-template <int C, int STAGE>
+template <int C, int STAGE, bool BAND = false>
 __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 : 1)
     apply2_kernel(const bf16* __restrict__ y, const bf16* __restrict__ wp1,
                   const float* __restrict__ bp1, const float* __restrict__ dwf,
                   const float* __restrict__ bdwf, const bf16* __restrict__ wp2,
                   const float* __restrict__ bp2, bf16* __restrict__ out, int H, int W,
-                  int tiles_h, int tiles_w, long long total) {
+                  int tiles_h, int tiles_w, long long total, RowMap<BAND> rm) {
   using A = Apply2Cfg<C>;
   constexpr int NT = A::NT, STEPS = A::NCH + A::NKC;  // streamed chunks a tile
   unsigned char* sm = dyn_smem();
@@ -893,10 +957,11 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
   float* const vt = reinterpret_cast<float*>(sm + A::OFF_VT);
   const long long first = total * blockIdx.x / gridDim.x;
   const long long last = total * (blockIdx.x + 1) / gridDim.x;
+  const int HY = rm.in_rows(H);
   auto load_win = [&](long long L) {
     const TilePos3 t = tile_pos<A::TH, A::TW>(L, tiles_h, tiles_w);
-    load_window_async<C>(win[(L - first) & 1], A::LDX, A::RP, y + (size_t)t.b * H * W * C, H, W,
-                         t.r0 - 1, t.c0 - 1, A::WR, A::WC, threadIdx.x, NT);
+    load_window_async<C>(win[(L - first) & 1], A::LDX, A::RP, y + (size_t)t.b * HY * W * C, HY,
+                         W, rm.in_row(t.r0 - 1), t.c0 - 1, A::WR, A::WC, threadIdx.x, NT);
   };
   // Streamed: global step g's chunk (wp1 columns, then wp2 rows).
   auto load_step = [&](long long g) {
@@ -934,9 +999,17 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
         if (g % STEPS != 0 || L + 1 < last) load_step(g);
       }
     };
+    const int off = rm.frame_off(t.b);
     auto own = [&](int p) { return inside(t.r0 + p / A::TW, t.c0 + p % A::TW, H, W); };
     auto gidx = [&](int p) {
       return (((size_t)t.b * H + t.r0 + p / A::TW) * W + t.c0 + p % A::TW) * C;
+    };
+    // y's index of own pixel p (its own buffer's rows in band mode).
+    auto yidx = [&](int p) {
+      if constexpr (BAND)
+        return (((size_t)t.b * HY + rm.in_row(t.r0 + p / A::TW)) * W + t.c0 + p % A::TW) * C;
+      else
+        return gidx(p);
     };
     cp_async_wait<0>();
     __syncthreads();  // window L landed; tile L - 1 is done with every buffer
@@ -963,7 +1036,7 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
       product<A::NW, A::RP / 16, A::NC / 8, C>(
           ys, A::LDX, wc, A::LDW1, [&](int row, int c, float v0, float v1) {
             float2 o = make_float2(0.f, 0.f);
-            if (row < A::R && inside(t.r0 - 1 + row / A::WC, t.c0 - 1 + row % A::WC, H, W)) {
+            if (row < A::R && rm.real(off, t.r0 - 1 + row / A::WC, t.c0 - 1 + row % A::WC, H, W)) {
               const float2 bb = ld2(vt + A::V_B1 + n0 + c);
               o = make_float2(v0 + bb.x, v1 + bb.y);
             }
@@ -1015,7 +1088,7 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
       acc_epilogue<A::NW, A::P / 16, C / 8>(pacc, [&](int p, int n, float v0, float v1) {
         if (!own(p)) return;
         const size_t idx = gidx(p) + n;
-        const float2 yv = ld_bf2(y + idx), bb = ld2(vt + A::V_B2 + n);
+        const float2 yv = ld_bf2(y + yidx(p) + n), bb = ld2(vt + A::V_B2 + n);
         st_bf2(out + idx, yv.x + v0 + bb.x, yv.y + v1 + bb.y);
       });
   }
@@ -1039,32 +1112,42 @@ int apply_grid(Kernel kernel, int threads, int smem, long long total, int want) 
 // ([B,H,W,C] bf16), then phase 2 from `ybuf` into `out`, on grid1 / grid2
 // CTAs (<= 0: apply_grid's); p holds the arguments of blle_apply_pass in
 // order (p[0..6] only for STAGE <= 3). LN false: phase 1 without LN1 (A1's
-// apply pass, fused_attention.cu).
-template <int C, int STAGE, bool LN = true>
+// apply pass, fused_attention.cu). BAND (STAGE 5): x is [B, H + 4, W, C],
+// phase 1 writes y on H + 2 rows into ybuf [B, H + 2, W, C]
+// (band_apply1_map, band_apply2_map); out is [B, H, W, C].
+template <int C, int STAGE, bool LN = true, bool BAND = false>
 cudaError_t apply_tiles(const void* const* p, void* out, void* ybuf, int B, int H, int W,
-                        cudaStream_t s, int grid1 = 0, int grid2 = 0) {
+                        cudaStream_t s, int grid1 = 0, int grid2 = 0, int bands = 1,
+                        int frame_h = 0) {
   using A1 = Apply1Cfg<C>;
   using A2 = Apply2Cfg<C>;
   constexpr int S1 = STAGE < 3 ? STAGE : 3;
+  static_assert(!BAND || STAGE == 5, "band mode runs the whole pass");
+  RowMap<BAND> rm1 = {}, rm2 = {};
+  if constexpr (BAND) {
+    rm1 = band_apply1_map(H, bands, frame_h);
+    rm2 = band_apply2_map(H, bands, frame_h);
+  }
   {
-    const long long total = apply_tiles_total<A1>(B, H, W);
-    const int grid = apply_grid(apply1_kernel<C, S1, LN>, A1::NT, A1::SMEM, total, grid1);
+    const int H1 = BAND ? H + 2 : H;
+    const long long total = apply_tiles_total<A1>(B, H1, W);
+    const int grid = apply_grid(apply1_kernel<C, S1, LN, BAND>, A1::NT, A1::SMEM, total, grid1);
     if (grid < 1) return grid1 > 0 ? cudaErrorInvalidValue : cudaErrorInvalidConfiguration;
     cudaError_t err = launch(
-        apply1_kernel<C, S1, LN>, dim3(grid), dim3(A1::NT), A1::SMEM, s, (const bf16*)p[0],
+        apply1_kernel<C, S1, LN, BAND>, dim3(grid), dim3(A1::NT), A1::SMEM, s, (const bf16*)p[0],
         (const bf16*)p[1], (const bf16*)p[2], (const float*)p[3], (const float*)p[4],
-        (const float*)p[5], (const float*)p[6], (bf16*)(STAGE <= 3 ? out : ybuf), H, W,
-        cdiv(H, A1::TH), cdiv(W, A1::TW), total);
+        (const float*)p[5], (const float*)p[6], (bf16*)(STAGE <= 3 ? out : ybuf), H1, W,
+        cdiv(H1, A1::TH), cdiv(W, A1::TW), total, rm1);
     if (err != cudaSuccess || STAGE <= 3) return err;
   }
   if constexpr (STAGE >= 4) {
     const long long total = apply_tiles_total<A2>(B, H, W);
-    const int grid = apply_grid(apply2_kernel<C, STAGE>, A2::NT, A2::SMEM, total, grid2);
+    const int grid = apply_grid(apply2_kernel<C, STAGE, BAND>, A2::NT, A2::SMEM, total, grid2);
     if (grid < 1) return grid2 > 0 ? cudaErrorInvalidValue : cudaErrorInvalidConfiguration;
-    return launch(apply2_kernel<C, STAGE>, dim3(grid), dim3(A2::NT), A2::SMEM, s,
+    return launch(apply2_kernel<C, STAGE, BAND>, dim3(grid), dim3(A2::NT), A2::SMEM, s,
                   (const bf16*)ybuf, (const bf16*)p[7], (const float*)p[8], (const float*)p[9],
                   (const float*)p[10], (const bf16*)p[11], (const float*)p[12], (bf16*)out, H, W,
-                  cdiv(H, A2::TH), cdiv(W, A2::TW), total);
+                  cdiv(H, A2::TH), cdiv(W, A2::TW), total, rm2);
   }
   return cudaSuccess;
 }

@@ -51,6 +51,12 @@ _SIGNATURES = {
     "blle_apply_pass": [_P] * 15 + [_I] * 6 + [_P],
     # kind, C, info (5 long longs)
     "blle_block_kernel_info": [_I, _I, ctypes.POINTER(ctypes.c_longlong)],
+    # x (H + 4 rows), wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, ctas,
+    # bands, frame_h, stream
+    "blle_gram_pass_banded": [_P] * 7 + [_I] * 7 + [_P],
+    # x (H + 4 rows), apply, ..., bp2, ybuf (H + 2 rows), out, B, H, W, C,
+    # grid1, grid2, bands, frame_h, stream
+    "blle_apply_pass_banded": [_P] * 15 + [_I] * 8 + [_P],
     # x, dy, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2t, wp1t,
     # op_v, op_y, op_dt, op_g (NULL below the split width), workspace, dx2,
     # dapply, dw, B, H, W, C, stream

@@ -34,6 +34,19 @@ width, the card tests against the library's ``blle_block_kernel_info``.
 ``params`` is the state dict of ``models.common.TransformerBlock`` (the
 reference's names: ``norm1.body.weight``, ``attn.qkv.weight``, ``attn.temperature``
 or ``attn.log_temperature``, ...).
+
+Band mode (``bands`` > 1, inference only; ``models/fused_apply.py``): x holds
+each frame as ``bands`` H-bands riding the batch axis, batch-major per frame,
+and the block computes the frame's block: the passes take each band with 2
+halo rows a side from its neighbour bands (``ops.conv.band_halo``), the 1x1
+outputs that feed a dw3x3 are zeroed outside the frame's ``frame_h`` rows,
+the gram counts each frame pixel once, and the wrapper sums a frame's band
+partials before one ``finalize_attention`` a frame (the JAX kernel's
+``bands`` / ``frame_h``). ``gram_pass_banded`` (K2) and
+``apply_pass_banded`` (K3, y written on the band's rows -1 .. hb so that its
+second kernel finds its halo) go through ``torch.ops.blle.gram_pass_banded``
+/ ``apply_pass_banded``; K3P's gate needs ``bands == 1``, so a pipelined
+block runs K3 in band mode.
 """
 
 from __future__ import annotations
@@ -47,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
-from bayer_low_light_image_enhancement_tpu_torch.ops.conv import conv2d
+from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo, conv2d
 
 # Channel widths the CUDA kernels are instantiated for: every RawFormer
 # level with C <= 256 (S: 32..256, B: 48..192, L: 64..256).
@@ -195,6 +208,77 @@ def ffn_out_plain(y: torch.Tensor, w: BlockWeights) -> torch.Tensor:
 def apply_pass_plain(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.Tensor:
     """x [B,H,W,C], apply [B,C,C] -> block output [B,H,W,C] in x's dtype."""
     return ffn_out_plain(attention_out_plain(x, apply, w), w).to(x.dtype)
+
+
+def _frame_rows(b: int, rows: int, first: int, hb: int, bands: int, device) -> torch.Tensor:
+    """[b, rows]: the frame row of row i of each band image whose row 0 is
+    band row ``first`` (image j is band j % bands, hb rows a band)."""
+    band = torch.arange(b, device=device) % bands
+    return band[:, None] * hb + first + torch.arange(rows, device=device)[None, :]
+
+
+def _frame_mask(b: int, rows: int, first: int, hb: int, bands: int, frame_h: int,
+                device) -> torch.Tensor:
+    """[b, rows, 1, 1] fp32: 1 where the row lies in the frame [0, frame_h)."""
+    fr = _frame_rows(b, rows, first, hb, bands, device)
+    return ((fr >= 0) & (fr < frame_h)).float()[:, :, None, None]
+
+
+def _dw3x3_rows(z: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3 on NHWC, unpadded along H (the rows are given), zero
+    padding along W: [B, R, W, F] -> [B, R - 2, W, F]; taps [9, F]."""
+    f = z.shape[-1]
+    y = F.conv2d(z.permute(0, 3, 1, 2), taps.t().reshape(f, 1, 3, 3), bias, padding=(0, 1),
+                 groups=f)
+    return y.permute(0, 2, 3, 1)
+
+
+def check_band_input(xh: torch.Tensor, bands: int, frame_h: int) -> int:
+    """A band pass's x: [B, hb + 4, W, C] with 2 halo rows a side, B a
+    multiple of ``bands`` and 1 <= frame_h <= bands * hb; returns hb."""
+    if xh.dim() != 4 or xh.shape[1] < 5:
+        raise ValueError(f"a band pass takes x [B, hb + 4, W, C] with hb >= 1, got "
+                         f"{tuple(xh.shape)}")
+    hb = xh.shape[1] - 4
+    if bands < 1 or xh.shape[0] % bands:
+        raise ValueError(f"batch {xh.shape[0]} not divisible by bands {bands}")
+    if not 1 <= frame_h <= bands * hb:
+        raise ValueError(f"frame_h {frame_h} outside [1, bands * hb = {bands * hb}]")
+    return hb
+
+
+def gram_pass_banded_plain(xh: torch.Tensor, w: BlockWeights, bands: int, frame_h: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Band mode's pass A: xh [B, hb + 4, W, C] (``band_halo(x, 2, bands)``)
+    -> each band's partial (gram [B,C,C], sum q^2 [B,C], sum k^2 [B,C]) over
+    its own rows inside the frame, fp32; a frame's bands sum to the frame's
+    ``gram_pass_plain``."""
+    b, _, _, c = xh.shape
+    hb = check_band_input(xh, bands, frame_h)
+    z = (_ln_hat(xh.float()) @ w.wqk + w.bqk) * _frame_mask(b, hb + 4, -2, hb, bands, frame_h,
+                                                            xh.device)
+    qk = _dw3x3_rows(z[:, 1: hb + 3], w.dwqk, w.bdwqk)
+    qk = qk * _frame_mask(b, hb, 0, hb, bands, frame_h, xh.device)
+    q, k = qk[..., :c], qk[..., c:]
+    gram = torch.einsum("bhwc,bhwd->bcd", q, k)
+    return gram, (q * q).sum((1, 2)), (k * k).sum((1, 2))
+
+
+def apply_pass_banded_plain(xh: torch.Tensor, apply: torch.Tensor, w: BlockWeights, bands: int,
+                            frame_h: int) -> torch.Tensor:
+    """Band mode's pass B: xh [B, hb + 4, W, C], apply [B,C,C] (each band
+    its frame's) -> the band's block output [B, hb, W, C] in xh's dtype
+    (fp32 inside): y on the band's rows -1 .. hb, then the FFN at its own
+    rows, each pre-dw 1x1 zeroed outside the frame."""
+    b = xh.shape[0]
+    hb = check_band_input(xh, bands, frame_h)
+    xf = xh.float()
+    v = (_ln_hat(xf) @ w.wv + w.bv) * _frame_mask(b, hb + 4, -2, hb, bands, frame_h, xh.device)
+    v = _dw3x3_rows(v, w.dwv, w.bdwv)
+    y = xf[:, 1: hb + 3] + torch.einsum("bhwc,bcd->bhwd", v, apply.float()) + w.bproj
+    t = (_ln_hat(y) @ w.wp1 + w.bp1) * _frame_mask(b, hb + 2, -1, hb, bands, frame_h, xh.device)
+    f = F.gelu(_dw3x3_rows(t, w.dwf, w.bdwf))
+    return (y[:, 1: hb + 1] + f @ w.wp2 + w.bp2).to(xh.dtype)
 
 
 def finalize_attention(
@@ -548,6 +632,77 @@ def _apply_pass_pipelined_kernel(x: torch.Tensor, apply: torch.Tensor,
 apply_pass_pipelined.launches = 0
 
 
+def gram_pass_banded(xh: torch.Tensor, w: BlockWeights, bands: int, frame_h: int):
+    """Band mode's pass A on xh [B, hb + 4, W, C] -> each band's partial
+    (gram [B,C,C], qss [B,C], kss [B,C]), fp32, views of
+    ``torch.ops.blle.gram_pass_banded``'s [B, C*C + 2C] output.
+
+    CPU: the plain twin. CUDA: kernel K2 in band mode on bf16 xh, or raise."""
+    b, c = xh.shape[0], xh.shape[-1]
+    out = torch.ops.blle.gram_pass_banded(xh, *w.gram_tensors(), bands, frame_h)
+    return out[:, : c * c].reshape(b, c, c), out[:, c * c: c * c + c], out[:, c * c + c:]
+
+
+def _gram_pass_banded_kernel(xh: torch.Tensor, *args) -> torch.Tensor:
+    """K2 in band mode on xh and the ``GRAM_FIELDS`` tensors, then bands
+    and frame_h -> [B, C*C + 2C] fp32, each band's partial."""
+    *tensors, bands, frame_h = args
+    check_pass_input(xh, *tensors)
+    hb = check_band_input(xh, bands, frame_h)
+    b, _, wd, c = xh.shape
+    wqk, bqk, dwqk, bdwqk = tensors
+    wargs = [bf16(wqk), f32(bqk), f32(dwqk), f32(bdwqk)]
+    for t, n, sh in zip(wargs, ("wqk", "bqk", "dwqk", "bdwqk"),
+                        ((c, 2 * c), (2 * c,), (9, 2 * c), (2 * c,))):
+        require(t, n, sh, xh.device)
+    plan = plan_for("gram", b, hb, wd, c, xh.device.index or 0)
+    ws = torch.empty(gram_workspace_floats(b, hb, wd, c, plan), dtype=torch.float32,
+                     device=xh.device)
+    out = torch.empty((b, c * c + 2 * c), dtype=torch.float32, device=xh.device)
+    err = _build.library().blle_gram_pass_banded(
+        xh.data_ptr(), *(t.data_ptr() for t in wargs), ws.data_ptr(), out.data_ptr(),
+        b, hb, wd, c, plan.ctas, bands, frame_h, _build.stream_of(xh),
+    )
+    _build.check(err, "fused_block gram pass (band mode)")
+    gram_pass_banded.launches += 1
+    return out
+
+
+gram_pass_banded.launches = 0
+
+
+def apply_pass_banded(xh: torch.Tensor, apply: torch.Tensor, w: BlockWeights, bands: int,
+                      frame_h: int) -> torch.Tensor:
+    """Band mode's pass B: xh [B, hb + 4, W, C], apply [B,C,C] -> [B, hb, W,
+    C] in xh's dtype.
+
+    CPU: the plain twin. CUDA: kernel K3 in band mode on bf16 xh (apply
+    rounded to bf16), or raise. Through ``torch.ops.blle.apply_pass_banded``."""
+    return torch.ops.blle.apply_pass_banded(xh, apply, *w.apply_tensors(), bands, frame_h)
+
+
+def _apply_pass_banded_kernel(xh: torch.Tensor, apply: torch.Tensor, *args) -> torch.Tensor:
+    *tensors, bands, frame_h = args
+    wargs = _apply_pass_args(xh, apply, *tensors)
+    hb = check_band_input(xh, bands, frame_h)
+    b, _, wd, c = xh.shape
+    ybuf = torch.empty((b, hb + 2, wd, c), dtype=xh.dtype, device=xh.device)
+    out = torch.empty((b, hb, wd, c), dtype=xh.dtype, device=xh.device)
+    dev = xh.device.index or 0
+    grids = (plan_for("apply1", b, hb + 2, wd, c, dev).ctas,
+             plan_for("apply2", b, hb, wd, c, dev).ctas)
+    err = _build.library().blle_apply_pass_banded(
+        xh.data_ptr(), *(t.data_ptr() for t in wargs), ybuf.data_ptr(), out.data_ptr(),
+        b, hb, wd, c, *grids, bands, frame_h, _build.stream_of(xh),
+    )
+    _build.check(err, "fused_block apply pass (band mode)")
+    apply_pass_banded.launches += 1
+    return out
+
+
+apply_pass_banded.launches = 0
+
+
 def check_apply_kernel(apply_kernel: str) -> None:
     if apply_kernel not in APPLY_KERNELS:
         raise ValueError(f"apply_kernel must be one of {APPLY_KERNELS}, got {apply_kernel!r}")
@@ -562,9 +717,26 @@ def select_apply_pass(c: int, apply_kernel: str):
     return apply_pass
 
 
+def _banded_sums(t: torch.Tensor, bands: int) -> torch.Tensor:
+    """Each frame's sum of its bands' partials (fp32)."""
+    return t.reshape(t.shape[0] // bands, bands, *t.shape[1:]).sum(1)
+
+
+def _banded_block(x: torch.Tensor, w: BlockWeights, num_heads: int, bands: int, frame_h,
+                  gram_fn, apply_fn) -> torch.Tensor:
+    """Band mode's block on x [B, hb, W, C] through the passes ``gram_fn`` /
+    ``apply_fn`` (the kernels' wrappers or the twins): the halo'd bands, a
+    frame's partials summed, one finalise a frame, its apply on each band."""
+    fh = bands * x.shape[1] if frame_h is None else frame_h
+    xh = band_halo(x, 2, bands)
+    gram, qss, kss = (_banded_sums(t, bands) for t in gram_fn(xh, w, bands, fh))
+    apply = finalize_attention(gram, qss, kss, w.temperature, w.wproj, num_heads)
+    return apply_fn(xh, apply.repeat_interleave(bands, 0), w, bands, fh)
+
+
 def fused_transformer_block(
     x: torch.Tensor, params: Mapping[str, torch.Tensor], num_heads: int,
-    apply_kernel: str = "tiled",
+    apply_kernel: str = "tiled", bands: int = 1, frame_h=None,
 ) -> torch.Tensor:
     """One TransformerBlock on x [B, H, W, C] -> [B, H, W, C] (x's dtype).
 
@@ -573,7 +745,20 @@ def fused_transformer_block(
     apply pass (``select_apply_pass``): "tiled" (K3) or "pipelined" (K3P).
     With grad enabled on x or a parameter the block runs through
     ``FusedTransformerBlockFn`` (the same forward, B1/B2 backward);
-    otherwise K2 and the apply pass are called directly."""
+    otherwise K2 and the apply pass are called directly.
+
+    ``bands`` > 1: band mode (the module docstring), inference only: x holds
+    B / bands frames of ``frame_h`` rows (default bands * H), band b % bands
+    of each; K2 and K3 in band mode whatever ``apply_kernel``."""
+    if bands != 1:
+        check_apply_kernel(apply_kernel)
+        w = fold_block_params(params)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w.tensors())):
+            raise RuntimeError("band streaming is an inference path: call the block under "
+                               "torch.no_grad() or torch.inference_mode()")
+        xk = x.to(torch.bfloat16).contiguous() if x.is_cuda else x.contiguous()
+        return _banded_block(xk, w, num_heads, bands, frame_h, gram_pass_banded,
+                             apply_pass_banded).to(x.dtype)
     apply_fn = select_apply_pass(x.shape[-1], apply_kernel)
     w = fold_block_params(params)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w.tensors())):
@@ -591,12 +776,16 @@ def fused_transformer_block(
 
 def fused_transformer_block_plain(
     x: torch.Tensor, params: Mapping[str, torch.Tensor], num_heads: int,
-    apply_kernel: str = "tiled",
+    apply_kernel: str = "tiled", bands: int = 1, frame_h=None,
 ) -> torch.Tensor:
     """The whole block through the twins, on any device (fp32 inside); every
-    ``apply_kernel`` computes this same function."""
+    ``apply_kernel`` computes this same function. ``bands`` > 1: band mode
+    through the band twins."""
     check_apply_kernel(apply_kernel)
     w = fold_block_params(params)
+    if bands != 1:
+        return _banded_block(x, w, num_heads, bands, frame_h, gram_pass_banded_plain,
+                             apply_pass_banded_plain)
     gram, qss, kss = gram_pass_plain(x, w)
     apply = finalize_attention(gram, qss, kss, w.temperature, w.wproj, num_heads)
     return apply_pass_plain(x, apply, w)

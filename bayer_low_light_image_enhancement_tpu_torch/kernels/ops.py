@@ -1,10 +1,15 @@
-"""The four forward kernels as ``torch.library`` operators: ``torch.ops.blle``.
+"""The forward kernels as ``torch.library`` operators: ``torch.ops.blle``.
 
 * ``gram_pass(x, wqk, bqk, dwqk, bdwqk) -> [B, C*C + 2C]`` fp32 (K2 with its
   reduction: each image's gram, then its sums of q^2 and of k^2);
 * ``apply_pass(x, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2,
   bp2) -> [B,H,W,C]`` in x's dtype (K3);
 * ``apply_pass_pipelined(...)``, the same arguments and result (K3P);
+* ``gram_pass_banded(xh, wqk, bqk, dwqk, bdwqk, bands, frame_h)`` and
+  ``apply_pass_banded(xh, apply, wv, ..., bp2, bands, frame_h)``: K2 and K3
+  in band mode on the halo'd bands xh [B, hb + 4, W, C] -> each band's
+  partial [B, C*C + 2C] fp32 / its block output [B, hb, W, C] in xh's dtype
+  (``fused_block.py``'s band mode);
 * ``selective_scan_fwd(u, dt, A, B, C, D) -> [B,L,D]`` in u's dtype (S1
   without saved states).
 
@@ -51,6 +56,9 @@ _LIB.define("gram_pass(Tensor x, " + ", ".join(f"Tensor {n}" for n in fb.GRAM_FI
             + ") -> Tensor")
 _LIB.define(f"apply_pass({_APPLY_ARGS}) -> Tensor")
 _LIB.define(f"apply_pass_pipelined({_APPLY_ARGS}) -> Tensor")
+_LIB.define("gram_pass_banded(Tensor x, " + ", ".join(f"Tensor {n}" for n in fb.GRAM_FIELDS)
+            + ", int bands, int frame_h) -> Tensor")
+_LIB.define(f"apply_pass_banded({_APPLY_ARGS}, int bands, int frame_h) -> Tensor")
 _LIB.define("selective_scan_fwd(Tensor u, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor D)"
             " -> Tensor")
 
@@ -69,6 +77,19 @@ def _apply_twin(x, apply, *tensors):
     return fb.apply_pass_plain(x, apply, _weights(fb.APPLY_FIELDS, tensors)).contiguous()
 
 
+def _gram_banded_twin(x, *args):
+    *tensors, bands, frame_h = args
+    gram, qss, kss = fb.gram_pass_banded_plain(x, _weights(fb.GRAM_FIELDS, tensors), bands,
+                                               frame_h)
+    return torch.cat([gram.flatten(1), qss, kss], 1)
+
+
+def _apply_banded_twin(x, apply, *args):
+    *tensors, bands, frame_h = args
+    return fb.apply_pass_banded_plain(x, apply, _weights(fb.APPLY_FIELDS, tensors), bands,
+                                      frame_h).contiguous()
+
+
 def _scan_twin(u, dt, A, B, C, D):
     return ssm.selective_scan(u, dt, A, B, C, D, chunk_size=ssk.TWIN_CHUNK).contiguous()
 
@@ -81,6 +102,8 @@ for _name, _cpu, _cuda in (
     ("gram_pass", _gram_twin, fb._gram_pass_kernel),
     ("apply_pass", _apply_twin, fb._apply_pass_kernel),
     ("apply_pass_pipelined", _apply_twin, fb._apply_pass_pipelined_kernel),
+    ("gram_pass_banded", _gram_banded_twin, fb._gram_pass_banded_kernel),
+    ("apply_pass_banded", _apply_banded_twin, fb._apply_pass_banded_kernel),
     ("selective_scan_fwd", _scan_twin, _scan_kernel),
 ):
     _LIB.impl(_name, _cpu, "CPU")
@@ -101,6 +124,18 @@ for _name in ("apply_pass", "apply_pass_pipelined", "selective_scan_fwd"):
     torch.library.register_fake(f"blle::{_name}", _same_as_first, lib=_LIB)
 
 
+@torch.library.register_fake("blle::gram_pass_banded", lib=_LIB)
+def _gram_banded_fake(x, *args):
+    c = x.shape[-1]
+    return x.new_empty((x.shape[0], c * c + 2 * c), dtype=torch.float32)
+
+
+@torch.library.register_fake("blle::apply_pass_banded", lib=_LIB)
+def _apply_banded_fake(x, apply, *args):
+    b, h, w, c = x.shape
+    return x.new_empty((b, h - 4, w, c))
+
+
 def gram_pass_flops(b: int, h: int, w: int, c: int) -> int:
     """K2's products: the [q|k] 1x1, the depthwise 3x3 on 2C channels and
     the gram over all pixels."""
@@ -113,6 +148,24 @@ def apply_pass_flops(b: int, h: int, w: int, c: int) -> int:
     3x3, v @ apply, the FFN's two 1x1s and its depthwise 3x3."""
     n, ch = b * h * w, 2 * c
     return 2 * n * c * c + 2 * n * 9 * c + 2 * n * c * c + 4 * n * c * ch + 2 * n * 9 * ch
+
+
+def gram_pass_banded_flops(b: int, h: int, w: int, c: int) -> int:
+    """K2 in band mode on x [b, h, w, c] (h = hb + 4, the halo'd band):
+    its twin's [q|k] 1x1 on every row, the depthwise 3x3 and the gram on
+    the hb own rows."""
+    hb = h - 4
+    return 2 * b * h * w * c * 2 * c + 2 * b * hb * w * (9 * 2 * c + c * c)
+
+
+def apply_pass_banded_flops(b: int, h: int, w: int, c: int) -> int:
+    """K3 in band mode on x [b, h, w, c] (h = hb + 4): its twin's v 1x1 on
+    every row, the depthwise 3x3, v @ apply and the FFN's expand on the
+    hb + 2 rows of y, the FFN's depthwise 3x3 and projection on the hb own
+    rows."""
+    ch, n, ny, no = 2 * c, b * h * w, b * (h - 2) * w, b * (h - 4) * w
+    return (2 * n * c * c + ny * (2 * 9 * c + 2 * c * c + 2 * c * ch)
+            + no * (2 * 9 * ch + 2 * ch * c))
 
 
 def selective_scan_flops(b: int, L: int, d: int, n: int) -> int:
@@ -128,6 +181,16 @@ def _gram_flop(x_shape, *_, **__) -> int:
 @register_flop_formula([torch.ops.blle.apply_pass, torch.ops.blle.apply_pass_pipelined])
 def _apply_flop(x_shape, *_, **__) -> int:
     return apply_pass_flops(*x_shape)
+
+
+@register_flop_formula(torch.ops.blle.gram_pass_banded)
+def _gram_banded_flop(x_shape, *_, **__) -> int:
+    return gram_pass_banded_flops(*x_shape)
+
+
+@register_flop_formula(torch.ops.blle.apply_pass_banded)
+def _apply_banded_flop(x_shape, *_, **__) -> int:
+    return apply_pass_banded_flops(*x_shape)
 
 
 @register_flop_formula(torch.ops.blle.selective_scan_fwd)

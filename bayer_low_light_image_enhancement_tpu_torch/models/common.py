@@ -22,6 +22,16 @@ and a bound TransformerBlock takes the module path (the JAX package's
 shard-local). Downsample (a bound stride-1 conv, then pixel_unshuffle of
 even local rows) and Upsample2x (a 2x2 stride-2 transposed conv) stay
 local.
+
+Band mode, the single-card full-frame forward (``models/fused_apply.py``),
+binds a band count the same way (``bind_bands``): each frame rides the
+batch axis as ``bands`` H-bands, a Conv2d with a spatial kernel takes its
+halo rows from the neighbour bands (``ops.conv.band_halo``), a
+TransformerBlock runs K2 / K3 in band mode (the module path at widths
+without a kernel, or with ``fused`` False), and a ChannelAttention sums its
+gram and sums of squares over each frame's bands. 1x1 convs, LayerNorm,
+pixel_(un)shuffle, Upsample2x and the concats stay band-local. The JAX
+package's ``models/fused_apply.fused_apply(bands=)`` interceptor.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.fused_block import (
 )
 from bayer_low_light_image_enhancement_tpu_torch.ops.attention import channel_attention
 from bayer_low_light_image_enhancement_tpu_torch.ops.conv import (
+    band_halo,
     conv2d_nchw,
     leaky_relu,
     spatial_axes,
@@ -74,9 +85,12 @@ class Conv2d(nn.Conv2d):
     """Conv with torch ``padding = dilation * (k-1) // 2`` (symmetric, also
     at stride 2, as the JAX package's ``ops/conv.conv2d``) that computes in
     ``compute_dtype`` (parameters are cast per call); with ``spatial``
-    bound, it exchanges halos along the sharded axes."""
+    bound, it exchanges halos along the sharded axes; with ``bands`` > 1
+    (a stride-1 conv with a spatial kernel) it takes its halo rows from the
+    neighbour bands and runs unpadded along H."""
 
     spatial = None
+    bands = 1
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  groups: int = 1, bias: bool = True, stride: int = 1, dilation: int = 1,
@@ -92,6 +106,13 @@ class Conv2d(nn.Conv2d):
         if self.spatial is not None:
             return conv2d_nchw(x.to(cd), self.weight.to(cd), b, self.stride[0], self.groups,
                                self.dilation[0], self.spatial)
+        r = self.padding[0]
+        if self.bands > 1 and r > 0:
+            if self.stride != (1, 1):
+                raise ValueError("band mode takes stride-1 convs only")
+            xh = band_halo(x.to(cd), r, self.bands, nchw=True)
+            return F.conv2d(xh, self.weight.to(cd), b, 1, (0, self.padding[1]), self.dilation,
+                            self.groups)
         return F.conv2d(x.to(cd), self.weight.to(cd), b, self.stride, self.padding,
                         self.dilation, self.groups)
 
@@ -132,9 +153,11 @@ class ChannelAttention(nn.Module):
 
     ``log_temperature=True`` stores log(T) as ``log_temperature`` (zeros at
     init) and exponentiates it, as the BayerTORGB reference does; otherwise
-    T is stored as ``temperature`` (ones at init)."""
+    T is stored as ``temperature`` (ones at init). With ``bands`` > 1 the
+    gram and the sums of squares are summed over each frame's bands."""
 
     spatial = None
+    bands = 1
 
     def __init__(self, dim: int, num_heads: int = 8, log_temperature: bool = False,
                  *, device=None, dtype=torch.float32, compute_dtype=torch.float32):
@@ -152,7 +175,7 @@ class ChannelAttention(nn.Module):
         qkv = self.qkv_dwconv(self.qkv(x)).permute(0, 2, 3, 1)
         q, k, v = qkv.chunk(3, dim=-1)
         temperature = attention_temperature(self._parameters)
-        out = channel_attention(q, k, v, temperature, self.num_heads, self.spatial)
+        out = channel_attention(q, k, v, temperature, self.num_heads, self.spatial, self.bands)
         return self.project_out(out.permute(0, 3, 1, 2))
 
 
@@ -183,10 +206,14 @@ class TransformerBlock(nn.Module):
     block with ``fused`` False (``set_fused_blocks``), run the module path.
     ``apply_kernel`` ("tiled", or "pipelined" for K3P; ``set_apply_kernel``)
     picks the fused block's apply pass. A spatially bound block
-    (``spatial``) always takes the module path.
+    (``spatial``) always takes the module path. With ``bands`` > 1 (band
+    mode, inference) a fused block runs K2 / K3 in band mode and the module
+    path its band-aware convs and attention; band mode within a spatially
+    bound block raises.
     """
 
     spatial = None
+    bands = 1
 
     def __init__(self, dim: int, num_heads: int = 8, ffn_expansion: int = 2,
                  log_temperature: bool = False,
@@ -203,10 +230,12 @@ class TransformerBlock(nn.Module):
         self.apply_kernel = "tiled"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bands > 1 and self.spatial is not None:
+            raise ValueError("band mode cannot nest spatial sharding")
         if self.fused and self.spatial is None and x.shape[1] <= FUSE_CMAX:
             y = fused_transformer_block(
                 x.permute(0, 2, 3, 1), dict(self.named_parameters()), self.num_heads,
-                apply_kernel=self.apply_kernel,
+                apply_kernel=self.apply_kernel, bands=self.bands,
             )
             return y.permute(0, 3, 1, 2)
         cd = self.compute_dtype
@@ -234,6 +263,20 @@ def bind_spatial(module: nn.Module, spatial_axis) -> None:
             m.axis_name = h_ax
         elif hasattr(m, "spatial"):
             m.spatial = spatial_axis
+
+
+def bind_bands(module: nn.Module, bands: int) -> None:
+    """Bind band mode's band count to every Conv2d, ChannelAttention and
+    TransformerBlock of ``module`` (1 unbinds): each frame then rides the
+    batch axis as ``bands`` H-bands (``models/fused_apply.py``). Raises
+    ValueError where ``module`` is spatially bound (band mode cannot nest
+    spatial sharding)."""
+    mods = [m for m in module.modules() if isinstance(m, (Conv2d, ChannelAttention,
+                                                          TransformerBlock))]
+    if bands > 1 and any(m.spatial is not None for m in mods):
+        raise ValueError("band mode cannot nest spatial sharding")
+    for m in mods:
+        m.bands = bands
 
 
 def set_chunk_bytes(module: nn.Module, nbytes) -> None:

@@ -46,12 +46,16 @@ def channel_attention(
     temperature: torch.Tensor,
     num_heads: int,
     spatial_axis=None,
+    bands: int = 1,
 ) -> torch.Tensor:
     """q, k, v: [B, H, W, C] (after the qkv and depthwise convs) -> [B, H, W, C].
 
     ``temperature``: per-head scale, any shape with ``num_heads`` elements.
     ``spatial_axis``: the bound spatial axes of a sharded rank
     (``ops/conv.spatial_axes``), whose groups the token sums cross.
+    ``bands``: band mode (``models/fused_apply.py``): the batch holds each
+    frame as ``bands`` H-bands, batch-major per frame, and the token sums
+    cross a frame's bands (the frame's token count picks the row sums).
     """
     b, h, w, c = q.shape
     ch = c // num_heads
@@ -67,7 +71,7 @@ def channel_attention(
 
     vh = heads_first(v)
     axes = reduce_axis_names(spatial_axis, (1, 2))
-    if n * math.prod(ax.size for ax in axes) > ROW_SUM_TOKENS:
+    if n * bands * math.prod(ax.size for ax in axes) > ROW_SUM_TOKENS:
         qr, kr = rows(q), rows(k)
         gram = (qr @ kr.transpose(-1, -2)).sum(2)  # [B, heads, c, c]
         q_ss, k_ss = (qr * qr).sum(-1).sum(2), (kr * kr).sum(-1).sum(2)
@@ -81,6 +85,10 @@ def channel_attention(
             dist.all_reduce(sums, group=ax.group)
         gram, q_ss, k_ss = (t.view_as(r) for t, r in zip(
             sums.split([gram.numel(), q_ss.numel(), k_ss.numel()]), (gram, q_ss, k_ss)))
+    if bands > 1:
+        gram, q_ss, k_ss = (
+            t.reshape(b // bands, bands, *t.shape[1:]).sum(1).repeat_interleave(bands, 0)
+            for t in (gram, q_ss, k_ss))
     q_inv = 1.0 / torch.sqrt(q_ss).clamp_min(1e-12)
     k_inv = 1.0 / torch.sqrt(k_ss).clamp_min(1e-12)
     attn = gram * q_inv[..., :, None] * k_inv[..., None, :]

@@ -19,6 +19,10 @@ every rank writes its two edge strips into a zeroed
 and one value is exact), and each rank reads its neighbours' strips. Global
 reductions take their local partial and reduce it over the sharded axes'
 groups. Everything here is inference: the collectives carry no grad.
+
+Band mode, the single-card full-frame forward (``models/fused_apply.py``),
+gives a conv its halo rows from the neighbouring bands of the same frame
+instead (``band_halo``).
 """
 
 from __future__ import annotations
@@ -107,6 +111,37 @@ def halo_pad(x: torch.Tensor, halo: int, spatial_axis, dim: int = 1) -> torch.Te
     else:
         out.narrow(dim, halo + size, halo).zero_()
     return out
+
+
+def band_halo(x: torch.Tensor, r: int, bands: int, nchw: bool = False) -> torch.Tensor:
+    """Band mode's halo (``models/fused_apply.py``): x holds each frame as
+    ``bands`` H-bands riding the batch axis, batch-major per frame (image b
+    is band b % bands of its frame), NHWC [B, hb, ...] or, with ``nchw``,
+    channels-last NCHW [B, C, hb, W]. Returns each band with ``r`` rows a
+    side from its neighbour bands and zeros at its frame's own top and
+    bottom, the monolithic frame's zero pad: [B, hb + 2r, ...] (NCHW
+    channels-last with ``nchw``); a halo deeper than a band (a deep level's
+    bands can be one row tall) takes rows from the bands beyond. Each row
+    is copied once. The JAX package's ``models/fused_apply._band_halo``."""
+    if nchw:
+        return band_halo(x.permute(0, 2, 3, 1), r, bands).permute(0, 3, 1, 2)
+    b, h, rest = x.shape[0], x.shape[1], tuple(x.shape[2:])
+    if b % bands:
+        raise ValueError(f"batch {b} not divisible by bands {bands}")
+    xb = x.reshape(b // bands, bands, h, *rest)
+    out = x.new_empty((b // bands, bands, h + 2 * r) + rest)
+    out[:, :, r: r + h] = xb
+    for d in range(1, -(-r // h) + 1):
+        # Halo rows from the band d away: the top's [lo, hi), the bottom's
+        # [blo, bhi); the bands with none d away (all but n) get zeros.
+        lo, hi = max(0, r - d * h), r - (d - 1) * h
+        blo, bhi = r + d * h, min(r + (d + 1) * h, h + 2 * r)
+        n = max(bands - d, 0)
+        out[:, bands - n:, lo:hi] = xb[:, :n, h - (hi - lo):]
+        out[:, :bands - n, lo:hi] = 0
+        out[:, :n, blo:bhi] = xb[:, bands - n:, :bhi - blo]
+        out[:, n:, blo:bhi] = 0
+    return out.reshape(b, h + 2 * r, *rest)
 
 
 def _format_of(x: torch.Tensor) -> torch.memory_format:

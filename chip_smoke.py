@@ -232,7 +232,21 @@ Phases (any failed check raises and the script exits non-zero):
    tiled forward and 6 times on the family's kernel-path references; the
    timed cases' tiled forward per rank beside the monolithic one; then the
    eval CLI with ``--model flca_rawformer`` over 2 x 2 ranks on two SID
-   frames against the unsharded CLI in fp32.
+   frames against the unsharded CLI in fp32;
+18. band mode, the single-card full-frame forward (``models/fused_apply.py``):
+   K2 / K3 in band mode against their band twins at the band shapes of the
+   Sony ARW frame (2848x4256 padded to 2944x4352, 8 bands of 368 mosaic
+   rows: [8,184,2176,32] ... [8,23,272,256]), timed beside the frame's
+   monolithic K2 / K3; RawFormer-S on the frame banded against its
+   monolithic kernel path (7 band-mode K2 and K3, no other block kernel,
+   also with ``apply_kernel="pipelined"``), banded and monolithic timed
+   (CUDA events, host clock, profiler device time, peak memory); the fp32
+   twin path banded against monolithic (TF32 off); RawFormer-B and -L on
+   the frame, banded against monolithic (6 band-mode K2 / K3: the
+   bottleneck's 384 / 512 channels take the band-aware module path), with
+   times and peak memory; the eval CLI's band route on a synthetic SID frame
+   against its monolithic route at the same pad. Since the band route, the
+   eval CLI of phase 9 runs its 2832x4240 frames banded too.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -917,8 +931,10 @@ def real_data_phase(dev, card, counters) -> None:
             check(len(rows) == 2, f"eval CLI ({name}) wrote {len(rows)} CSV rows, not 2")
             check(el["bayer_pack_normalize"] == (2 if name == "compact" else 0),
                   f"K1 did not run once per image in the {name} run")
-            check(el["gram_pass"] == el["apply_pass"] == 14, f"K2 / K3 did not run 7 times per "
-                  f"image in the {name} eval run")
+            # Canonical RawFormer frames of H >= 1024 take the band route (phase 18).
+            check(el["gram_pass_banded"] == el["apply_pass_banded"] == 14
+                  and el["gram_pass"] == el["apply_pass"] == 0, f"K2 / K3 in band mode did not "
+                  f"run 7 times per image in the {name} eval run")
             check(all(np.isfinite(out["psnr"])), f"eval CLI ({name}) PSNR not finite")
             log(f"eval CLI ({name}): PSNR {out['psnr']}, SSIM {out['ssim']}, host seconds per "
                 f"image {[round(t, 3) for t in out['seconds']]} ({card})")
@@ -2922,6 +2938,260 @@ def zoo_tiled_phase(dev, card, counters, models=ZOO_TILED_MODELS, cli: bool = Tr
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# Phase 18, band mode: the single-card full-frame forward
+# (models/fused_apply.py). The Sony ARW frame, 2848x4256, padded by the eval
+# CLI's band route to 2944x4352 (pad 128) and cut into 8 bands of 368 mosaic
+# rows: K2 / K3 see the bands at [8, 184, 2176, 32] ... [8, 23, 272, 256].
+# Tolerances, stated before the run: the kernels in band mode against their
+# band twins by phase 3's rules (K2_COS_TOL on the frame's cosines and
+# relative sums of squares, BLOCK_ATOL / BLOCK_RTOL on K3); a banded frame
+# against the monolithic forward of the same model at the serving bar
+# (E2E_MAX_TOL / E2E_MEAN_TOL); the fp32 twin path, banded against
+# monolithic with TF32 off, within BAND_FP32_TOL (the same fp32 function,
+# its convs at other shapes and its grams summed by bands); the eval CLI's
+# band route against its monolithic route at the same pad within
+# EVAL_PSNR_TOL / EVAL_SSIM_TOL.
+BAND_FRAME, BAND_PAD, BAND_SEED = (2848, 4256), 128, 18
+BAND_FP32_TOL = 1e-4
+BAND_SHAPES = [(8, 184, 2176, 32), (8, 92, 1088, 64), (8, 46, 544, 128), (8, 23, 272, 256)]
+
+
+def band_counts(kind: str, b: int, hb: int, w: int, c: int) -> dict:
+    """``block_counts`` of K2 / K3 in band mode on b bands of hb rows: the
+    products on the bands' own rows, the 4 halo rows of each band's input
+    read besides."""
+    d = block_counts(kind, b, hb, w, c)
+    d["nbytes"] += b * 4 * w * c * 2
+    return d
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Host clock of one synchronised call of fn, mean over n after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def banded_phase(dev, card, counters) -> dict:
+    """Phase 18: K2 / K3 in band mode against their twins at the frame's
+    band shapes (timed beside the frame's monolithic K2 / K3), the
+    RawFormer-S frame banded against the monolithic kernel path with the
+    launch counts (7 band-mode K2 and K3, no other block kernel; a pipelined
+    model runs K3 too), the fp32 twin path banded against monolithic,
+    RawFormer-B and -L banded against their monolithic forwards (6 band-mode
+    K2 / K3: their 384 / 512-wide bottleneck takes the band-aware module
+    path), and the eval CLI's band route against its monolithic route on a
+    synthetic SID frame. -> the band-mode kernel rows' launches, errors,
+    times and bounds."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from bayer_low_light_image_enhancement_tpu_torch.cli import test_cli
+    from bayer_low_light_image_enhancement_tpu_torch.data.synthetic import write_sid_tree
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.models import common, get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.fused_apply import (
+        make_banded_forward,
+        pick_bands,
+    )
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as probes
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms, profile
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(BAND_SEED)
+    gen = torch.Generator().manual_seed(BAND_SEED)
+    names = ("fused_block_gram_banded", "fused_block_apply_banded")
+    out = {"errs": dict.fromkeys(names, 0.0), "times": {}, "bounds": {}}
+
+    # (a) The kernels against their band twins, one frame of 8 bands a level.
+    with torch.inference_mode():
+        for shape in BAND_SHAPES:
+            b, hb, w, c = shape
+            wts = probes.block_weights(c, BAND_SEED + c, dev)
+            x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            xh, fh = band_halo(x, 2, b), b * hb
+            g, qs, ks = (fb._banded_sums(t, b) for t in fb.gram_pass_banded(xh, wts, b, fh))
+            g0, qs0, ks0 = (fb._banded_sums(t, b)
+                            for t in fb.gram_pass_banded_plain(xh, wts, b, fh))
+            cos = g / torch.sqrt(qs[:, :, None] * ks[:, None, :])
+            cos0 = g0 / torch.sqrt(qs0[:, :, None] * ks0[:, None, :])
+            e_cos = (cos - cos0).abs().max().item()
+            e_ss = max(((qs - qs0).abs() / qs0).max().item(), ((ks - ks0).abs() / ks0).max().item())
+            apply = fb.finalize_attention(g0, qs0, ks0, wts.temperature, wts.wproj, 8)
+            bapply = apply.repeat_interleave(b, 0)
+            got = fb.apply_pass_banded(xh, bapply, wts, b, fh).float()
+            ref = fb.apply_pass_banded_plain(xh, bapply, wts, b, fh).float()
+            d = (got - ref).abs()
+            bad = (d > BLOCK_ATOL + BLOCK_RTOL * ref.abs()).sum().item()
+            log(f"K2 band mode {shape}: frame cosine max abs err {e_cos:.3e}, sum-of-squares rel "
+                f"err {e_ss:.3e} (tol {K2_COS_TOL}); K3 band mode: max abs err "
+                f"{d.max().item():.3e}, mean {d.mean().item():.3e}, {bad} elements outside "
+                f"atol=rtol={BLOCK_ATOL}")
+            check(e_cos <= K2_COS_TOL and e_ss <= K2_COS_TOL,
+                  f"K2 in band mode disagrees with its twin at {shape}")
+            check(bad == 0, f"K3 in band mode disagrees with its twin at {shape}")
+            out["errs"][names[0]] = max(out["errs"][names[0]], e_cos)
+            out["errs"][names[1]] = max(out["errs"][names[1]], d.max().item())
+            del got, ref, d
+            frame = x.reshape(1, b * hb, w, c)
+            n = 10
+            ka = cuda_time_ms(lambda: fb.gram_pass_banded(xh, wts, b, fh), n)
+            kb = cuda_time_ms(lambda: fb.apply_pass_banded(xh, bapply, wts, b, fh), n)
+            pa = cuda_time_ms(lambda: fb.gram_pass_banded_plain(xh, wts, b, fh), 3, warmup=1)
+            pb = cuda_time_ms(lambda: fb.apply_pass_banded_plain(xh, bapply, wts, b, fh), 3,
+                              warmup=1)
+            ma = cuda_time_ms(lambda: fb.gram_pass(frame, wts), n)
+            mb = cuda_time_ms(lambda: fb.apply_pass(frame, apply, wts), n)
+            kh = cuda_time_ms(lambda: band_halo(x, 2, b), n)
+            (b2, y2), (b3, y3) = (bound(**band_counts(k, *shape)) for k in ("gram", "apply"))
+            log(f"time band mode {shape}: K2 {ka:.4f} ms (twin {pa:.3f}, bound {b2:.4f} by {y2}), "
+                f"K3 {kb:.4f} ms (twin {pb:.3f}, bound {b3:.4f} by {y3}), the halo copy "
+                f"{kh:.4f} ms; the frame [1, {b * hb}, {w}, {c}] monolithic: K2 {ma:.4f} ms, K3 "
+                f"{mb:.4f} ms ({card})")
+            if shape == BAND_SHAPES[0]:
+                out["times"] = {names[0]: (ka, pa), names[1]: (kb, pb)}
+                out["bounds"] = {names[0]: (b2, y2), names[1]: (b3, y3)}
+            del x, xh, frame
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (b) RawFormer-S on the frame, banded against monolithic.
+    raw = mosaics(rng, BAND_FRAME).astype(np.float32)
+    img = np.clip((raw - 512.0) / (16383.0 - 512.0), 0.0, None) * 100.0
+    ph, pw = (-BAND_FRAME[0]) % BAND_PAD, (-BAND_FRAME[1]) % BAND_PAD
+    xp = F.pad(torch.from_numpy(img).to(dev)[None, None], (0, pw, 0, ph))
+    k = pick_bands(xp.shape[2])
+    check(k == 8 and tuple(xp.shape[2:]) == (2944, 4352),
+          f"phase 18: the frame pads to {tuple(xp.shape[2:])} in {k} bands, not 2944x4352 in 8")
+    log(f"phase 18 frame: {BAND_FRAME} zero-padded to {tuple(xp.shape[2:])}, {k} bands of "
+        f"{xp.shape[2] // k} mosaic rows")
+    band_counters = counters
+
+    def hold_launches(got, n, what):
+        others = {kk: v for kk, v in got.items() if kk not in ("gram_pass_banded",
+                                                               "apply_pass_banded")}
+        check(got["gram_pass_banded"] == got["apply_pass_banded"] == n and sum(others.values())
+              == 0, f"phase 18: {what} did not launch K2 / K3 in band mode {n} times and no other "
+              f"kernel: {got}")
+
+    def serving_bar(a, b_, what):
+        d = (a.float() - b_.float()).abs()
+        log(f"{what}: max abs err {d.max().item():.3e} (tol {E2E_MAX_TOL}), mean "
+            f"{d.mean().item():.3e} (tol {E2E_MEAN_TOL})")
+        check(d.max().item() <= E2E_MAX_TOL and d.mean().item() <= E2E_MEAN_TOL,
+              f"phase 18: {what} disagrees")
+
+    model = get_model("rawformer_s", device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0)).eval()
+    banded = make_banded_forward(model, k)
+    with torch.inference_mode():
+        y_band, launches = counted(band_counters, lambda: banded(xp))
+        hold_launches(launches, 7, "the banded RawFormer-S frame")
+        out["launches"] = launches
+        y_mono, mono_launches = counted(band_counters, lambda: model(xp))
+        check(mono_launches["gram_pass"] == mono_launches["apply_pass"] == 7
+              and mono_launches["gram_pass_banded"] == 0,
+              f"phase 18: the monolithic frame's launches {mono_launches}")
+        check(y_band.shape == (1, 3, *xp.shape[2:]) and bool(torch.isfinite(y_band).all()),
+              "phase 18: the banded frame is not finite of the frame's shape")
+        serving_bar(y_band, y_mono, "RawFormer-S frame, banded vs monolithic kernel path")
+        common.set_apply_kernel(model, "pipelined")
+        y_pipe, pipe_launches = counted(band_counters, lambda: banded(xp))
+        common.set_apply_kernel(model, "tiled")
+        hold_launches(pipe_launches, 7, "the banded frame with apply_kernel='pipelined'")
+        check(torch.equal(y_pipe, y_band), "phase 18: the pipelined model's banded frame differs")
+        del y_pipe
+        t_band, t_mono = (cuda_time_ms(fn, 10, warmup=3) for fn in (lambda: banded(xp),
+                                                                      lambda: model(xp)))
+        h_band, h_mono = (host_ms(fn) for fn in (lambda: banded(xp), lambda: model(xp)))
+        p_band, p_mono = (profile(fn, steps=3, warmup=1) for fn in (lambda: banded(xp),
+                                                                      lambda: model(xp)))
+        _, peak_band, held = peak_memory(lambda: banded(xp))
+        _, peak_mono, _ = peak_memory(lambda: model(xp))
+    log(f"time RawFormer-S frame {tuple(xp.shape[2:])}: banded ({k} bands) {t_band:.3f} ms by CUDA "
+        f"events, {h_band:.3f} ms host clock, {p_band['device_ms']:.3f} ms device "
+        f"({p_band['busy']:.0%} busy), peak {peak_band:.2f} GiB; monolithic {t_mono:.3f} ms, "
+        f"{h_mono:.3f} ms host, {p_mono['device_ms']:.3f} ms device ({p_mono['busy']:.0%} busy), "
+        f"peak {peak_mono:.2f} GiB (above {held:.2f} GiB held) ({card})")
+    log("  banded frame's kernels by device time: " + ", ".join(
+        f"{name[:60]} {ms:.3f} ms x{calls:g}" for name, ms, calls in p_band["kernels"][:8]))
+    del y_band, y_mono, banded, model
+    torch.cuda.empty_cache()
+
+    # (c) The fp32 twin path, banded against monolithic (TF32 off).
+    m32 = get_model("rawformer_s", device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    with torch.inference_mode(), twin_blocks():
+        y32_band = make_banded_forward(m32, k)(xp)
+        y32_mono = m32(xp)
+        d32 = (y32_band - y32_mono).abs().max().item()
+    log(f"fp32 twin path, RawFormer-S frame banded vs monolithic: max abs err {d32:.3e} (tol "
+        f"{BAND_FP32_TOL}; TF32 {torch.backends.cuda.matmul.allow_tf32} / "
+        f"{torch.backends.cudnn.allow_tf32})")
+    check(d32 <= BAND_FP32_TOL, "phase 18: the banded fp32 twin path disagrees with monolithic")
+    del m32, y32_band, y32_mono
+    torch.cuda.empty_cache()
+
+    # (d) RawFormer-B and -L: first frames on the card.
+    for size in ("B", "L"):
+        mdl = get_model(f"rawformer_{size.lower()}", device=dev, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0)).eval()
+        fwd = make_banded_forward(mdl, k)
+        with torch.inference_mode():
+            (y_b, got), peak_b, held = peak_memory(lambda: counted(band_counters,
+                                                                   lambda: fwd(xp)))
+            hold_launches(got, 6, f"the banded RawFormer-{size} frame")
+            y_m, peak_m, _ = peak_memory(lambda: mdl(xp))
+            check(bool(torch.isfinite(y_b).all()), f"phase 18: RawFormer-{size} not finite")
+            serving_bar(y_b, y_m, f"RawFormer-{size} frame, banded vs monolithic")
+            del y_b, y_m
+            tb, tm = (cuda_time_ms(fn, 3, warmup=1) for fn in (lambda: fwd(xp),
+                                                                 lambda: mdl(xp)))
+        log(f"time RawFormer-{size} frame {tuple(xp.shape[2:])}: banded {tb:.3f} ms, monolithic "
+            f"{tm:.3f} ms by CUDA events; peak {peak_b:.2f} / {peak_m:.2f} GiB above {held:.2f} "
+            f"GiB held ({card})")
+        del mdl, fwd
+        torch.cuda.empty_cache()
+
+    # (e) The eval CLI's band route against its monolithic route at pad 128.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_band_") as tmp:
+        root = f"{tmp}/sid"
+        write_sid_tree(root, f"{root}/cache", {"test": [BAND_FRAME]}, rng)
+        base = ["--dataset", "SID", "--data_root", root, "--cache_dir", f"{root}/cache"]
+        t0 = time.perf_counter()
+        res_band, bl = counted(band_counters, lambda: test_cli.main(
+            base + ["--save_dir", f"{tmp}/band"]))
+        t_cli = time.perf_counter() - t0
+        check(bl["bayer_pack_normalize"] == 1, f"phase 18: the eval CLI's launches {bl}")
+        hold_launches({kk: v for kk, v in bl.items() if kk != "bayer_pack_normalize"}, 7,
+                      "the eval CLI's band route")
+        route = test_cli.band_count
+        test_cli.band_count = lambda *a: 1
+        try:
+            res_mono, ml = counted(band_counters, lambda: test_cli.main(
+                base + ["--pad_to", str(BAND_PAD), "--save_dir", f"{tmp}/mono"]))
+        finally:
+            test_cli.band_count = route
+        check(ml["gram_pass"] == ml["apply_pass"] == 7 and ml["gram_pass_banded"] == 0,
+              f"phase 18: the monolithic eval CLI's launches {ml}")
+    dp = abs(res_band["psnr"][0] - res_mono["psnr"][0])
+    ds = abs(res_band["ssim"][0] - res_mono["ssim"][0])
+    log(f"eval CLI on a {BAND_FRAME} SID frame: band route PSNR {res_band['psnr']} SSIM "
+        f"{res_band['ssim']} ({res_band['seconds'][0]:.3f} s an image, {t_cli:.1f} s the CLI), "
+        f"monolithic route at pad {BAND_PAD} PSNR {res_mono['psnr']} SSIM {res_mono['ssim']} "
+        f"({res_mono['seconds'][0]:.3f} s): differences {dp:.2e} dB (tol {EVAL_PSNR_TOL}), "
+        f"{ds:.2e} (tol {EVAL_SSIM_TOL}) ({card})")
+    check(dp <= EVAL_PSNR_TOL and ds <= EVAL_SSIM_TOL,
+          "phase 18: the eval CLI's band route disagrees with its monolithic route")
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3179,7 +3449,8 @@ def main() -> int:
         frames.append(np.clip((raw - 512.0) / (16383.0 - 512.0), 0.0, None) * 100.0)
     counters = (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fb.apply_pass_pipelined,
                 wgk.weight_grad,
-                fbb.bwd1, fbb.bwd2, ssk.selective_scan_fwd, ssk.selective_scan_bwd)
+                fbb.bwd1, fbb.bwd2, ssk.selective_scan_fwd, ssk.selective_scan_bwd,
+                fb.gram_pass_banded, fb.apply_pass_banded)
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
@@ -3843,6 +4114,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo_tiled_phase(dev, card, counters)
 
+    # 18. band mode: the single-card full-frame forward --------------------------------
+    torch.cuda.empty_cache()
+    band = banded_phase(dev, card, counters)
+    for table, part in ((errs, "errs"), (times, "times"), (bounds, "bounds")):
+        table.update(band[part])
+
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),
                        ("fused_block_apply_pipelined", "apply")):
@@ -3888,6 +4165,10 @@ def main() -> int:
          "benchmarks/exp_dma_floor.py:147", probe_launches["probe_floor_tma"]),
         ("probe_bisect", PKG + "csrc/probes_bisect.cu", "benchmarks/bisect_b5.py:106",
          probe_launches["probe_bisect"]),
+        ("fused_block_gram_banded", PKG + "csrc/fused_block_banded.cu (+ block_tiles.cuh)",
+         TPU + "fused_block.py:406", band["launches"]["gram_pass_banded"]),
+        ("fused_block_apply_banded", PKG + "csrc/fused_block_banded.cu (+ block_tiles.cuh)",
+         TPU + "fused_block.py:683", band["launches"]["apply_pass_banded"]),
     ]
     log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_*, "
         "fused_attention, fused_stage_tail and the probes at [8,256,256,32] bf16 (probe_floor: "
@@ -3907,7 +4188,11 @@ def main() -> int:
         "probes and "
         "weight_grad relative to the twin's max; library_ms: weight_grad beside torch.matmul "
         "(bf16), probe_floor and probe_floor_tma beside Tensor.copy_ (level c's function); no single PyTorch call "
-        "computes any other of these functions (null)")
+        "computes any other of these functions (null); fused_block_gram_banded / "
+        "fused_block_apply_banded: K2 / K3 in band mode at the frame's first-level bands "
+        "[8,184,2176,32] bf16 (the halo'd input [8,188,2176,32]), launches from the banded "
+        "RawFormer-S 2944x4352 frame (phase 18), max_abs_err K2's frame cosines / K3's output "
+        "over the four band shapes")
     log(card)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": l,

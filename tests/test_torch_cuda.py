@@ -1562,3 +1562,151 @@ def test_opcheck_on_the_card(cuda, name):
             "apply_pass_pipelined": (x, apply, *w.apply_tensors()),
             "selective_scan_fwd": (u, dt, A, bm, cm, torch.ones(40, device=cuda))}[name]
     torch.library.opcheck(getattr(torch.ops.blle, name).default, args)
+
+
+# ---------------------------------------------------------------------------
+# Band mode: K2 and K3 on H-bands with neighbour-band halos
+# ---------------------------------------------------------------------------
+
+# (frames, bands, band rows, W, frame_h): ragged tiles; one-row bands (the
+# 2-row halo spans two bands); a frame of 17 rows in 4 bands of 5.
+BAND_CASES = [(1, 4, 6, 13, None), (2, 3, 1, 9, None), (1, 4, 5, 18, 17)]
+
+
+def band_frame_cosines(g, qs, ks, frames, bands):
+    """A frame's gram cosines from its bands' partials."""
+    g, qs, ks = (t.reshape(frames, bands, *t.shape[1:]).sum(1) for t in (g, qs, ks))
+    return g / torch.sqrt(qs[:, :, None] * ks[:, None, :]), qs, ks
+
+
+def check_band_pass_kernels(x, w, bands, frame_h, frames):
+    """K2 and K3 in band mode against their twins on the halo'd bands of x,
+    each wrapper counted once per call."""
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+
+    fh = bands * x.shape[1] if frame_h is None else frame_h
+    xh = band_halo(x, 2, bands)
+    before = (fb.gram_pass_banded.launches, fb.apply_pass_banded.launches)
+    with torch.inference_mode():
+        got = fb.gram_pass_banded(xh, w, bands, fh)
+        want = fb.gram_pass_banded_plain(xh, w, bands, fh)
+        sums = [fb._banded_sums(t, bands) for t in want]
+        apply = fb.finalize_attention(*sums, w.temperature, w.wproj, 8)
+        apply = apply.repeat_interleave(bands, 0)
+        y = fb.apply_pass_banded(xh, apply, w, bands, fh).float()
+        y0 = fb.apply_pass_banded_plain(xh, apply, w, bands, fh).float()
+    torch.cuda.synchronize()
+    assert (fb.gram_pass_banded.launches, fb.apply_pass_banded.launches) == \
+        (before[0] + 1, before[1] + 1)
+    cos, qs, ks = band_frame_cosines(*got, frames, bands)
+    cos0, qs0, ks0 = band_frame_cosines(*want, frames, bands)
+    torch.testing.assert_close(cos, cos0, rtol=0, atol=2e-2)
+    torch.testing.assert_close(qs, qs0, rtol=2e-2, atol=0)
+    torch.testing.assert_close(ks, ks0, rtol=2e-2, atol=0)
+    assert y.shape == x.shape
+    torch.testing.assert_close(y, y0, **BF16_TOL)
+
+
+@pytest.mark.parametrize("case", BAND_CASES)
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_band_pass_kernels_match_twins(cuda, c, case):
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    frames, bands, hb, wd, frame_h = case
+    w = pf.block_weights(c, c + 5, cuda)
+    g = torch.Generator().manual_seed(c + hb)
+    x = torch.randn(frames * bands, hb, wd, c, generator=g).to(cuda, torch.bfloat16)
+    check_band_pass_kernels(x, w, bands, frame_h, frames)
+
+
+@pytest.mark.parametrize("regime", ["one", "three", "per_tile"])
+@pytest.mark.parametrize("c", [32, 96, 256])
+def test_band_pass_kernels_under_forced_plans(cuda, monkeypatch, c, regime):
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    force_block_plan(monkeypatch, regime)
+    w = pf.block_weights(c, c + 6, cuda)
+    g = torch.Generator().manual_seed(c + 6)
+    x = torch.randn(2 * 4, 7, 19, c, generator=g).to(cuda, torch.bfloat16)
+    check_band_pass_kernels(x, w, 4, None, 2)
+
+
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_band_block_matches_the_monolithic_kernel_path(cuda, c):
+    """The banded block on the bands of two frames against the monolithic
+    kernel path on the frames (both bf16 kernels) and the band twin."""
+    blk = common.TransformerBlock(c, 8, 2, device=cuda)
+    common.reset_parameters_(blk, torch.Generator().manual_seed(c + 7))
+    params = dict(blk.named_parameters())
+    frames = torch.randn(2, 4 * 9, 11, c, device=cuda).to(torch.bfloat16)
+    xb = frames.reshape(8, 9, 11, c)
+    with torch.inference_mode():
+        got = fb.fused_transformer_block(xb, params, 8, bands=4).float()
+        mono = fb.fused_transformer_block(frames, params, 8).float().reshape(8, 9, 11, c)
+        twin = fb.fused_transformer_block_plain(xb, params, 8, bands=4).float()
+    torch.testing.assert_close(got, twin, **BF16_TOL)
+    torch.testing.assert_close(got, mono, **BF16_TOL)
+
+
+@pytest.mark.parametrize("c", fb.KERNEL_WIDTHS)
+def test_band_kernels_at_one_band_are_todays_kernels(cuda, c):
+    """One band a frame, its halo the zero pad: the band kernels give K2's
+    and K3's results bitwise (the masks reduce to the image's, every pixel
+    is computed as before), and ``bands=1`` is today's block."""
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    w = pf.block_weights(c, c + 8, cuda)
+    x = torch.randn(2, 21, 17, c, device=cuda).to(torch.bfloat16)
+    xh = band_halo(x, 2, 1)
+    with torch.inference_mode():
+        for a, b in zip(fb.gram_pass_banded(xh, w, 1, 21), fb.gram_pass(x, w)):
+            assert torch.equal(a, b)
+        g0, qs0, ks0 = fb.gram_pass_plain(x, w)
+        apply = fb.finalize_attention(g0, qs0, ks0, w.temperature, w.wproj, 8)
+        assert torch.equal(fb.apply_pass_banded(xh, apply, w, 1, 21), fb.apply_pass(x, apply, w))
+        blk = common.TransformerBlock(c, 8, 2, device=cuda)
+        params = dict(blk.named_parameters())
+        assert torch.equal(fb.fused_transformer_block(x, params, 8, bands=1),
+                           fb.fused_transformer_block(x, params, 8))
+
+
+@pytest.mark.parametrize("name", ["gram_pass_banded", "apply_pass_banded"])
+def test_band_opcheck_on_the_card(cuda, name):
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+
+    g = torch.Generator().manual_seed(22)
+    blk = common.TransformerBlock(64, 8, 2, device=cuda)
+    common.reset_parameters_(blk, g)
+    w = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
+    xh = band_halo(torch.randn(4, 7, 13, 64, generator=g).to(cuda, torch.bfloat16), 2, 2)
+    apply = torch.randn(4, 64, 64, generator=g).div(64).to(cuda)
+    args = {"gram_pass_banded": (xh, *w.gram_tensors(), 2, 13),
+            "apply_pass_banded": (xh, apply, *w.apply_tensors(), 2, 14)}[name]
+    torch.library.opcheck(getattr(torch.ops.blle, name).default, args)
+
+
+@pytest.mark.parametrize("size", ["S", "B"])
+def test_banded_rawformer_on_the_card(cuda, size):
+    """``make_banded_forward`` of a seeded RawFormer on a 256 x 192 mosaic in
+    4 bands against the monolithic kernel path at the serving bar: K2 / K3
+    in band mode at every block of C <= 256 (7 for S, 6 for B, whose 384-wide
+    bottleneck takes the band-aware module path), no other block kernel."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.fused_apply import make_banded_forward
+
+    model = get_model(f"rawformer_{size.lower()}", device=cuda, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(3)).eval()
+    x = torch.rand(1, 1, 256, 192, generator=torch.Generator().manual_seed(4)).to(cuda)
+    counters = (fb.gram_pass, fb.apply_pass, fb.apply_pass_pipelined, fb.gram_pass_banded,
+                fb.apply_pass_banded)
+    with torch.inference_mode():
+        mono = model(x)
+        before = [f.launches for f in counters]
+        got = make_banded_forward(model, 4)(x)
+        torch.cuda.synchronize()
+    launched = {f.__name__: f.launches - b for f, b in zip(counters, before) if f.launches != b}
+    n = 7 if size == "S" else 6
+    assert launched == {"gram_pass_banded": n, "apply_pass_banded": n}
+    d = (got - mono).abs()
+    assert got.shape == mono.shape and d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
