@@ -46,7 +46,10 @@ partials before one ``finalize_attention`` a frame (the JAX kernel's
 ``apply_pass_banded`` (K3, y written on the band's rows -1 .. hb so that its
 second kernel finds its halo) go through ``torch.ops.blle.gram_pass_banded``
 / ``apply_pass_banded``; K3P's gate needs ``bands == 1``, so a pipelined
-block runs K3 in band mode.
+block runs K3 in band mode. K2 and K3 (band mode or not) also take the
+WIDE_WIDTHS, RawFormer-B's and -L's bottleneck, so that band mode runs every
+TransformerBlock of a RawFormer on the kernels, as the JAX package's band
+mode does; the other kernels (K3P, B1/B2, A1, T1) stop at KERNEL_WIDTHS.
 """
 
 from __future__ import annotations
@@ -62,9 +65,15 @@ import torch.nn.functional as F
 from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
 from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo, conv2d
 
-# Channel widths the CUDA kernels are instantiated for: every RawFormer
-# level with C <= 256 (S: 32..256, B: 48..192, L: 64..256).
+# Channel widths every fused-block kernel (K2, K3, B1/B2, A1, T1) is
+# instantiated for: every RawFormer level with C <= 256 (S: 32..256, B:
+# 48..192, L: 64..256).
 KERNEL_WIDTHS = (32, 48, 64, 96, 128, 192, 256)
+# K2 and K3 also take RawFormer-B's and -L's bottleneck widths
+# (``csrc/fused_block_wide.cu``), which band mode runs on them as the JAX
+# package's band mode does; BLOCK_WIDTHS are K2's and K3's widths.
+WIDE_WIDTHS = (384, 512)
+BLOCK_WIDTHS = KERNEL_WIDTHS + WIDE_WIDTHS
 
 # The apply-pass kernels a block can select, and the widths K3P takes: the
 # JAX package's v5/v6 gate as far as it means anything off the TPU (a
@@ -350,38 +359,46 @@ def tile_config(kind: str, c: int) -> TileConfig:
     c (A1's two passes have K2's and K3 phase 1's): weights resident in
     shared memory at c <= 64, else streamed through two chunk slots; the
     depthwise taps and the biases resident; 256 threads where two CTAs fit
-    an SM, else 512. "pipe" is ``PipeCfg`` of apply_pipelined.cuh
-    (``_pipe_config``)."""
+    an SM, else 512. K2 and K3 also take the WIDE_WIDTHS, staged to fit a
+    block: 32-channel chunks, the gram in 2 x 2 blocks at c = 384 and 4 x 4
+    at 512, K3's phase 2 projecting each FFN chunk as it is made, tiles of
+    4-8 rows, one window buffer except in K2 at 384.
+    "pipe" is ``PipeCfg`` of apply_pipelined.cuh (``_pipe_config``)."""
     if kind == PIPE:
         return _pipe_config(c)
     if kind not in BLOCK_KINDS:
         raise ValueError(f"kind must be one of {BLOCK_KINDS + (PIPE,)}, got {kind!r}")
-    if c not in KERNEL_WIDTHS:
-        raise ValueError(f"no kernel for C={c}; widths: {KERNEL_WIDTHS}")
-    res, splits, ldx = c <= 64, 1, c + 8
+    widths = KERNEL_WIDTHS if kind.startswith("attn") else BLOCK_WIDTHS
+    if c not in widths:
+        raise ValueError(f"no kernel for C={c}; widths: {widths}")
+    res, splits, ldx, wide = c <= 64, 1, c + 8, c in WIDE_WIDTHS
+    wins = 1 if wide else 2  # window buffers
     if kind in ("gram", "attn_gram"):
-        th, tw = 4 if c == 256 else 8, 16 if c in (32, 96) else 8
-        splits = 2 if c >= 192 else 1
+        th, tw = {512: 6, 384: 4, 256: 4}.get(c, 8), 16 if c in (32, 96) else 8
+        splits = 4 if c == 512 else 2 if c >= 192 else 1
+        wins = 1 if c == 512 else 2
         n2 = 2 * c // splits
-        nc = n2 if n2 <= 96 else 64
+        nc = 32 if wide else n2 if n2 <= 96 else 64
         p, rp = th * tw, _r16((th + 2) * (tw + 2))
         slot = _a128(c * ((n2 if res else nc) + 8) * 2)
-        parts = [2 * _a128(rp * ldx * 2), slot if res else 2 * slot, _a128(rp * (nc + 8) * 4),
-                 _a128(p * (n2 + 8) * 2), _a128(11 * n2 * 4)]
+        parts = [wins * _a128(rp * ldx * 2), slot if res else 2 * slot,
+                 _a128(rp * (nc + 8) * 4), _a128(p * (n2 + 8) * 2), _a128(11 * n2 * 4)]
     elif kind in ("apply1", "attn_apply"):
-        th, tw = 4 if c == 256 else 8, 16 if c <= 48 else 8
-        nc = c if c <= 96 else 64
+        th, tw = {384: 6, 512: 4, 256: 4}.get(c, 8), 16 if c <= 48 else 8
+        nc = c if c <= 96 else 32 if wide else 64
         p, rp = th * tw, _r16((th + 2) * (tw + 2))
-        parts = [2 * _a128(rp * ldx * 2), 2 * _a128(c * ((c if res else nc) + 8) * 2),
+        parts = [wins * _a128(rp * ldx * 2), 2 * _a128(c * ((c if res else nc) + 8) * 2),
                  _a128(rp * (nc + 8) * 4), _a128(p * ldx * 2), _a128(12 * c * 4)]
     else:
-        th, tw, ch = 4 if c >= 192 else 8, 16 if c == 32 else 8, 2 * c
-        nc = 32 if c == 32 else ch if ch <= 96 else 64
-        kc = ch if res else 64
+        th = {384: 8, 512: 6}.get(c, 4 if c >= 192 else 8)
+        tw, ch = 16 if c == 32 else 8, 2 * c
+        nc = 32 if c == 32 or wide else ch if ch <= 96 else 64
+        kc = ch if res else nc if wide else 64  # wide: each f chunk projected (FUSED)
         p, rp = th * tw, _r16((th + 2) * (tw + 2))
         w1, w2 = _a128(c * ((ch if res else nc) + 8) * 2), _a128(kc * (c + 8) * 2)
-        parts = [2 * _a128(rp * ldx * 2), w1 + w2 if res else 2 * max(w1, w2),
-                 _a128(rp * (nc + 8) * 4), _a128(p * (ch + 8) * 2), _a128((11 * ch + c) * 4)]
+        parts = [wins * _a128(rp * ldx * 2), w1 + w2 if res else 2 * max(w1, w2),
+                 _a128(rp * (nc + 8) * 4), _a128(p * ((nc if wide else ch) + 8) * 2),
+                 _a128((11 * ch + c) * 4)]
     smem = sum(parts)
     threads = 256 if 2 * (smem + 1024) <= SMEM_PER_SM else 512
     return TileConfig(th, tw, threads, smem, splits)
@@ -481,16 +498,17 @@ def require(t: torch.Tensor, name: str, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def check_kernel_input(x: torch.Tensor, *grad_inputs: torch.Tensor) -> None:
+def check_kernel_input(x: torch.Tensor, *grad_inputs: torch.Tensor,
+                       widths: Tuple[int, ...] = KERNEL_WIDTHS) -> None:
     """What every kernel of the fused blocks (and A1, T1) takes: x [B,H,W,C]
-    with C in KERNEL_WIDTHS. A kernel wrapper is not differentiable: it
-    raises when grad is enabled on x or ``grad_inputs`` and one requires
-    grad."""
+    with C in ``widths`` (KERNEL_WIDTHS; K2 and K3 pass BLOCK_WIDTHS). A
+    kernel wrapper is not differentiable: it raises when grad is enabled on
+    x or ``grad_inputs`` and one requires grad."""
     if x.dim() != 4 or not 0 < x.shape[0] <= 65535 or x.shape[1] * x.shape[2] == 0:
         raise ValueError(f"x must be [B, H, W, C] with 1 <= B <= 65535, H, W > 0; "
                          f"got {tuple(x.shape)}")
-    if x.shape[-1] not in KERNEL_WIDTHS:
-        raise ValueError(f"no kernel for C={x.shape[-1]}; widths: {KERNEL_WIDTHS}")
+    if x.shape[-1] not in widths:
+        raise ValueError(f"no kernel for C={x.shape[-1]}; widths: {widths}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *grad_inputs)):
         raise RuntimeError(
             "a fused-block kernel wrapper is not differentiable: train through "
@@ -499,10 +517,11 @@ def check_kernel_input(x: torch.Tensor, *grad_inputs: torch.Tensor) -> None:
         )
 
 
-def check_pass_input(x: torch.Tensor, *tensors: torch.Tensor) -> None:
+def check_pass_input(x: torch.Tensor, *tensors: torch.Tensor,
+                     widths: Tuple[int, ...] = KERNEL_WIDTHS) -> None:
     """``check_kernel_input`` over x and a pass's tensors, and x bf16,
     contiguous and 16-byte aligned."""
-    check_kernel_input(x, *tensors)
+    check_kernel_input(x, *tensors, widths=widths)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x is {x.dtype}; the kernels take bfloat16")
     require(x, "x", x.shape, x.device)
@@ -537,7 +556,7 @@ def gram_pass(x: torch.Tensor, w: BlockWeights):
 def _gram_pass_kernel(x: torch.Tensor, *tensors: torch.Tensor) -> torch.Tensor:
     """K2 on x and the ``GRAM_FIELDS`` tensors -> [B, C*C + 2C] fp32: each
     image's gram, then its sums of q^2 and of k^2."""
-    check_pass_input(x, *tensors)
+    check_pass_input(x, *tensors, widths=BLOCK_WIDTHS)
     b, h, wd, c = x.shape
     lib = _build.library()
     wqk, bqk, dwqk, bdwqk = tensors
@@ -572,7 +591,7 @@ def apply_pass(x: torch.Tensor, apply: torch.Tensor, w: BlockWeights) -> torch.T
 def _apply_pass_args(x: torch.Tensor, apply: torch.Tensor, *tensors: torch.Tensor):
     """The checked device arguments of K3 / K3P after x, from apply and the
     ``APPLY_FIELDS`` tensors."""
-    check_pass_input(x, apply, *tensors)
+    check_pass_input(x, apply, *tensors, widths=BLOCK_WIDTHS)
     b, h, wd, c = x.shape
     ch = 2 * c
     wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2, bp2 = tensors
@@ -647,7 +666,7 @@ def _gram_pass_banded_kernel(xh: torch.Tensor, *args) -> torch.Tensor:
     """K2 in band mode on xh and the ``GRAM_FIELDS`` tensors, then bands
     and frame_h -> [B, C*C + 2C] fp32, each band's partial."""
     *tensors, bands, frame_h = args
-    check_pass_input(xh, *tensors)
+    check_pass_input(xh, *tensors, widths=BLOCK_WIDTHS)
     hb = check_band_input(xh, bands, frame_h)
     b, _, wd, c = xh.shape
     wqk, bqk, dwqk, bdwqk = tensors
@@ -665,6 +684,7 @@ def _gram_pass_banded_kernel(xh: torch.Tensor, *args) -> torch.Tensor:
     )
     _build.check(err, "fused_block gram pass (band mode)")
     gram_pass_banded.launches += 1
+    gram_pass_banded_wide.launches += c in WIDE_WIDTHS
     return out
 
 
@@ -697,10 +717,25 @@ def _apply_pass_banded_kernel(xh: torch.Tensor, apply: torch.Tensor, *args) -> t
     )
     _build.check(err, "fused_block apply pass (band mode)")
     apply_pass_banded.launches += 1
+    apply_pass_banded_wide.launches += c in WIDE_WIDTHS
     return out
 
 
 apply_pass_banded.launches = 0
+
+
+class WideLaunches:
+    """The launches a band-mode wrapper makes at the WIDE_WIDTHS, counted
+    beside its own ``launches`` where it launches (the interface of a
+    wrapper's count: ``__name__``, ``launches``), so that a run can show
+    that B's and L's bottleneck went through the kernels."""
+
+    def __init__(self, name: str):
+        self.__name__, self.launches = name, 0
+
+
+gram_pass_banded_wide = WideLaunches("gram_pass_banded_wide")
+apply_pass_banded_wide = WideLaunches("apply_pass_banded_wide")
 
 
 def check_apply_kernel(apply_kernel: str) -> None:

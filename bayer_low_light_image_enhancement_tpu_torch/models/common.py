@@ -26,10 +26,10 @@ local.
 Band mode, the single-card full-frame forward (``models/fused_apply.py``),
 binds a band count the same way (``bind_bands``): each frame rides the
 batch axis as ``bands`` H-bands, a Conv2d with a spatial kernel takes its
-halo rows from the neighbour bands (``ops.conv.band_halo``), a
-TransformerBlock runs K2 / K3 in band mode (the module path at widths
-without a kernel, or with ``fused`` False), and a ChannelAttention sums its
-gram and sums of squares over each frame's bands. 1x1 convs, LayerNorm,
+halo rows from the neighbour bands (``ops.conv.band_halo``), every
+TransformerBlock runs K2 / K3 in band mode whatever its width (the module
+path only with ``fused`` False), and a ChannelAttention sums its gram and
+sums of squares over each frame's bands. 1x1 convs, LayerNorm,
 pixel_(un)shuffle, Upsample2x and the concats stay band-local. The JAX
 package's ``models/fused_apply.fused_apply(bands=)`` interceptor.
 """
@@ -57,7 +57,8 @@ from bayer_low_light_image_enhancement_tpu_torch.ops.ssm import MambaBlock
 
 # TransformerBlocks with C <= FUSE_CMAX run the fused kernels: the gate of
 # the JAX package's inference routing (models/fused_apply._fusable at its
-# default BAYER_TPU_FUSE_CMAX). Every RawFormer-S level qualifies.
+# default BAYER_TPU_FUSE_CMAX). Every RawFormer-S level qualifies. Band mode
+# has no gate: the JAX package fuses every block there.
 FUSE_CMAX = 256
 
 
@@ -207,9 +208,10 @@ class TransformerBlock(nn.Module):
     ``apply_kernel`` ("tiled", or "pipelined" for K3P; ``set_apply_kernel``)
     picks the fused block's apply pass. A spatially bound block
     (``spatial``) always takes the module path. With ``bands`` > 1 (band
-    mode, inference) a fused block runs K2 / K3 in band mode and the module
-    path its band-aware convs and attention; band mode within a spatially
-    bound block raises.
+    mode, inference) every fused block runs K2 / K3 in band mode, at any
+    width (B's 384 and L's 512 included, as JAX band mode fuses every
+    block), and an unfused one the module path's band-aware convs and
+    attention; band mode within a spatially bound block raises.
     """
 
     spatial = None
@@ -232,7 +234,8 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bands > 1 and self.spatial is not None:
             raise ValueError("band mode cannot nest spatial sharding")
-        if self.fused and self.spatial is None and x.shape[1] <= FUSE_CMAX:
+        gated = self.bands > 1 or x.shape[1] <= FUSE_CMAX  # band mode fuses every width
+        if self.fused and self.spatial is None and gated:
             y = fused_transformer_block(
                 x.permute(0, 2, 3, 1), dict(self.named_parameters()), self.num_heads,
                 apply_kernel=self.apply_kernel, bands=self.bands,

@@ -13,11 +13,12 @@ b % bands of frame b // bands), runs the model with the band count bound
 to its modules (``models.common.bind_bands``) and puts the bands back
 together. The result is the monolithic frame's forward: a spatial conv
 takes its halo rows from the neighbour bands (``band_halo``), every
-TransformerBlock runs band mode (K2 / K3 in band mode at C <= 256 on the
-card, their twins on the CPU; the module path with frame-wide attention
-sums at B's C = 384 and L's C = 512, or with ``set_fused_blocks(model,
-False)``), and the 1x1 convs, LayerNorm, pixel_(un)shuffle and the
-upsamples are band-local. Inference only, as in the JAX package.
+TransformerBlock runs band mode (K2 / K3 in band mode on the card at every
+width, B's C = 384 and L's C = 512 bottleneck included, as the JAX band
+mode fuses every block; their twins on the CPU; the module path with
+frame-wide attention sums only with ``set_fused_blocks(model, False)``),
+and the 1x1 convs, LayerNorm, pixel_(un)shuffle and the upsamples are
+band-local. Inference only, as in the JAX package.
 
 The eval CLI sends a canonical RawFormer frame of H >= 1024 at batch 1 on
 the card through it, H padded to a multiple of 128 and cut into

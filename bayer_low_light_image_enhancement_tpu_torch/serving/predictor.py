@@ -23,8 +23,9 @@ Port of ``bayer_low_light_image_enhancement_tpu/serving/predictor.py``:
 
 The model runs on ``device``, the card unless the caller asks for the CPU.
 Inputs and outputs are numpy arrays (outputs NHWC fp32). On CUDA every
-TransformerBlock with C <= 256 runs the fused kernels
-(``models/common.TransformerBlock``), with the apply pass ``apply_kernel``
+TransformerBlock with C <= 256 (in band mode, every TransformerBlock) runs
+the fused kernels (``models/common.TransformerBlock``), with the apply pass
+``apply_kernel``
 selects ("tiled": K3; "pipelined": K3P at the power-of-two widths), and
 every Mamba scan the kernel S1.
 """

@@ -236,15 +236,19 @@ Phases (any failed check raises and the script exits non-zero):
 18. band mode, the single-card full-frame forward (``models/fused_apply.py``):
    K2 / K3 in band mode against their band twins at the band shapes of the
    Sony ARW frame (2848x4256 padded to 2944x4352, 8 bands of 368 mosaic
-   rows: [8,184,2176,32] ... [8,23,272,256]), timed beside the frame's
-   monolithic K2 / K3; RawFormer-S on the frame banded against its
+   rows: [8,184,2176,32] ... [8,23,272,256], and the B / L bottleneck's
+   [8,23,272,384] / [8,23,272,512], where the plain K2 / K3 are held too
+   and the bf16 band-aware module-path block is timed beside the whole
+   block on the kernels), timed beside the frame's monolithic K2 / K3 and
+   their bounds; RawFormer-S on the frame banded against its
    monolithic kernel path (7 band-mode K2 and K3, no other block kernel,
    also with ``apply_kernel="pipelined"``), banded and monolithic timed
    (CUDA events, host clock, profiler device time, peak memory); the fp32
    twin path banded against monolithic (TF32 off); RawFormer-B and -L on
-   the frame, banded against monolithic (6 band-mode K2 / K3: the
-   bottleneck's 384 / 512 channels take the band-aware module path), with
-   times and peak memory; the eval CLI's band route on a synthetic SID frame
+   the frame, banded against monolithic (7 band-mode K2 / K3 each, one at
+   the 384 / 512-wide bottleneck, and no module-path attention), with times
+   and peak memory, and their fp32 twin paths banded against monolithic;
+   the eval CLI's band route on a synthetic SID frame
    against its monolithic route at the same pad. Since the band route, the
    eval CLI of phase 9 runs its 2832x4240 frames banded too.
 
@@ -1648,6 +1652,8 @@ def raw_zoo_phase(dev, card, counters, train_cfg) -> None:
 # and held against ``Predictor`` on the same frames: the same kernels on the
 # same inputs, so ARTIFACT_TOL on [0, 1] RGB.
 ARTIFACT_TOL = 1e-3
+# The artifacts timed against Predictor in this process (phase 14).
+TIMED_ARTIFACTS = ("rawformer_s_tiled", "flca_rawformer")
 S_BATCH, S_FRAME, WFB_BATCH = (8, 512, 512), (1, 2832, 4240), (2, 512, 512)
 DISPATCH_CALLS, DISPATCH_TURNS = 20, 30
 # K2 / K3 (or K3P) 7 times a RawFormer-S forward, 6 a flca_rawformer forward
@@ -1879,8 +1885,13 @@ def export_phase(dev, card) -> dict:
                   f"not {want} (a kernel missing, or a backward kernel ran)")
             launches[name] = r["launches"]
 
-        # The artifact's call against Predictor's, in turns in this process.
+        # The artifact's call against Predictor's, in turns in this process,
+        # for TIMED_ARTIFACTS (every artifact is held above, in the fresh
+        # process; reloading the WFB and pipelined ones here too cost the
+        # script's time limit more than their timings were worth).
         for name, model_key, x in cases:
+            if model_key not in TIMED_ARTIFACTS:
+                continue
             fn, _ = load_artifact(f"{root}/{name}.zip")
             pred = preds[model_key]
             calls = {"Predictor": lambda: pred(x), "artifact": lambda: fn(x)}
@@ -2941,7 +2952,9 @@ def zoo_tiled_phase(dev, card, counters, models=ZOO_TILED_MODELS, cli: bool = Tr
 # Phase 18, band mode: the single-card full-frame forward
 # (models/fused_apply.py). The Sony ARW frame, 2848x4256, padded by the eval
 # CLI's band route to 2944x4352 (pad 128) and cut into 8 bands of 368 mosaic
-# rows: K2 / K3 see the bands at [8, 184, 2176, 32] ... [8, 23, 272, 256].
+# rows: K2 / K3 see the bands at [8, 184, 2176, 32] ... [8, 23, 272, 256],
+# and RawFormer-B's / -L's bottleneck at [8, 23, 272, 384] / [8, 23, 272,
+# 512] (the wide widths, csrc/fused_block_wide.cu, also held plain).
 # Tolerances, stated before the run: the kernels in band mode against their
 # band twins by phase 3's rules (K2_COS_TOL on the frame's cosines and
 # relative sums of squares, BLOCK_ATOL / BLOCK_RTOL on K3); a banded frame
@@ -2953,7 +2966,9 @@ def zoo_tiled_phase(dev, card, counters, models=ZOO_TILED_MODELS, cli: bool = Tr
 # EVAL_PSNR_TOL / EVAL_SSIM_TOL.
 BAND_FRAME, BAND_PAD, BAND_SEED = (2848, 4256), 128, 18
 BAND_FP32_TOL = 1e-4
-BAND_SHAPES = [(8, 184, 2176, 32), (8, 92, 1088, 64), (8, 46, 544, 128), (8, 23, 272, 256)]
+BAND_SHAPES = [(8, 184, 2176, 32), (8, 92, 1088, 64), (8, 46, 544, 128), (8, 23, 272, 256),
+               (8, 23, 272, 384), (8, 23, 272, 512)]
+WIDE_BAND_SHAPE = BAND_SHAPES[-1]  # the wide rows of the kernel line
 
 
 def band_counts(kind: str, b: int, hb: int, w: int, c: int) -> dict:
@@ -2963,6 +2978,52 @@ def band_counts(kind: str, b: int, hb: int, w: int, c: int) -> dict:
     d = block_counts(kind, b, hb, w, c)
     d["nbytes"] += b * 4 * w * c * 2
     return d
+
+
+def plain_wide_kernels(x, wts, shape) -> None:
+    """Phase 18 at a wide width: the plain K2 / K3 (no bands) on the bands
+    x [b, hb, w, C] as b images, against their twins by phase 3's rules."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+
+    g, qs, ks = fb.gram_pass(x, wts)
+    g0, qs0, ks0 = fb.gram_pass_plain(x, wts)
+    e_cos = (g / torch.sqrt(qs[:, :, None] * ks[:, None, :])
+             - g0 / torch.sqrt(qs0[:, :, None] * ks0[:, None, :])).abs().max().item()
+    e_ss = max(((qs - qs0).abs() / qs0).max().item(), ((ks - ks0).abs() / ks0).max().item())
+    apply = fb.finalize_attention(g0, qs0, ks0, wts.temperature, wts.wproj, 8)
+    got = fb.apply_pass(x, apply, wts).float()
+    ref = fb.apply_pass_plain(x, apply, wts).float()
+    d = (got - ref).abs()
+    bad = (d > BLOCK_ATOL + BLOCK_RTOL * ref.abs()).sum().item()
+    log(f"K2 plain {shape}: cosine max abs err {e_cos:.3e}, sum-of-squares rel err {e_ss:.3e} "
+        f"(tol {K2_COS_TOL}); K3 plain: max abs err {d.max().item():.3e}, mean "
+        f"{d.mean().item():.3e}, {bad} elements outside atol=rtol={BLOCK_ATOL}")
+    check(e_cos <= K2_COS_TOL and e_ss <= K2_COS_TOL, f"K2 disagrees with its twin at {shape}")
+    check(bad == 0, f"K3 disagrees with its twin at {shape}")
+
+
+def module_block_beside_kernels(x, c: int, bands: int, frame_h: int):
+    """(module ms, kernels ms): a seeded bf16 TransformerBlock of width c on
+    the bands x [b, hb, w, c] in band mode, through its band-aware module
+    path (``fused`` False: what a wide block ran before the wide kernels)
+    and through the kernels (the halo copy, K2, the frame sums, the
+    finalise, K3), by CUDA events."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms
+
+    with torch.inference_mode(False):  # parameters, not inference tensors
+        blk = common.TransformerBlock(c, 8, 2, device=x.device, dtype=torch.bfloat16,
+                                      compute_dtype=torch.bfloat16)
+        common.reset_parameters_(blk, torch.Generator().manual_seed(BAND_SEED + c))
+    common.bind_bands(blk, bands)
+    blk.fused = False
+    xn = x.permute(0, 3, 1, 2)
+    module_ms = cuda_time_ms(lambda: blk(xn), 10)
+    params = dict(blk.named_parameters())
+    kernel_ms = cuda_time_ms(lambda: fb.fused_transformer_block(x, params, 8, bands=bands,
+                                                                frame_h=frame_h), 10)
+    return module_ms, kernel_ms
 
 
 def host_ms(fn, n: int = 5) -> float:
@@ -2978,15 +3039,17 @@ def host_ms(fn, n: int = 5) -> float:
 
 def banded_phase(dev, card, counters) -> dict:
     """Phase 18: K2 / K3 in band mode against their twins at the frame's
-    band shapes (timed beside the frame's monolithic K2 / K3), the
-    RawFormer-S frame banded against the monolithic kernel path with the
-    launch counts (7 band-mode K2 and K3, no other block kernel; a pipelined
-    model runs K3 too), the fp32 twin path banded against monolithic,
-    RawFormer-B and -L banded against their monolithic forwards (6 band-mode
-    K2 / K3: their 384 / 512-wide bottleneck takes the band-aware module
-    path), and the eval CLI's band route against its monolithic route on a
-    synthetic SID frame. -> the band-mode kernel rows' launches, errors,
-    times and bounds."""
+    band shapes (timed beside the frame's monolithic K2 / K3; at the wide
+    widths also the plain kernels against their twins, and the bf16
+    band-aware module-path block timed beside them), the RawFormer-S frame
+    banded against the monolithic kernel path with the launch counts (7
+    band-mode K2 and K3, no other block kernel; a pipelined model runs K3
+    too), the fp32 twin path banded against monolithic, RawFormer-B and -L
+    banded against their monolithic forwards (7 band-mode K2 / K3 each, one
+    of them at the 384 / 512-wide bottleneck; no module-path block), and the
+    eval CLI's band route against its monolithic route on a synthetic SID
+    frame. -> the band-mode kernel rows' launches, errors, times and
+    bounds."""
     import tempfile
 
     import torch.nn.functional as F
@@ -3007,7 +3070,8 @@ def banded_phase(dev, card, counters) -> dict:
     rng = np.random.default_rng(BAND_SEED)
     gen = torch.Generator().manual_seed(BAND_SEED)
     names = ("fused_block_gram_banded", "fused_block_apply_banded")
-    out = {"errs": dict.fromkeys(names, 0.0), "times": {}, "bounds": {}}
+    wide_names = ("fused_block_gram_banded_wide", "fused_block_apply_banded_wide")
+    out = {"errs": dict.fromkeys(names + wide_names, 0.0), "times": {}, "bounds": {}}
 
     # (a) The kernels against their band twins, one frame of 8 bands a level.
     with torch.inference_mode():
@@ -3036,9 +3100,12 @@ def banded_phase(dev, card, counters) -> dict:
             check(e_cos <= K2_COS_TOL and e_ss <= K2_COS_TOL,
                   f"K2 in band mode disagrees with its twin at {shape}")
             check(bad == 0, f"K3 in band mode disagrees with its twin at {shape}")
-            out["errs"][names[0]] = max(out["errs"][names[0]], e_cos)
-            out["errs"][names[1]] = max(out["errs"][names[1]], d.max().item())
+            row = wide_names if c in fb.WIDE_WIDTHS else names
+            out["errs"][row[0]] = max(out["errs"][row[0]], e_cos)
+            out["errs"][row[1]] = max(out["errs"][row[1]], d.max().item())
             del got, ref, d
+            if c in fb.WIDE_WIDTHS:
+                plain_wide_kernels(x, wts, shape)
             frame = x.reshape(1, b * hb, w, c)
             n = 10
             ka = cuda_time_ms(lambda: fb.gram_pass_banded(xh, wts, b, fh), n)
@@ -3054,9 +3121,15 @@ def banded_phase(dev, card, counters) -> dict:
                 f"K3 {kb:.4f} ms (twin {pb:.3f}, bound {b3:.4f} by {y3}), the halo copy "
                 f"{kh:.4f} ms; the frame [1, {b * hb}, {w}, {c}] monolithic: K2 {ma:.4f} ms, K3 "
                 f"{mb:.4f} ms ({card})")
-            if shape == BAND_SHAPES[0]:
-                out["times"] = {names[0]: (ka, pa), names[1]: (kb, pb)}
-                out["bounds"] = {names[0]: (b2, y2), names[1]: (b3, y3)}
+            if c in fb.WIDE_WIDTHS:
+                blk_ms, kern_ms = module_block_beside_kernels(x, c, b, fh)
+                log(f"time band mode {shape}: the whole block on the kernels (halo copy, K2, "
+                    f"frame sums, finalise, K3) {kern_ms:.4f} ms beside the bf16 band-aware "
+                    f"module-path block {blk_ms:.4f} ms ({card})")
+            if shape in (BAND_SHAPES[0], WIDE_BAND_SHAPE):
+                row = wide_names if c in fb.WIDE_WIDTHS else names
+                out["times"].update({row[0]: (ka, pa), row[1]: (kb, pb)})
+                out["bounds"].update({row[0]: (b2, y2), row[1]: (b3, y3)})
             del x, xh, frame
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3071,14 +3144,17 @@ def banded_phase(dev, card, counters) -> dict:
           f"phase 18: the frame pads to {tuple(xp.shape[2:])} in {k} bands, not 2944x4352 in 8")
     log(f"phase 18 frame: {BAND_FRAME} zero-padded to {tuple(xp.shape[2:])}, {k} bands of "
         f"{xp.shape[2] // k} mosaic rows")
-    band_counters = counters
+    band_counters = counters + (fb.gram_pass_banded_wide, fb.apply_pass_banded_wide)
 
-    def hold_launches(got, n, what):
-        others = {kk: v for kk, v in got.items() if kk not in ("gram_pass_banded",
-                                                               "apply_pass_banded")}
+    def hold_launches(got, n, what, wide=0):
+        band = ("gram_pass_banded", "apply_pass_banded")
+        others = {kk: v for kk, v in got.items() if kk not in band and not kk.endswith("_wide")}
         check(got["gram_pass_banded"] == got["apply_pass_banded"] == n and sum(others.values())
               == 0, f"phase 18: {what} did not launch K2 / K3 in band mode {n} times and no other "
               f"kernel: {got}")
+        check(got["gram_pass_banded_wide"] == got["apply_pass_banded_wide"] == wide,
+              f"phase 18: {what} did not launch K2 / K3 in band mode at C >= 384 {wide} times: "
+              f"{got}")
 
     def serving_bar(a, b_, what):
         d = (a.float() - b_.float()).abs()
@@ -3137,15 +3213,26 @@ def banded_phase(dev, card, counters) -> dict:
     del m32, y32_band, y32_mono
     torch.cuda.empty_cache()
 
-    # (d) RawFormer-B and -L: first frames on the card.
+    # (d) RawFormer-B and -L: every block on the kernels in band mode, the
+    # bottleneck at the wide widths.
+    out["wide_launches"] = dict.fromkeys(("gram_pass_banded_wide", "apply_pass_banded_wide"), 0)
     for size in ("B", "L"):
         mdl = get_model(f"rawformer_{size.lower()}", device=dev, dtype=torch.bfloat16,
                         generator=torch.Generator().manual_seed(0)).eval()
         fwd = make_banded_forward(mdl, k)
+        attn = []
+        hooks = [m.register_forward_hook(lambda *a: attn.append(1))
+                 for m in mdl.modules() if isinstance(m, common.ChannelAttention)]
         with torch.inference_mode():
             (y_b, got), peak_b, held = peak_memory(lambda: counted(band_counters,
                                                                    lambda: fwd(xp)))
-            hold_launches(got, 6, f"the banded RawFormer-{size} frame")
+            hold_launches(got, 7, f"the banded RawFormer-{size} frame", wide=1)
+            check(not attn, f"phase 18: the banded RawFormer-{size} frame ran {len(attn)} "
+                  f"module-path attention blocks")
+            for kk in out["wide_launches"]:
+                out["wide_launches"][kk] += got[kk]
+            for h in hooks:
+                h.remove()
             y_m, peak_m, _ = peak_memory(lambda: mdl(xp))
             check(bool(torch.isfinite(y_b).all()), f"phase 18: RawFormer-{size} not finite")
             serving_bar(y_b, y_m, f"RawFormer-{size} frame, banded vs monolithic")
@@ -3156,6 +3243,18 @@ def banded_phase(dev, card, counters) -> dict:
             f"{tm:.3f} ms by CUDA events; peak {peak_b:.2f} / {peak_m:.2f} GiB above {held:.2f} "
             f"GiB held ({card})")
         del mdl, fwd
+        torch.cuda.empty_cache()
+        # Its fp32 twin path, banded (every block on the band twins) against
+        # monolithic (the bottleneck on the fp32 module path), TF32 off.
+        m32 = get_model(f"rawformer_{size.lower()}", device=dev,
+                        generator=torch.Generator().manual_seed(0)).eval()
+        with torch.inference_mode(), twin_blocks():
+            d32 = (make_banded_forward(m32, k)(xp) - m32(xp)).abs().max().item()
+        log(f"fp32 twin path, RawFormer-{size} frame banded vs monolithic: max abs err "
+            f"{d32:.3e} (tol {BAND_FP32_TOL})")
+        check(d32 <= BAND_FP32_TOL,
+              f"phase 18: RawFormer-{size}'s banded fp32 twin path disagrees with monolithic")
+        del m32
         torch.cuda.empty_cache()
 
     # (e) The eval CLI's band route against its monolithic route at pad 128.
@@ -4169,6 +4268,10 @@ def main() -> int:
          TPU + "fused_block.py:406", band["launches"]["gram_pass_banded"]),
         ("fused_block_apply_banded", PKG + "csrc/fused_block_banded.cu (+ block_tiles.cuh)",
          TPU + "fused_block.py:683", band["launches"]["apply_pass_banded"]),
+        ("fused_block_gram_banded_wide", PKG + "csrc/fused_block_wide.cu (+ block_tiles.cuh)",
+         TPU + "fused_block.py:406", band["wide_launches"]["gram_pass_banded_wide"]),
+        ("fused_block_apply_banded_wide", PKG + "csrc/fused_block_wide.cu (+ block_tiles.cuh)",
+         TPU + "fused_block.py:683", band["wide_launches"]["apply_pass_banded_wide"]),
     ]
     log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_*, "
         "fused_attention, fused_stage_tail and the probes at [8,256,256,32] bf16 (probe_floor: "
@@ -4192,7 +4295,11 @@ def main() -> int:
         "fused_block_apply_banded: K2 / K3 in band mode at the frame's first-level bands "
         "[8,184,2176,32] bf16 (the halo'd input [8,188,2176,32]), launches from the banded "
         "RawFormer-S 2944x4352 frame (phase 18), max_abs_err K2's frame cosines / K3's output "
-        "over the four band shapes")
+        "over the four band shapes of C <= 256; fused_block_gram_banded_wide / "
+        "fused_block_apply_banded_wide: the same kernels at C = 384 / 512 timed at "
+        "[8,23,272,512] bf16 (RawFormer-L's bottleneck bands), launches from the banded "
+        "RawFormer-B and -L frames (one each a frame), max_abs_err over [8,23,272,384] and "
+        "[8,23,272,512]")
     log(card)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": l,

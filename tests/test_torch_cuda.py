@@ -1686,12 +1686,13 @@ def test_band_opcheck_on_the_card(cuda, name):
     torch.library.opcheck(getattr(torch.ops.blle, name).default, args)
 
 
-@pytest.mark.parametrize("size", ["S", "B"])
+@pytest.mark.parametrize("size", ["S", "B", "L"])
 def test_banded_rawformer_on_the_card(cuda, size):
     """``make_banded_forward`` of a seeded RawFormer on a 256 x 192 mosaic in
     4 bands against the monolithic kernel path at the serving bar: K2 / K3
-    in band mode at every block of C <= 256 (7 for S, 6 for B, whose 384-wide
-    bottleneck takes the band-aware module path), no other block kernel."""
+    in band mode at all 7 blocks (B's 384-wide and L's 512-wide bottleneck
+    included, one wide launch each), no other block kernel and no attention
+    module (the module path)."""
     from bayer_low_light_image_enhancement_tpu_torch.models import get_model
     from bayer_low_light_image_enhancement_tpu_torch.models.fused_apply import make_banded_forward
 
@@ -1699,14 +1700,203 @@ def test_banded_rawformer_on_the_card(cuda, size):
                       generator=torch.Generator().manual_seed(3)).eval()
     x = torch.rand(1, 1, 256, 192, generator=torch.Generator().manual_seed(4)).to(cuda)
     counters = (fb.gram_pass, fb.apply_pass, fb.apply_pass_pipelined, fb.gram_pass_banded,
-                fb.apply_pass_banded)
-    with torch.inference_mode():
-        mono = model(x)
-        before = [f.launches for f in counters]
-        got = make_banded_forward(model, 4)(x)
-        torch.cuda.synchronize()
+                fb.apply_pass_banded, fb.gram_pass_banded_wide, fb.apply_pass_banded_wide)
+    attn = []
+    hooks = [m.register_forward_hook(lambda *a: attn.append(1))
+             for m in model.modules() if isinstance(m, common.ChannelAttention)]
+    try:
+        with torch.inference_mode():
+            mono = model(x)
+            before, attn_mono = [f.launches for f in counters], len(attn)
+            got = make_banded_forward(model, 4)(x)
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
     launched = {f.__name__: f.launches - b for f, b in zip(counters, before) if f.launches != b}
-    n = 7 if size == "S" else 6
-    assert launched == {"gram_pass_banded": n, "apply_pass_banded": n}
+    wide = {} if size == "S" else {"gram_pass_banded_wide": 1, "apply_pass_banded_wide": 1}
+    assert launched == {"gram_pass_banded": 7, "apply_pass_banded": 7, **wide}
+    assert len(attn) == attn_mono == (0 if size == "S" else 1)
     d = (got - mono).abs()
     assert got.shape == mono.shape and d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 at the wide widths, C = 384 and 512 (csrc/fused_block_wide.cu)
+# ---------------------------------------------------------------------------
+
+# Ragged tiles (a sub-tile image, several tiles ragged both ways) and the
+# Sony frame's banded bottleneck, [8, 23, 272, C].
+WIDE_SHAPES = [(1, 3, 5), (2, 19, 13), (3, 11, 29), (8, 23, 272)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_block_pass_kernels_match_twins(cuda, c, shape):
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    w = pf.block_weights(c, c + 11, cuda)
+    x = torch.randn(*shape, c, generator=torch.Generator().manual_seed(c)).to(cuda, torch.bfloat16)
+    check_block_pass_kernels(x, w)
+
+
+@pytest.mark.parametrize("case", BAND_CASES + [(1, 8, 23, 272, None)])
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_band_pass_kernels_match_twins(cuda, c, case):
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    frames, bands, hb, wd, frame_h = case
+    w = pf.block_weights(c, c + 12, cuda)
+    g = torch.Generator().manual_seed(c + hb)
+    x = torch.randn(frames * bands, hb, wd, c, generator=g).to(cuda, torch.bfloat16)
+    check_band_pass_kernels(x, w, bands, frame_h, frames)
+
+
+@pytest.mark.parametrize("regime", ["one", "three", "per_tile"])
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_kernels_under_forced_plans(cuda, monkeypatch, c, regime):
+    """One CTA walking every tile (across images in K3, across its single
+    window buffer's reloads at C = 512), three, one a tile: plain and band
+    mode give the same function."""
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    force_block_plan(monkeypatch, regime)
+    w = pf.block_weights(c, c + 13, cuda)
+    g = torch.Generator().manual_seed(c + 13)
+    check_block_pass_kernels(torch.randn(2, 21, 18, c, generator=g).to(cuda, torch.bfloat16), w)
+    xb = torch.randn(2 * 4, 7, 19, c, generator=g).to(cuda, torch.bfloat16)
+    check_band_pass_kernels(xb, w, 4, None, 2)
+
+
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_kernel_reruns_are_bitwise_equal(cuda, c):
+    """K2's partials are summed in a fixed order; K3 has no reduction."""
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    w = pf.block_weights(c, c + 14, cuda)
+    x = torch.randn(8, 23, 37, c, device=cuda).to(torch.bfloat16)
+    xh = band_halo(x, 2, 8)
+    apply = torch.randn(8, c, c, device=cuda) / c
+    with torch.inference_mode():
+        for fn in (lambda: fb.gram_pass(x, w), lambda: fb.gram_pass_banded(xh, w, 8, 184)):
+            for a, b in zip(fn(), fn()):
+                assert torch.equal(a, b)
+        assert torch.equal(fb.apply_pass(x, apply, w), fb.apply_pass(x, apply, w))
+        assert torch.equal(fb.apply_pass_banded(xh, apply, w, 8, 184),
+                           fb.apply_pass_banded(xh, apply, w, 8, 184))
+
+
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_band_kernels_at_one_band_are_the_plain_kernels(cuda, c):
+    """One band a frame, its halo the zero pad: the band kernels give the
+    plain K2's and K3's results bitwise."""
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    w = pf.block_weights(c, c + 15, cuda)
+    x = torch.randn(2, 21, 17, c, device=cuda).to(torch.bfloat16)
+    xh = band_halo(x, 2, 1)
+    with torch.inference_mode():
+        for a, b in zip(fb.gram_pass_banded(xh, w, 1, 21), fb.gram_pass(x, w)):
+            assert torch.equal(a, b)
+        g0, qs0, ks0 = fb.gram_pass_plain(x, w)
+        apply = fb.finalize_attention(g0, qs0, ks0, w.temperature, w.wproj, 8)
+        assert torch.equal(fb.apply_pass_banded(xh, apply, w, 1, 21), fb.apply_pass(x, apply, w))
+
+
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_band_block_matches_the_monolithic_kernel_path(cuda, c):
+    """The banded block at C = 384 / 512 on the bands of two frames against
+    the plain kernels on the frames and the band twin."""
+    blk = common.TransformerBlock(c, 8, 2, device=cuda)
+    common.reset_parameters_(blk, torch.Generator().manual_seed(c + 16))
+    params = dict(blk.named_parameters())
+    frames = torch.randn(2, 4 * 9, 11, c, device=cuda).to(torch.bfloat16)
+    xb = frames.reshape(8, 9, 11, c)
+    with torch.inference_mode():
+        got = fb.fused_transformer_block(xb, params, 8, bands=4).float()
+        mono = fb.fused_transformer_block(frames, params, 8).float().reshape(8, 9, 11, c)
+        twin = fb.fused_transformer_block_plain(xb, params, 8, bands=4).float()
+    torch.testing.assert_close(got, twin, **BF16_TOL)
+    torch.testing.assert_close(got, mono, **BF16_TOL)
+
+
+def test_wide_plans_match_the_library(cuda):
+    """The Python mirror of the wide plans equals the library's, each kernel
+    is resident (227 KB and 512 threads fit an SM), the gram workspace of
+    the wrapper's plan equals the library's, and the library refuses A1's
+    gram kind at these widths."""
+    import ctypes
+
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for c in fb.WIDE_WIDTHS:
+        for kind in ("gram", "apply1", "apply2"):
+            cfg = fb.tile_config(kind, c)
+            th, tw, threads, smem, per_sm = fb.kernel_info(kind, c)
+            assert (th, tw, threads, smem) == (cfg.th, cfg.tw, cfg.threads, cfg.smem), (kind, c)
+            assert per_sm == 1, (kind, c)
+        for b, h, w in [(8, 23, 272), (1, 184, 272), (2, 19, 13), (8, 27, 272)]:
+            plan = fb.plan_for("gram", b, h, w, c, 0)
+            assert fb.gram_workspace_floats(b, h, w, c, plan) == \
+                lib.blle_gram_workspace_floats(b, h, w, c)
+        info = (ctypes.c_longlong * 5)()
+        assert lib.blle_block_kernel_info(3, c, info) != 0
+
+
+@pytest.mark.parametrize("name", ["gram_pass", "apply_pass", "gram_pass_banded",
+                                  "apply_pass_banded"])
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_opcheck_on_the_card(cuda, c, name):
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    g = torch.Generator().manual_seed(c + 17)
+    w = pf.block_weights(c, c + 17, cuda)
+    x = torch.randn(4, 7, 13, c, generator=g).to(cuda, torch.bfloat16)
+    xh = band_halo(x, 2, 2)
+    apply = torch.randn(4, c, c, generator=g).div(c).to(cuda)
+    args = {"gram_pass": (x, *w.gram_tensors()),
+            "apply_pass": (x, apply, *w.apply_tensors()),
+            "gram_pass_banded": (xh, *w.gram_tensors(), 2, 13),
+            "apply_pass_banded": (xh, apply, *w.apply_tensors(), 2, 14)}[name]
+    torch.library.opcheck(getattr(torch.ops.blle, name).default, args)
+
+
+def test_wide_kernel_failures_raise(cuda, monkeypatch):
+    """No fallback at the wide widths: a plan the library refuses (more CTAs
+    than tiles) raises, and so does a library that cannot be built, through
+    the wrappers and through a banded RawFormer-B bottleneck block."""
+    import dataclasses
+
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+    from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    w = pf.block_weights(384, 18, cuda)
+    x = torch.randn(8, 5, 9, 384, device=cuda).to(torch.bfloat16)
+    xh = band_halo(x, 2, 8)
+    real = fb.plan_for
+    monkeypatch.setattr(fb, "plan_for", lambda kind, b, h, wd, c, d: dataclasses.replace(
+        real(kind, b, h, wd, c, d), ctas=real(kind, b, h, wd, c, d).tiles * b + 1))
+    with torch.inference_mode():
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fb.gram_pass_banded(xh, w, 8, 40)
+        apply = torch.zeros(8, 384, 384, device=cuda)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fb.apply_pass_banded(xh, apply, w, 8, 40)
+    monkeypatch.setattr(fb, "plan_for", real)
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    blk = common.TransformerBlock(384, 8, 2, device=cuda, dtype=torch.bfloat16)
+    common.bind_bands(blk, 8)
+    with torch.inference_mode():
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fb.gram_pass_banded(xh, w, 8, 40)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            blk(x.permute(0, 3, 1, 2))
