@@ -200,7 +200,7 @@ __device__ void pipe_phase1(const PipeArgs& a, unsigned char* sm, long long firs
       cur_b = t.b;
     }
     cp_async_commit();
-    layernorm_lanes_t<C, NT>(tid, xs, P::LDX, P::R2);
+    layernorm_quads_t<C, NT>(tid, xs, P::LDX, P::R2);
     bar_sync(kBarP1, NT);
     if constexpr (STAGE >= 4) bar_sync(kBarEmpty + (k & 1), kPipeThreads);  // slot free
     // v = dw3x3(mask(LN1(x) @ wv + bv)) + bdwv at the ring, into the slot.
@@ -364,7 +364,7 @@ __device__ void pipe_phase2(const PipeArgs& a, unsigned char* sm, long long firs
           ys + ((p / P::TW + 1) * P::WC1 + p % P::TW + 1) * P::LDX + 8 * u);
     }
     bar_sync(kBarP2, NT);
-    layernorm_lanes_t<C, NT>(tid, ys, P::LDX, P::R1);
+    layernorm_quads_t<C, NT>(tid, ys, P::LDX, P::R1);
     cp_async_wait<0>();  // the weights (resident, or this tile's first chunk)
     bar_sync(kBarP2, NT);
     // f = GELU(dw3x3(mask(LN2(y) @ wp1 + bp1)) + bdwf) at the own pixels.

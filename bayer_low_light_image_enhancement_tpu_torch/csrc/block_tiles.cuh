@@ -29,23 +29,12 @@
 // channels (or 64 K rows of the FFN projection), the next chunk arriving
 // while the current one multiplies.
 //
-// The wide widths, C = 384 and 512 (RawFormer-B's and -L's bottleneck,
-// which band mode runs here), take the same kernels with a staging cut to a
-// block's 227 KB: chunks of 32 channels; K2's gram in 2 x 2 blocks of 192
-// channels at C = 384 and 4 x 4 of 128 at 512 (a [256, 256] block would need
-// 128 accumulators a thread); K3's phase 2 projecting each 32-channel chunk
-// of the FFN's hidden layer as soon as it is made (FUSED: no [pixels, 2C]
-// buffer); tiles of 4 to 8 rows; and, except in K2 at 384, one window
-// buffer, whose next window is loaded once the tile's last 1x1 has read it
-// (WB = 1) instead of at the top of the tile. Of the stagings that fit,
-// these were the fastest on the card (PERF.md).
-//
-// LayerNorm runs a quad of lanes per row (a warp above C = 256; 8-byte
-// loads, the sums by shuffles), in place on the window. Bias and the
-// image-edge mask are the epilogue of the product that feeds them, written
-// straight into the fp32 chunk the depthwise conv reads; the depthwise conv
-// runs 4 channels a thread with its 9 taps in registers, and GELU and bf16
-// rounding are its epilogue. The taps and biases sit in shared memory for the CTA's walk:
+// LayerNorm runs a quad of lanes per row (8-byte loads, the sums by two
+// shuffles), in place on the window. Bias and the image-edge mask are the
+// epilogue of the product that feeds them, written straight into the fp32
+// chunk the depthwise conv reads; the depthwise conv runs 4 channels a
+// thread with its 9 taps in registers, and GELU and bf16 rounding are its
+// epilogue. The taps and biases sit in shared memory for the CTA's walk:
 // read from device memory in each chunk's epilogue, their latency was on
 // the critical path of every step.
 #ifndef BLLE_BLOCK_TILES_CUH
@@ -62,9 +51,6 @@ constexpr int kSmemPerBlock = 232448;  // the most one block may use
 __host__ __device__ constexpr int block_threads(int smem) {
   return 2 * (smem + 1024) <= kSmemPerSm ? 256 : 512;
 }
-// The widths above RawFormer-S's deepest level: K2 and K3 only (band mode's
-// B / L bottleneck), with their own staging (GramCfg, Apply1Cfg, Apply2Cfg).
-__host__ __device__ constexpr bool wide_width(int c) { return c > 256; }
 
 // ---------------------------------------------------------------------------
 // mma.sync m16n8k16 from shared memory.
@@ -278,49 +264,48 @@ __device__ __forceinline__ float gelu(float v) {
 }
 
 // LayerNorm without affine (biased variance, eps 1e-5, fp32 statistics) of
-// rows [0, n) of bf16 rows (stride ld), in place: a group of G lanes per row
-// (a quad up to C = 256, a whole warp above, so that a lane holds at most
-// 16 values), lane q of the group holding the 4-channel units q, q + G, ...
-// (8-byte loads), the sums by log2(G) shuffles. A zero row stays zero.
-// Threads tid in [0, NT) (whole warps) share the rows.
-template <int C, int NT, int G = (C > 256 ? 32 : 4)>
-__device__ void layernorm_lanes_t(int tid, bf16* rows, int ld, int n) {
-  constexpr int U = C / (4 * G);
-  const int grp = tid / G, ql = tid % G;
-  for (int base = 0; base < n; base += NT / G) {
-    const int p = base + grp;
+// rows [0, n) of bf16 rows (stride ld), in place: a quad of lanes per row,
+// lane q of the quad holding the 4-channel units q, q + 4, ... (8-byte
+// loads), the sums by two shuffles. A zero row stays zero. Threads tid in
+// [0, NT) (whole warps) share the rows.
+template <int C, int NT>
+__device__ void layernorm_quads_t(int tid, bf16* rows, int ld, int n) {
+  constexpr int U = C / 16;
+  const int quad = tid / 4, ql = tid % 4;
+  for (int base = 0; base < n; base += NT / 4) {
+    const int p = base + quad;
     bf16* r = rows + (p < n ? p : 0) * ld;
     float v[U][4];
     float s = 0.f;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const uint2 w = *reinterpret_cast<const uint2*>(r + (u * G + ql) * 4);
+      const uint2 w = *reinterpret_cast<const uint2*>(r + (u * 4 + ql) * 4);
       v[u][0] = bf_lo(w.x), v[u][1] = bf_hi(w.x), v[u][2] = bf_lo(w.y), v[u][3] = bf_hi(w.y);
       s += (v[u][0] + v[u][1]) + (v[u][2] + v[u][3]);
     }
-#pragma unroll
-    for (int o = 1; o < G; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
     const float mu = s * (1.0f / C);
     float q = 0.f;
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int e = 0; e < 4; ++e) q += (v[u][e] - mu) * (v[u][e] - mu);
-#pragma unroll
-    for (int o = 1; o < G; o <<= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
     const float inv = rsqrtf(q * (1.0f / C) + 1e-5f);
     if (p < n) {
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        *reinterpret_cast<uint2*>(r + (u * G + ql) * 4) =
+        *reinterpret_cast<uint2*>(r + (u * 4 + ql) * 4) =
             make_uint2(pack_bf2((v[u][0] - mu) * inv, (v[u][1] - mu) * inv),
                        pack_bf2((v[u][2] - mu) * inv, (v[u][3] - mu) * inv));
     }
   }
 }
 template <int C, int NT>
-__device__ void layernorm_lanes(bf16* rows, int ld, int n) {
-  layernorm_lanes_t<C, NT>(threadIdx.x, rows, ld, n);
+__device__ void layernorm_quads(bf16* rows, int ld, int n) {
+  layernorm_quads_t<C, NT>(threadIdx.x, rows, ld, n);
 }
 
 // dst[k][0:ncols] (stride ldd) <- src[k * lds + col(j)] for j < ncols, k <
@@ -513,12 +498,10 @@ __host__ __device__ inline RowMap<true> band_apply2_map(int H, int bands, int fr
 // ---------------------------------------------------------------------------
 template <int C>
 struct GramCfg {
-  static constexpr int TH = C == 512 ? 6 : C >= 256 ? 4 : 8, TW = C == 32 || C == 96 ? 16 : 8;
-  static constexpr int S = C == 512 ? 4 : C >= 192 ? 2 : 1;
-  static constexpr int CB = C / S, N2 = 2 * CB, NBLK = S * S;
-  static constexpr int NC = wide_width(C) ? 32 : N2 <= 96 ? N2 : 64, NCH = N2 / NC;
+  static constexpr int TH = C == 256 ? 4 : 8, TW = C == 32 || C == 96 ? 16 : 8;
+  static constexpr int S = C >= 192 ? 2 : 1, CB = C / S, N2 = 2 * CB, NBLK = S * S;
+  static constexpr int NC = N2 <= 96 ? N2 : 64, NCH = N2 / NC;
   static constexpr bool RES = C <= 64;  // the [q|k] weights resident
-  static constexpr int WB = C >= 512 ? 1 : 2;  // window buffers
   static constexpr int P = TH * TW, WR = TH + 2, WC = TW + 2, R = WR * WC, RP = round16(R);
   static constexpr int LDX = C + 8, LDW = (RES ? N2 : NC) + 8, LDZ = NC + 8, LDQ = N2 + 8;
   static constexpr int SZ_WIN = align128(RP * LDX * 2), SZ_WS = align128(C * LDW * 2);
@@ -526,7 +509,7 @@ struct GramCfg {
   static constexpr int SZ_Z = align128(RP * LDZ * 4), SZ_Q = align128(P * LDQ * 2);
   // dw taps [9][N2], dw bias, 1x1 bias (fp32)
   static constexpr int V_BDW = 9 * N2, V_B = 10 * N2, SZ_V = align128(11 * N2 * 4);
-  static constexpr int OFF_W = WB * SZ_WIN, OFF_Z = OFF_W + SZ_W, OFF_Q = OFF_Z + SZ_Z;
+  static constexpr int OFF_W = 2 * SZ_WIN, OFF_Z = OFF_W + SZ_W, OFF_Q = OFF_Z + SZ_Z;
   static constexpr int OFF_V = OFF_Q + SZ_Q, SMEM = OFF_V + SZ_V;
   static constexpr int NT = block_threads(SMEM), NW = NT / 32;
   static constexpr int GM = CB / 16, GN = CB / 8;  // the gram block's m16 / n8 tiles
@@ -544,8 +527,7 @@ __global__ void __launch_bounds__(GramCfg<C>::NT, GramCfg<C>::NT == 256 ? 2 : 1)
   using G = GramCfg<C>;
   constexpr int NT = G::NT;
   unsigned char* sm = dyn_smem();
-  bf16* const win[2] = {reinterpret_cast<bf16*>(sm),
-                         reinterpret_cast<bf16*>(sm + (G::WB - 1) * G::SZ_WIN)};
+  bf16* const win[2] = {reinterpret_cast<bf16*>(sm), reinterpret_cast<bf16*>(sm + G::SZ_WIN)};
   bf16* const wsm = reinterpret_cast<bf16*>(sm + G::OFF_W);
   float* const z = reinterpret_cast<float*>(sm + G::OFF_Z);
   bf16* const qk = reinterpret_cast<bf16*>(sm + G::OFF_Q);
@@ -591,10 +573,10 @@ __global__ void __launch_bounds__(GramCfg<C>::NT, GramCfg<C>::NT == 256 ? 2 : 1)
     bf16* const xs = win[(L - first) & 1];
     cp_async_wait<0>();
     __syncthreads();  // window L landed; tile L - 1 is done with every buffer
-    if (G::WB == 2 && L + 1 < last) load_win(L + 1);
+    if (L + 1 < last) load_win(L + 1);
     cp_async_commit();
     if constexpr (LN) {
-      layernorm_lanes<C, NT>(xs, G::LDX, G::R);
+      layernorm_quads<C, NT>(xs, G::LDX, G::R);
       __syncthreads();
     }
     for (int ch = 0; ch < G::NCH; ++ch) {
@@ -624,10 +606,6 @@ __global__ void __launch_bounds__(GramCfg<C>::NT, GramCfg<C>::NT == 256 ? 2 : 1)
             *reinterpret_cast<float2*>(z + row * G::LDZ + c) = o;
           });
       __syncthreads();
-      if (G::WB == 1 && ch == G::NCH - 1 && L + 1 < last) {  // the window is read
-        load_win(L + 1);
-        cp_async_commit();
-      }
       // q, k = dw3x3 at the own pixels (zero past the edge), rounded to bf16.
       dw3x3_own<NT, G::TH, G::TW, G::NC>(
           z, G::LDZ, vt + ch * G::NC, G::N2, vt + G::V_BDW + ch * G::NC,
@@ -769,17 +747,16 @@ __device__ __forceinline__ TilePos3 tile_pos(long long L, int tiles_h, int tiles
 
 template <int C>
 struct Apply1Cfg {
-  static constexpr int TH = C == 384 ? 6 : C >= 256 ? 4 : 8, TW = C <= 48 ? 16 : 8;
-  static constexpr int NC = C <= 96 ? C : wide_width(C) ? 32 : 64, NCH = C / NC;
+  static constexpr int TH = C == 256 ? 4 : 8, TW = C <= 48 ? 16 : 8;
+  static constexpr int NC = C <= 96 ? C : 64, NCH = C / NC;
   static constexpr bool RES = C <= 64;  // wv and the image's apply resident
-  static constexpr int WB = wide_width(C) ? 1 : 2;  // window buffers
   static constexpr int P = TH * TW, WR = TH + 2, WC = TW + 2, R = WR * WC, RP = round16(R);
   static constexpr int LDX = C + 8, LDW = (RES ? C : NC) + 8, LDZ = NC + 8;
   static constexpr int SZ_WIN = align128(RP * LDX * 2), SZ_WS = align128(C * LDW * 2);
   static constexpr int SZ_Z = align128(RP * LDZ * 4), SZ_V = align128(P * LDX * 2);
   // dw taps [9][C], dw bias, v bias, b_proj (fp32)
   static constexpr int V_BDW = 9 * C, V_B = 10 * C, V_BP = 11 * C, SZ_VT = align128(12 * C * 4);
-  static constexpr int OFF_W = WB * SZ_WIN, OFF_Z = OFF_W + 2 * SZ_WS, OFF_V = OFF_Z + SZ_Z;
+  static constexpr int OFF_W = 2 * SZ_WIN, OFF_Z = OFF_W + 2 * SZ_WS, OFF_V = OFF_Z + SZ_Z;
   static constexpr int OFF_VT = OFF_V + SZ_V, SMEM = OFF_VT + SZ_VT;
   static constexpr int NT = block_threads(SMEM), NW = NT / 32;
   static_assert(SMEM <= kSmemPerBlock, "K3 phase 1 shared memory exceeds 227 KB");
@@ -797,8 +774,7 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
   using A = Apply1Cfg<C>;
   constexpr int NT = A::NT, STEPS = 2 * A::NCH;  // streamed chunks a tile: wv, then apply
   unsigned char* sm = dyn_smem();
-  bf16* const win[2] = {reinterpret_cast<bf16*>(sm),
-                         reinterpret_cast<bf16*>(sm + (A::WB - 1) * A::SZ_WIN)};
+  bf16* const win[2] = {reinterpret_cast<bf16*>(sm), reinterpret_cast<bf16*>(sm + A::SZ_WIN)};
   bf16* const slot[2] = {reinterpret_cast<bf16*>(sm + A::OFF_W),
                          reinterpret_cast<bf16*>(sm + A::OFF_W + A::SZ_WS)};
   float* const z = reinterpret_cast<float*>(sm + A::OFF_Z);
@@ -848,7 +824,7 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
     };
     cp_async_wait<0>();
     __syncthreads();  // window L landed; tile L - 1 is done with every buffer
-    if (A::WB == 2 && L + 1 < last) load_win(L + 1);
+    if (L + 1 < last) load_win(L + 1);
     if constexpr (A::RES) {
       if (t.b != cur_b) load_rows_async<NT>(slot[1], A::LDW, apply + (size_t)t.b * C * C, C, C, C,
                                             Same());
@@ -856,7 +832,7 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
     }
     cp_async_commit();
     if constexpr (LN) {
-      layernorm_lanes<C, NT>(xs, A::LDX, A::R);
+      layernorm_quads<C, NT>(xs, A::LDX, A::R);
       __syncthreads();
     }
     // v = dw3x3(mask(LN1(x) @ wv + bv)) + bdwv at the own pixels.
@@ -885,10 +861,6 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
             *reinterpret_cast<float2*>(z + row * A::LDZ + c) = o;
           });
       __syncthreads();
-      if (A::WB == 1 && st == A::NCH - 1 && L + 1 < last) {  // the window is read
-        load_win(L + 1);
-        cp_async_commit();
-      }
       if constexpr (STAGE == 1) {
         for (int e = threadIdx.x; e < A::P * A::NC / 2; e += NT) {
           const int p = e / (A::NC / 2), c = 2 * (e % (A::NC / 2)), i = p / A::TW, j = p % A::TW;
@@ -941,20 +913,14 @@ __global__ void __launch_bounds__(Apply1Cfg<C>::NT, Apply1Cfg<C>::NT == 256 ? 2 
 
 template <int C>
 struct Apply2Cfg {
-  static constexpr int TH = C == 512 ? 6 : C >= 192 && C != 384 ? 4 : 8, TW = C == 32 ? 16 : 8;
-  static constexpr int CH = 2 * C;
+  static constexpr int TH = C >= 192 ? 4 : 8, TW = C == 32 ? 16 : 8, CH = 2 * C;
   // 32-channel chunks at C = 32 keep the fp32 chunk small enough for two
   // CTAs an SM.
-  static constexpr int NC = C == 32 || wide_width(C) ? 32 : CH <= 96 ? CH : 64, NCH = CH / NC;
+  static constexpr int NC = C == 32 ? 32 : CH <= 96 ? CH : 64, NCH = CH / NC;
   static constexpr bool RES = C <= 64;  // wp1 and wp2 resident
-  // FUSED: each chunk of f is projected (its K rows of wp2) as soon as it is
-  // made, so f is one chunk, not [P, CH]; the steps alternate wp1 and wp2.
-  static constexpr bool FUSED = wide_width(C);
-  // K chunks of the projection
-  static constexpr int KC = RES ? CH : FUSED ? NC : 64, NKC = CH / KC;
-  static constexpr int WB = wide_width(C) ? 1 : 2;  // window buffers
+  static constexpr int KC = RES ? CH : 64, NKC = CH / KC;  // K chunks of the projection
   static constexpr int P = TH * TW, WR = TH + 2, WC = TW + 2, R = WR * WC, RP = round16(R);
-  static constexpr int LDX = C + 8, LDZ = NC + 8, LDF = (FUSED ? NC : CH) + 8;
+  static constexpr int LDX = C + 8, LDZ = NC + 8, LDF = CH + 8;
   static constexpr int LDW1 = (RES ? CH : NC) + 8, LDW2 = C + 8;
   static constexpr int SZ_W1 = align128(C * LDW1 * 2), SZ_W2 = align128(KC * LDW2 * 2);
   static constexpr int SZ_SLOT = cmax(SZ_W1, SZ_W2);
@@ -964,12 +930,11 @@ struct Apply2Cfg {
   // dw taps [9][CH], dw bias, expand bias [CH], projection bias [C] (fp32)
   static constexpr int V_BDW = 9 * CH, V_B1 = 10 * CH, V_B2 = 11 * CH;
   static constexpr int SZ_VT = align128((11 * CH + C) * 4);
-  static constexpr int OFF_W = WB * SZ_WIN, OFF_Z = OFF_W + SZ_W, OFF_F = OFF_Z + SZ_Z;
+  static constexpr int OFF_W = 2 * SZ_WIN, OFF_Z = OFF_W + SZ_W, OFF_F = OFF_Z + SZ_Z;
   static constexpr int OFF_VT = OFF_F + SZ_F, SMEM = OFF_VT + SZ_VT;
   static constexpr int NT = block_threads(SMEM), NW = NT / 32;
   static_assert(SMEM <= kSmemPerBlock, "K3 phase 2 shared memory exceeds 227 KB");
   static_assert(P % 16 == 0 && CH % NC == 0 && NC % 16 == 0 && CH % KC == 0, "K3 phase 2 geometry");
-  static_assert(WB == 2 || FUSED, "only the fused path loads the next window in the tile");
 };
 
 template <int C, int STAGE, bool BAND = false>
@@ -982,8 +947,7 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
   using A = Apply2Cfg<C>;
   constexpr int NT = A::NT, STEPS = A::NCH + A::NKC;  // streamed chunks a tile
   unsigned char* sm = dyn_smem();
-  bf16* const win[2] = {reinterpret_cast<bf16*>(sm),
-                         reinterpret_cast<bf16*>(sm + (A::WB - 1) * A::SZ_WIN)};
+  bf16* const win[2] = {reinterpret_cast<bf16*>(sm), reinterpret_cast<bf16*>(sm + A::SZ_WIN)};
   bf16* const slot[2] = {reinterpret_cast<bf16*>(sm + A::OFF_W),
                          reinterpret_cast<bf16*>(sm + A::OFF_W + A::SZ_SLOT)};
   bf16* const w1 = reinterpret_cast<bf16*>(sm + A::OFF_W);             // resident
@@ -999,19 +963,16 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
     load_window_async<C>(win[(L - first) & 1], A::LDX, A::RP, y + (size_t)t.b * HY * W * C, HY,
                          W, rm.in_row(t.r0 - 1), t.c0 - 1, A::WR, A::WC, threadIdx.x, NT);
   };
-  // Streamed: global step g's chunk (wp1 columns, then wp2 rows; FUSED:
-  // wp1 chunk i at step 2 i, wp2 chunk i at 2 i + 1).
+  // Streamed: global step g's chunk (wp1 columns, then wp2 rows).
   auto load_step = [&](long long g) {
     const int st = (int)(g % STEPS);
-    const bool w1 = A::FUSED ? st % 2 == 0 : st < A::NCH;
-    const int i = A::FUSED ? st / 2 : w1 ? st : st - A::NCH;
-    if (w1) {
-      const int n0 = i * A::NC;
+    if (st < A::NCH) {
+      const int n0 = st * A::NC;
       load_rows_async<NT>(slot[g & 1], A::LDW1, wp1, A::CH, C, A::NC,
                           [&](int c) { return n0 + c; });
     } else {
-      load_rows_async<NT>(slot[g & 1], A::LDW2, wp2 + (size_t)i * A::KC * C, C, A::KC, C,
-                          Same());
+      load_rows_async<NT>(slot[g & 1], A::LDW2, wp2 + (size_t)(st - A::NCH) * A::KC * C, C,
+                          A::KC, C, Same());
     }
   };
 
@@ -1052,68 +1013,10 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
     };
     cp_async_wait<0>();
     __syncthreads();  // window L landed; tile L - 1 is done with every buffer
-    if (A::WB == 2 && L + 1 < last) load_win(L + 1);
+    if (L + 1 < last) load_win(L + 1);
     cp_async_commit();
-    layernorm_lanes<C, NT>(ys, A::LDX, A::R);
+    layernorm_quads<C, NT>(ys, A::LDX, A::R);
     __syncthreads();
-    auto expand = [&](const bf16* wc, int n0) {  // z = mask(LN2(y) @ wp1 + bp1)
-      product<A::NW, A::RP / 16, A::NC / 8, C>(
-          ys, A::LDX, wc, A::LDW1, [&](int row, int c, float v0, float v1) {
-            float2 o = make_float2(0.f, 0.f);
-            if (row < A::R && rm.real(off, t.r0 - 1 + row / A::WC, t.c0 - 1 + row % A::WC, H, W)) {
-              const float2 bb = ld2(vt + A::V_B1 + n0 + c);
-              o = make_float2(v0 + bb.x, v1 + bb.y);
-            }
-            *reinterpret_cast<float2*>(z + row * A::LDZ + c) = o;
-          });
-    };
-    auto epilogue = [&](const auto& acc) {  // out = y + f @ wp2 + bp2 at own pixels
-      acc_epilogue<A::NW, A::P / 16, C / 8>(acc, [&](int p, int n, float v0, float v1) {
-        if (!own(p)) return;
-        const size_t idx = gidx(p) + n;
-        const float2 yv = ld_bf2(y + yidx(p) + n), bb = ld2(vt + A::V_B2 + n);
-        st_bf2(out + idx, yv.x + v0 + bb.x, yv.y + v1 + bb.y);
-      });
-    };
-    using PI = Items<A::NW, A::P / 16, C / 8>;
-    if constexpr (A::FUSED) {
-      // Per chunk of NC hidden channels: z, f = GELU(dw3x3(z) + bdwf) at the
-      // own pixels, then out += f @ wp2[chunk rows] in registers.
-      float pacc[PI::PER][2][2][4];
-#pragma unroll
-      for (int s = 0; s < PI::PER; ++s)
-#pragma unroll
-        for (int e = 0; e < 16; ++e) pacc[s][e / 8][(e / 4) % 2][e % 4] = 0.f;
-      for (int h = 0; h < A::NCH; ++h) {
-        const long long g = g0 + 2 * h;
-        if (h > 0) {
-          cp_async_wait<0>();
-          __syncthreads();  // wp1 chunk h landed; chunk h - 1's f and slot read
-        }
-        prefetch(g + 1);
-        cp_async_commit();
-        expand(slot[g & 1], h * A::NC);
-        __syncthreads();
-        if (A::WB == 1 && h == A::NCH - 1 && L + 1 < last) {  // the window is read
-          load_win(L + 1);
-          cp_async_commit();
-        }
-        dw3x3_own<NT, A::TH, A::TW, A::NC>(
-            z, A::LDZ, vt + h * A::NC, A::CH, vt + A::V_BDW + h * A::NC,
-            [&](int p, int cq, float4 a) {
-              st_bf4(f + p * A::LDF + 4 * cq,
-                     make_float4(gelu(a.x), gelu(a.y), gelu(a.z), gelu(a.w)));
-            });
-        cp_async_wait<0>();
-        __syncthreads();  // f complete, wp2 chunk h landed
-        prefetch(g + 2);
-        cp_async_commit();
-        product_acc<false, A::NW, A::P / 16, C / 8, A::KC>(pacc, f, A::LDF, slot[(g + 1) & 1],
-                                                           A::LDW2);
-      }
-      epilogue(pacc);
-      continue;
-    }
     // f = GELU(dw3x3(mask(LN2(y) @ wp1 + bp1)) + bdwf) at the own pixels.
     for (int st = 0; st < A::NCH; ++st) {
       const int n0 = st * A::NC;
@@ -1130,7 +1033,15 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
         cp_async_commit();
         wc = slot[(g0 + st) & 1];
       }
-      expand(wc, n0);
+      product<A::NW, A::RP / 16, A::NC / 8, C>(
+          ys, A::LDX, wc, A::LDW1, [&](int row, int c, float v0, float v1) {
+            float2 o = make_float2(0.f, 0.f);
+            if (row < A::R && rm.real(off, t.r0 - 1 + row / A::WC, t.c0 - 1 + row % A::WC, H, W)) {
+              const float2 bb = ld2(vt + A::V_B1 + n0 + c);
+              o = make_float2(v0 + bb.x, v1 + bb.y);
+            }
+            *reinterpret_cast<float2*>(z + row * A::LDZ + c) = o;
+          });
       __syncthreads();
       if constexpr (STAGE == 4) {
         for (int e = threadIdx.x; e < A::P * A::NC / 2; e += NT) {
@@ -1151,6 +1062,7 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
       }
     }
     // out = y + f @ wp2 + bp2 at the own pixels inside the image.
+    using PI = Items<A::NW, A::P / 16, C / 8>;
     float pacc[PI::PER][2][2][4];
 #pragma unroll
     for (int s = 0; s < PI::PER; ++s)
@@ -1172,7 +1084,13 @@ __global__ void __launch_bounds__(Apply2Cfg<C>::NT, Apply2Cfg<C>::NT == 256 ? 2 
                                                               slot[g & 1], A::LDW2);
       }
     }
-    if constexpr (STAGE == 5) epilogue(pacc);
+    if constexpr (STAGE == 5)
+      acc_epilogue<A::NW, A::P / 16, C / 8>(pacc, [&](int p, int n, float v0, float v1) {
+        if (!own(p)) return;
+        const size_t idx = gidx(p) + n;
+        const float2 yv = ld_bf2(y + yidx(p) + n), bb = ld2(vt + A::V_B2 + n);
+        st_bf2(out + idx, yv.x + v0 + bb.x, yv.y + v1 + bb.y);
+      });
   }
 }
 
@@ -1249,28 +1167,11 @@ cudaError_t block_kernel_info(int kind, long long* info) {
     case 0: BLLE_INFO(GramCfg<C>, (gram_kernel<C, true>))
     case 1: BLLE_INFO(Apply1Cfg<C>, (apply1_kernel<C, 3>))
     case 2: BLLE_INFO(Apply2Cfg<C>, (apply2_kernel<C, 5>))
-    case 3:  // A1 has no wide width
-      if constexpr (wide_width(C)) return cudaErrorInvalidValue;
-      else { BLLE_INFO(GramCfg<C>, (gram_kernel<C, false>)) }
+    case 3: BLLE_INFO(GramCfg<C>, (gram_kernel<C, false>))
 #undef BLLE_INFO
     default: return cudaErrorInvalidValue;
   }
 }
 }  // namespace
-
-// K2 and K3 at the wide widths, C in BLLE_WIDE_WIDTHS, instantiated once in
-// fused_block_wide.cu (plain and band mode) so that their build runs beside
-// the other sources'; the entry points of fused_block.cu and
-// fused_block_banded.cu hand those widths here. bands = 0: the plain pass
-// (x [B,H,W,C]); bands >= 1: band mode (x [B,H+4,W,C], band_*_map).
-// cudaErrorInvalidValue at any other width.
-#define BLLE_WIDE_WIDTHS(X) X(384) X(512)
-cudaError_t wide_gram_pass(const void* x, const void* wqk, const void* bqk, const void* dwqk,
-                           const void* bdwqk, void* workspace, void* out, int B, int H, int W,
-                           int C, int ncta, cudaStream_t s, int bands, int frame_h);
-cudaError_t wide_apply_pass(const void* const* p, void* out, void* ybuf, int B, int H, int W,
-                            int C, cudaStream_t s, int grid1, int grid2, int bands, int frame_h);
-long long wide_gram_workspace_floats(int B, int H, int W, int C);
-cudaError_t wide_block_kernel_info(int kind, int C, long long* info);
 
 #endif  // BLLE_BLOCK_TILES_CUH

@@ -39,24 +39,22 @@
 // walking tiles in strip order with the next window prefetched by cp.async;
 // weights in shared memory (resident at C <= 64, streamed in 64-channel
 // chunks through a cp.async ring above); every product on mma.sync from
-// shared memory; LayerNorm by lane quads (a warp a row above C = 256);
-// bias, mask, dw3x3, GELU as epilogues; K3 split at y so each half needs a
-// 1-pixel halo (LN1 and the v 1x1 on (TH+2)(TW+2) instead of (TH+4)(TW+4)
-// pixels); K2 with one partial per CTA and, from C = 192, its gram split
-// into 2 x 2 channel blocks (4 x 4 at 512) so that the deep levels spread
-// over more CTAs.
+// shared memory; LayerNorm by lane quads; bias, mask, dw3x3, GELU as
+// epilogues; K3 split at y so each half needs a 1-pixel halo (LN1 and the v
+// 1x1 on (TH+2)(TW+2) instead of (TH+4)(TW+4) pixels); K2 with one partial
+// per CTA and, from C = 192, its gram split into 2 x 2 channel blocks so that
+// the deep levels spread over more CTAs.
 //
 // Supported widths: C in {32, 48, 64, 96, 128, 192, 256} (every RawFormer
-// level with C <= 256) and, through fused_block_wide.cu, C in {384, 512}
-// (RawFormer-B's and -L's bottleneck, which band mode runs here), FFN hidden
-// width 2C. The kernel templates live in block_tiles.cuh, which A1
-// (fused_attention.cu) and the bisect ladder (probes_bisect.cu) instantiate
-// too, at the first seven widths.
+// level with C <= 256), FFN hidden width 2C. The kernel templates live in
+// block_tiles.cuh, which A1 (fused_attention.cu) and the bisect ladder
+// (probes_bisect.cu) instantiate too. RawFormer-B's and -L's bottleneck, C =
+// 384 and 512, runs K2 and K3 as a chain of whole-call kernels instead
+// (wide_block.cu, chained by kernels/wide_block.py).
 #include "block_tiles.cuh"
 
 // Floats of device workspace `blle_gram_pass` needs: the per-CTA partials.
 extern "C" long long blle_gram_workspace_floats(int B, int H, int W, int C) {
-  if (wide_width(C)) return wide_gram_workspace_floats(B, H, W, C);
   return gram_workspace_floats<true>(B, H, W, C);
 }
 
@@ -70,7 +68,6 @@ extern "C" int blle_attn_apply_info(int C, long long* info);       // fused_atte
 extern "C" int blle_block_kernel_info(int kind, int C, long long* info) {
   if (kind == 4) return blle_apply_pipelined_info(C, info);
   if (kind == 5) return blle_attn_apply_info(C, info);
-  if (wide_width(C)) return (int)wide_block_kernel_info(kind, C, info);
   switch (C) {
 #define BLLE_INFO(c) case c: return (int)block_kernel_info<c>(kind, info);
     BLLE_WIDTHS(BLLE_INFO)
@@ -86,9 +83,6 @@ extern "C" int blle_block_kernel_info(int kind, int C, long long* info) {
 extern "C" int blle_gram_pass(const void* x, const void* wqk, const void* bqk,
                               const void* dwqk, const void* bdwqk, void* workspace,
                               void* out, int B, int H, int W, int C, int ncta, void* stream) {
-  if (wide_width(C))
-    return (int)wide_gram_pass(x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, ncta,
-                               (cudaStream_t)stream, 0, 0);
   return (int)gram_pass<true>(x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, ncta,
                               (cudaStream_t)stream);
 }
@@ -105,7 +99,6 @@ extern "C" int blle_apply_pass(const void* x, const void* apply, const void* wv,
                                int C, int grid1, int grid2, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const void* p[13] = {x, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2, bp2};
-  if (wide_width(C)) return (int)wide_apply_pass(p, out, ybuf, B, H, W, C, s, grid1, grid2, 0, 0);
   switch (C) {
 #define BLLE_RUN(c) case c: return (int)apply_tiles<c, 5>(p, out, ybuf, B, H, W, s, grid1, grid2);
     BLLE_WIDTHS(BLLE_RUN)

@@ -14,9 +14,8 @@
 // already filled from its neighbour bands (zeros past the frame's edges),
 // [B, H + 4, W, C]; image b is band b % bands of its frame, whose rows
 // [0, frame_h) are real. The same kernels as fused_block.cu (block_tiles.cuh,
-// RowMap<true>; C = 384 / 512 instantiated in fused_block_wide.cu): K2
-// writes each band's partial gram and sums of squares, which the caller
-// sums per frame before the finalise; K3's first kernel
+// RowMap<true>): K2 writes each band's partial gram and sums of squares,
+// which the caller sums per frame before the finalise; K3's first kernel
 // writes y on the band's rows -1 .. H into ybuf [B, H + 2, W, C], so that
 // its second kernel reads y's 1-row halo from its own input as it does on a
 // whole image. A tiled rank whose neighbours send it these halo rows
@@ -33,9 +32,6 @@ extern "C" int blle_gram_pass_banded(const void* x, const void* wqk, const void*
                                      int frame_h, void* stream) {
   if (bands < 1 || B % bands || frame_h < 1 || frame_h > bands * H)
     return (int)cudaErrorInvalidValue;
-  if (wide_width(C))
-    return (int)wide_gram_pass(x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, ncta,
-                               (cudaStream_t)stream, bands, frame_h);
   return (int)gram_pass<true, true>(x, wqk, bqk, dwqk, bdwqk, workspace, out, B, H, W, C, ncta,
                                     (cudaStream_t)stream, band_gram_map(H, bands, frame_h));
 }
@@ -54,8 +50,6 @@ extern "C" int blle_apply_pass_banded(const void* x, const void* apply, const vo
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const void* p[13] = {x, apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2, bp2};
-  if (wide_width(C))
-    return (int)wide_apply_pass(p, out, ybuf, B, H, W, C, s, grid1, grid2, bands, frame_h);
   switch (C) {
 #define BLLE_RUN(c)                                                                       \
   case c:                                                                                 \

@@ -1,6 +1,7 @@
 // Hopper warpgroup matrix multiply (wgmma) from shared memory, the subset the
-// weight-grad pass (weight_grad.cu) and T1 (fused_stage.cu, A from registers)
-// use: bf16 operands, fp32 accumulators, m64nNk16 for N = 64, 128, 192, 256;
+// weight-grad pass (weight_grad.cu), T1 (fused_stage.cu, A from registers)
+// and the wide block's GEMM (wide_block.cu, A K-major) use: bf16 operands,
+// fp32 accumulators, m64nNk16 for N = 64, 128, 192, 256;
 // and the TMA loads (with the host's tensor-map encoder) and transaction
 // barriers (mbarrier) that feed it, which the floor ladder's `tma` rung
 // (probes_floor.cu) also uses for its windows. Built for sm_90a only (wgmma
@@ -157,15 +158,16 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
 }
 
 
-// The product of width N (64, 128, 192 or 256) on N / 2 accumulators.
-template <int N>
+// The product of width N (64, 128, 192 or 256) on N / 2 accumulators; A
+// MN-major (TA = 1) or K-major (TA = 0), B MN-major.
+template <int N, int TA = 1>
 __device__ __forceinline__ void wgmma_m64nk16(float (&d)[N / 2], uint64_t da, uint64_t db,
                                               int scale_d) {
   static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma width");
-  if constexpr (N == 64) wgmma_m64n64k16(d, da, db, scale_d);
-  if constexpr (N == 128) wgmma_m64n128k16(d, da, db, scale_d);
-  if constexpr (N == 192) wgmma_m64n192k16(d, da, db, scale_d);
-  if constexpr (N == 256) wgmma_m64n256k16(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_m64n64k16<TA>(d, da, db, scale_d);
+  if constexpr (N == 128) wgmma_m64n128k16<TA>(d, da, db, scale_d);
+  if constexpr (N == 192) wgmma_m64n192k16<TA>(d, da, db, scale_d);
+  if constexpr (N == 256) wgmma_m64n256k16<TA>(d, da, db, scale_d);
 }
 
 // d[64 x N] (+)= A[64 x 16] B[16 x N] for one warpgroup with A in registers:

@@ -98,6 +98,17 @@ _SIGNATURES = {
     "blle_probe_apply_cut": [_P] * 15 + [_I] * 6 + [_P],
     # x, w, dw, out, B, H, W, C, strategy, level, th, stream
     "blle_probe_floor": [_P] * 4 + [_I] * 7 + [_P],
+    # x, out, B, HX, first row, rows, W, C, stream
+    "blle_wide_layernorm": [_P, _P] + [_I] * 6 + [_P],
+    # the product's table (20 long longs, wide_block.gemm), stream
+    "blle_wide_gemm": [ctypes.POINTER(ctypes.c_longlong), _P],
+    # tile width, info (4 long longs)
+    "blle_wide_gemm_info": [_I, ctypes.POINTER(ctypes.c_longlong)],
+    # z, taps, bias, out0, out1, partials, B, RZ, RO, dz, W, F, epilogue,
+    # bands, hb, frame_h, stream
+    "blle_wide_dw": [_P] * 6 + [_I] * 10 + [_P],
+    # gram, partials, out, B, C, nx, stream
+    "blle_wide_gram_finish": [_P] * 3 + [_I] * 3 + [_P],
 }
 # name -> argument types of the size queries (each returns a long long).
 _SIZES = {

@@ -49,7 +49,10 @@ second kernel finds its halo) go through ``torch.ops.blle.gram_pass_banded``
 block runs K3 in band mode. K2 and K3 (band mode or not) also take the
 WIDE_WIDTHS, RawFormer-B's and -L's bottleneck, so that band mode runs every
 TransformerBlock of a RawFormer on the kernels, as the JAX package's band
-mode does; the other kernels (K3P, B1/B2, A1, T1) stop at KERNEL_WIDTHS.
+mode does: there the operators run a chain of whole-call kernels
+(``kernels/wide_block.py``: LayerNorm, wgmma GEMMs, depthwise passes and the
+weight-grad pass for the gram) instead of the tile kernels; the other
+kernels (K3P, B1/B2, A1, T1) stop at KERNEL_WIDTHS.
 """
 
 from __future__ import annotations
@@ -62,17 +65,17 @@ from typing import Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
-from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+from bayer_low_light_image_enhancement_tpu_torch.kernels import _build, wide_block
+from bayer_low_light_image_enhancement_tpu_torch.kernels.wide_block import WIDE_WIDTHS
 from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo, conv2d
 
 # Channel widths every fused-block kernel (K2, K3, B1/B2, A1, T1) is
 # instantiated for: every RawFormer level with C <= 256 (S: 32..256, B:
 # 48..192, L: 64..256).
 KERNEL_WIDTHS = (32, 48, 64, 96, 128, 192, 256)
-# K2 and K3 also take RawFormer-B's and -L's bottleneck widths
-# (``csrc/fused_block_wide.cu``), which band mode runs on them as the JAX
+# K2 and K3 also take RawFormer-B's and -L's bottleneck widths, WIDE_WIDTHS
+# (``kernels/wide_block.py``), which band mode runs on them as the JAX
 # package's band mode does; BLOCK_WIDTHS are K2's and K3's widths.
-WIDE_WIDTHS = (384, 512)
 BLOCK_WIDTHS = KERNEL_WIDTHS + WIDE_WIDTHS
 
 # The apply-pass kernels a block can select, and the widths K3P takes: the
@@ -359,46 +362,39 @@ def tile_config(kind: str, c: int) -> TileConfig:
     c (A1's two passes have K2's and K3 phase 1's): weights resident in
     shared memory at c <= 64, else streamed through two chunk slots; the
     depthwise taps and the biases resident; 256 threads where two CTAs fit
-    an SM, else 512. K2 and K3 also take the WIDE_WIDTHS, staged to fit a
-    block: 32-channel chunks, the gram in 2 x 2 blocks at c = 384 and 4 x 4
-    at 512, K3's phase 2 projecting each FFN chunk as it is made, tiles of
-    4-8 rows, one window buffer except in K2 at 384.
-    "pipe" is ``PipeCfg`` of apply_pipelined.cuh (``_pipe_config``)."""
+    an SM, else 512. "pipe" is ``PipeCfg`` of apply_pipelined.cuh
+    (``_pipe_config``). The WIDE_WIDTHS have no tile kernel: their plan is
+    ``wide_block.wide_plan``."""
     if kind == PIPE:
         return _pipe_config(c)
     if kind not in BLOCK_KINDS:
         raise ValueError(f"kind must be one of {BLOCK_KINDS + (PIPE,)}, got {kind!r}")
-    widths = KERNEL_WIDTHS if kind.startswith("attn") else BLOCK_WIDTHS
-    if c not in widths:
-        raise ValueError(f"no kernel for C={c}; widths: {widths}")
-    res, splits, ldx, wide = c <= 64, 1, c + 8, c in WIDE_WIDTHS
-    wins = 1 if wide else 2  # window buffers
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"no kernel for C={c}; widths: {KERNEL_WIDTHS}")
+    res, splits, ldx = c <= 64, 1, c + 8
     if kind in ("gram", "attn_gram"):
-        th, tw = {512: 6, 384: 4, 256: 4}.get(c, 8), 16 if c in (32, 96) else 8
-        splits = 4 if c == 512 else 2 if c >= 192 else 1
-        wins = 1 if c == 512 else 2
+        th, tw = 4 if c == 256 else 8, 16 if c in (32, 96) else 8
+        splits = 2 if c >= 192 else 1
         n2 = 2 * c // splits
-        nc = 32 if wide else n2 if n2 <= 96 else 64
+        nc = n2 if n2 <= 96 else 64
         p, rp = th * tw, _r16((th + 2) * (tw + 2))
         slot = _a128(c * ((n2 if res else nc) + 8) * 2)
-        parts = [wins * _a128(rp * ldx * 2), slot if res else 2 * slot,
-                 _a128(rp * (nc + 8) * 4), _a128(p * (n2 + 8) * 2), _a128(11 * n2 * 4)]
+        parts = [2 * _a128(rp * ldx * 2), slot if res else 2 * slot, _a128(rp * (nc + 8) * 4),
+                 _a128(p * (n2 + 8) * 2), _a128(11 * n2 * 4)]
     elif kind in ("apply1", "attn_apply"):
-        th, tw = {384: 6, 512: 4, 256: 4}.get(c, 8), 16 if c <= 48 else 8
-        nc = c if c <= 96 else 32 if wide else 64
+        th, tw = 4 if c == 256 else 8, 16 if c <= 48 else 8
+        nc = c if c <= 96 else 64
         p, rp = th * tw, _r16((th + 2) * (tw + 2))
-        parts = [wins * _a128(rp * ldx * 2), 2 * _a128(c * ((c if res else nc) + 8) * 2),
+        parts = [2 * _a128(rp * ldx * 2), 2 * _a128(c * ((c if res else nc) + 8) * 2),
                  _a128(rp * (nc + 8) * 4), _a128(p * ldx * 2), _a128(12 * c * 4)]
     else:
-        th = {384: 8, 512: 6}.get(c, 4 if c >= 192 else 8)
-        tw, ch = 16 if c == 32 else 8, 2 * c
-        nc = 32 if c == 32 or wide else ch if ch <= 96 else 64
-        kc = ch if res else nc if wide else 64  # wide: each f chunk projected (FUSED)
+        th, tw, ch = 4 if c >= 192 else 8, 16 if c == 32 else 8, 2 * c
+        nc = 32 if c == 32 else ch if ch <= 96 else 64
+        kc = ch if res else 64
         p, rp = th * tw, _r16((th + 2) * (tw + 2))
         w1, w2 = _a128(c * ((ch if res else nc) + 8) * 2), _a128(kc * (c + 8) * 2)
-        parts = [wins * _a128(rp * ldx * 2), w1 + w2 if res else 2 * max(w1, w2),
-                 _a128(rp * (nc + 8) * 4), _a128(p * ((nc if wide else ch) + 8) * 2),
-                 _a128((11 * ch + c) * 4)]
+        parts = [2 * _a128(rp * ldx * 2), w1 + w2 if res else 2 * max(w1, w2),
+                 _a128(rp * (nc + 8) * 4), _a128(p * (ch + 8) * 2), _a128((11 * ch + c) * 4)]
     smem = sum(parts)
     threads = 256 if 2 * (smem + 1024) <= SMEM_PER_SM else 512
     return TileConfig(th, tw, threads, smem, splits)
@@ -553,17 +549,25 @@ def gram_pass(x: torch.Tensor, w: BlockWeights):
     return out[:, : c * c].reshape(b, c, c), out[:, c * c : c * c + c], out[:, c * c + c :]
 
 
+def _gram_args(c: int, device, *tensors: torch.Tensor):
+    """K2's checked device weights from the ``GRAM_FIELDS`` tensors."""
+    args = [bf16(tensors[0]), f32(tensors[1]), f32(tensors[2]), f32(tensors[3])]
+    for t, n, s in zip(args, GRAM_FIELDS, ((c, 2 * c), (2 * c,), (9, 2 * c), (2 * c,))):
+        require(t, n, s, device)
+    return args
+
+
 def _gram_pass_kernel(x: torch.Tensor, *tensors: torch.Tensor) -> torch.Tensor:
     """K2 on x and the ``GRAM_FIELDS`` tensors -> [B, C*C + 2C] fp32: each
     image's gram, then its sums of q^2 and of k^2."""
     check_pass_input(x, *tensors, widths=BLOCK_WIDTHS)
     b, h, wd, c = x.shape
+    args = _gram_args(c, x.device, *tensors)
+    if c in WIDE_WIDTHS:
+        out = wide_block.gram_pass_wide(x, *args)
+        gram_pass.launches += 1
+        return out
     lib = _build.library()
-    wqk, bqk, dwqk, bdwqk = tensors
-    args = [bf16(wqk), f32(bqk), f32(dwqk), f32(bdwqk)]
-    for t, n, s in zip(args, ("wqk", "bqk", "dwqk", "bdwqk"),
-                       ((c, 2 * c), (2 * c,), (9, 2 * c), (2 * c,))):
-        require(t, n, s, x.device)
     plan = plan_for("gram", b, h, wd, c, x.device.index or 0)
     ws = torch.empty(gram_workspace_floats(b, h, wd, c, plan), dtype=torch.float32,
                      device=x.device)
@@ -609,6 +613,10 @@ def _apply_pass_args(x: torch.Tensor, apply: torch.Tensor, *tensors: torch.Tenso
 def _apply_pass_kernel(x: torch.Tensor, apply: torch.Tensor,
                        *tensors: torch.Tensor) -> torch.Tensor:
     args = _apply_pass_args(x, apply, *tensors)
+    if x.shape[-1] in WIDE_WIDTHS:
+        out = wide_block.apply_pass_wide(x, *args)
+        apply_pass.launches += 1
+        return out
     ybuf, out = torch.empty_like(x), torch.empty_like(x)
     grids = [plan_for(k, *x.shape, x.device.index or 0).ctas for k in ("apply1", "apply2")]
     err = _build.library().blle_apply_pass(
@@ -669,11 +677,12 @@ def _gram_pass_banded_kernel(xh: torch.Tensor, *args) -> torch.Tensor:
     check_pass_input(xh, *tensors, widths=BLOCK_WIDTHS)
     hb = check_band_input(xh, bands, frame_h)
     b, _, wd, c = xh.shape
-    wqk, bqk, dwqk, bdwqk = tensors
-    wargs = [bf16(wqk), f32(bqk), f32(dwqk), f32(bdwqk)]
-    for t, n, sh in zip(wargs, ("wqk", "bqk", "dwqk", "bdwqk"),
-                        ((c, 2 * c), (2 * c,), (9, 2 * c), (2 * c,))):
-        require(t, n, sh, xh.device)
+    wargs = _gram_args(c, xh.device, *tensors)
+    if c in WIDE_WIDTHS:
+        out = wide_block.gram_pass_wide(xh, *wargs, bands=bands, frame_h=frame_h)
+        gram_pass_banded.launches += 1
+        gram_pass_banded_wide.launches += 1
+        return out
     plan = plan_for("gram", b, hb, wd, c, xh.device.index or 0)
     ws = torch.empty(gram_workspace_floats(b, hb, wd, c, plan), dtype=torch.float32,
                      device=xh.device)
@@ -684,7 +693,6 @@ def _gram_pass_banded_kernel(xh: torch.Tensor, *args) -> torch.Tensor:
     )
     _build.check(err, "fused_block gram pass (band mode)")
     gram_pass_banded.launches += 1
-    gram_pass_banded_wide.launches += c in WIDE_WIDTHS
     return out
 
 
@@ -706,6 +714,11 @@ def _apply_pass_banded_kernel(xh: torch.Tensor, apply: torch.Tensor, *args) -> t
     wargs = _apply_pass_args(xh, apply, *tensors)
     hb = check_band_input(xh, bands, frame_h)
     b, _, wd, c = xh.shape
+    if c in WIDE_WIDTHS:
+        out = wide_block.apply_pass_wide(xh, *wargs, bands=bands, frame_h=frame_h)
+        apply_pass_banded.launches += 1
+        apply_pass_banded_wide.launches += 1
+        return out
     ybuf = torch.empty((b, hb + 2, wd, c), dtype=xh.dtype, device=xh.device)
     out = torch.empty((b, hb, wd, c), dtype=xh.dtype, device=xh.device)
     dev = xh.device.index or 0
@@ -717,7 +730,6 @@ def _apply_pass_banded_kernel(xh: torch.Tensor, apply: torch.Tensor, *args) -> t
     )
     _build.check(err, "fused_block apply pass (band mode)")
     apply_pass_banded.launches += 1
-    apply_pass_banded_wide.launches += c in WIDE_WIDTHS
     return out
 
 

@@ -138,9 +138,9 @@ def _apply_banded_fake(x, apply, *args):
 
 def gram_pass_flops(b: int, h: int, w: int, c: int) -> int:
     """K2's products: the [q|k] 1x1, the depthwise 3x3 on 2C channels and
-    the gram over all pixels (the function's, at every width: the kernel's
-    recompute of the 1x1 for each of its S x S gram blocks from C = 192 on,
-    S times over, is not counted)."""
+    the gram over all pixels (the function's, at every width: the tile
+    kernel's recompute of the 1x1 for each of its 2 x 2 gram blocks at C =
+    192 / 256, twice over, is not counted)."""
     n = b * h * w
     return 2 * n * c * 2 * c + 2 * n * 9 * 2 * c + 2 * n * c * c
 

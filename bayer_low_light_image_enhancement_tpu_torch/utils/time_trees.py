@@ -2,7 +2,7 @@
 card, in turns.
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.time_trees \\
-        ROOT [ROOT ...] [--what bwd,step,scan,block,pipe,wgrad,pack,tail,attn,floor] \
+        ROOT [ROOT ...] [--what bwd,step,scan,block,pipe,wgrad,pack,tail,attn,floor,wide] \
         [--turns 2]
 
 Each ROOT is a directory that holds a copy of the package (``.`` for this
@@ -71,7 +71,20 @@ kernels. Per root and turn it prints
   of every strategy the tree has at tile heights 4, 8 and 16 on a seeded
   [8,256,256,32] bf16 x, whole calls (20 after 3, three times) and by
   device time per call, beside ``out.copy_(x)`` (the one PyTorch call of
-  level c's function) timed the same way, and the bound by bytes.
+  level c's function) timed the same way, and the bound by bytes;
+* ``wide``: K2 and K3 at RawFormer-B's and -L's banded bottleneck, [8, 23,
+  272, C] for C = 384 and 512 (one Sony frame's 8 bands; seeded
+  ``probes.floor.block_weights``, bf16 x), plain (``gram_pass`` /
+  ``apply_pass`` on the 8 bands as images) and in band mode
+  (``gram_pass_banded`` / ``apply_pass_banded`` on the halo'd bands, the
+  frame 184 rows): whole wrapper calls (20 after 3, three times) and each
+  one's kernels by device time per call; the whole banded block
+  (``fused_transformer_block(bands=8)``: the halo copy, K2, the frame sums,
+  the finalise, K3) beside the bf16 band-aware module-path block
+  (``fused = False``), 20 calls after 3, three times; then RawFormer-B and
+  -L (seeded, bf16) on a 2944x4352 mosaic in 8 bands
+  (``make_banded_forward``, as the eval CLI's band route runs a Sony frame)
+  and monolithic, 3 calls after 1, twice.
 
 A card is required: there is no CPU fallback.
 """
@@ -410,6 +423,62 @@ def _child(root: str, what: str) -> None:
                   + " ".join(f"{v:.4f}" for v in t) + f" ms ({gbs:.0f} GB/s at the best), "
                   f"device {dev_ms:.4f} ms a call, bound {bound:.4f} ms (bytes)", flush=True)
         del x, out
+    if "wide" in what:
+        from bayer_low_light_image_enhancement_tpu_torch.models.fused_apply import (
+            make_banded_forward,
+        )
+        from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
+        from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+        ms = lambda v: " ".join(f"{t:.4f}" for t in v)  # noqa: E731
+        for c in (384, 512):
+            b, hb, w = 8, 23, 272
+            tag = f"wide [{b},{hb},{w},{c}]"
+            wts = pf.block_weights(c, 18 + c, dev)
+            gen = torch.Generator().manual_seed(c)
+            x = torch.randn(b, hb, w, c, generator=gen).to(dev, torch.bfloat16)
+            xh = band_halo(x, 2, b)
+            with torch.inference_mode():
+                apply = fb.finalize_attention(*fb.gram_pass_plain(x, wts), wts.temperature,
+                                              wts.wproj, 8)
+                sums = [t.sum(0, keepdim=True) for t in fb.gram_pass_banded_plain(xh, wts, b,
+                                                                                 b * hb)]
+                bapply = fb.finalize_attention(*sums, wts.temperature, wts.wproj, 8).repeat(
+                    b, 1, 1)
+                calls = {"K2": lambda: fb.gram_pass(x, wts),
+                         "K3": lambda: fb.apply_pass(x, apply, wts),
+                         "K2 band": lambda: fb.gram_pass_banded(xh, wts, b, b * hb),
+                         "K3 band": lambda: fb.apply_pass_banded(xh, bapply, wts, b, b * hb)}
+                for name, fn in calls.items():
+                    t = [cuda_time_ms(fn, 20) for _ in "123"]
+                    print(f"{root} {tag}: {name} {ms(t)} ms", flush=True)
+                    split(tag, name, fn)
+            blk = common.TransformerBlock(c, 8, 2, device=dev, dtype=torch.bfloat16,
+                                          compute_dtype=torch.bfloat16)
+            common.reset_parameters_(blk, torch.Generator().manual_seed(18 + c))
+            params = dict(blk.named_parameters())
+            common.bind_bands(blk, b)
+            blk.fused = False
+            xn = x.permute(0, 3, 1, 2)
+            with torch.inference_mode():
+                whole = [cuda_time_ms(lambda: fb.fused_transformer_block(x, params, 8, bands=b),
+                                      20) for _ in "123"]
+                mod = [cuda_time_ms(lambda: blk(xn), 20) for _ in "123"]
+            print(f"{root} {tag}: whole banded block {ms(whole)} ms, bf16 band-aware module-path "
+                  f"block {ms(mod)} ms", flush=True)
+            del x, xh, xn, blk, params
+        xp = torch.rand(1, 1, 2944, 4352, generator=torch.Generator().manual_seed(0)).to(dev)
+        for size in ("B", "L"):
+            model = get_model(f"rawformer_{size.lower()}", device=dev, dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(0)).eval()
+            fwd = make_banded_forward(model, 8)
+            with torch.inference_mode():
+                band = [cuda_time_ms(lambda: fwd(xp), 3, warmup=1) for _ in "12"]
+                mono = [cuda_time_ms(lambda: model(xp), 3, warmup=1) for _ in "12"]
+            print(f"{root} RawFormer-{size} 2944x4352 frame: banded (8 bands) {ms(band)} ms, "
+                  f"monolithic {ms(mono)} ms", flush=True)
+            del model, fwd
+            torch.cuda.empty_cache()
     if "scan" in what:
         from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
 
@@ -457,8 +526,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("roots", nargs="+", help="directories holding a copy of the package")
     p.add_argument("--what", default="bwd,step",
-                   help="any of bwd, step, scan, block, pipe, wgrad, pack, tail, attn, floor "
-                        "(comma-separated)")
+                   help="any of bwd, step, scan, block, pipe, wgrad, pack, tail, attn, floor, "
+                        "wide (comma-separated)")
     p.add_argument("--turns", type=int, default=2, help="passes over the roots, alternating order")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)

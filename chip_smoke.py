@@ -237,17 +237,20 @@ Phases (any failed check raises and the script exits non-zero):
    K2 / K3 in band mode against their band twins at the band shapes of the
    Sony ARW frame (2848x4256 padded to 2944x4352, 8 bands of 368 mosaic
    rows: [8,184,2176,32] ... [8,23,272,256], and the B / L bottleneck's
-   [8,23,272,384] / [8,23,272,512], where the plain K2 / K3 are held too
-   and the bf16 band-aware module-path block is timed beside the whole
-   block on the kernels), timed beside the frame's monolithic K2 / K3 and
-   their bounds; RawFormer-S on the frame banded against its
+   [8,23,272,384] / [8,23,272,512], where the plain K2 / K3 are held too,
+   each kernel of the wide chain (LayerNorm, the wgmma GEMMs each beside a
+   bf16 torch.matmul / bmm, the dw passes, the gram through the weight-grad
+   pass, the finish) is held against its twin and timed, and the bf16
+   band-aware module-path block is timed beside the whole block on the
+   kernels), timed beside the frame's monolithic K2 / K3 and their bounds; RawFormer-S on the frame banded against its
    monolithic kernel path (7 band-mode K2 and K3, no other block kernel,
    also with ``apply_kernel="pipelined"``), banded and monolithic timed
    (CUDA events, host clock, profiler device time, peak memory); the fp32
    twin path banded against monolithic (TF32 off); RawFormer-B and -L on
    the frame, banded against monolithic (7 band-mode K2 / K3 each, one at
-   the 384 / 512-wide bottleneck, and no module-path attention), with times
-   and peak memory, and their fp32 twin paths banded against monolithic;
+   the 384 / 512-wide bottleneck through the wide chain, and no module-path
+   attention), with times, peak memory and the chain's scratch, and their
+   fp32 twin paths banded against monolithic;
    the eval CLI's band route on a synthetic SID frame
    against its monolithic route at the same pad. Since the band route, the
    eval CLI of phase 9 runs its 2832x4240 frames banded too.
@@ -2954,7 +2957,8 @@ def zoo_tiled_phase(dev, card, counters, models=ZOO_TILED_MODELS, cli: bool = Tr
 # CLI's band route to 2944x4352 (pad 128) and cut into 8 bands of 368 mosaic
 # rows: K2 / K3 see the bands at [8, 184, 2176, 32] ... [8, 23, 272, 256],
 # and RawFormer-B's / -L's bottleneck at [8, 23, 272, 384] / [8, 23, 272,
-# 512] (the wide widths, csrc/fused_block_wide.cu, also held plain).
+# 512] (the wide widths, kernels/wide_block.py's chain, also held plain, and
+# each kernel of the chain held and timed: wide_chain_kernels).
 # Tolerances, stated before the run: the kernels in band mode against their
 # band twins by phase 3's rules (K2_COS_TOL on the frame's cosines and
 # relative sums of squares, BLOCK_ATOL / BLOCK_RTOL on K3); a banded frame
@@ -3026,6 +3030,132 @@ def module_block_beside_kernels(x, c: int, bands: int, frame_h: int):
     return module_ms, kernel_ms
 
 
+# The rows of the wide chain's kernels (kernels/wide_block.py), K2 / K3 at C
+# = 384 / 512: the kernel line holds them at WIDE_BAND_SHAPE, each row the
+# kernel's launches in one banded bottleneck block (K2 then K3).
+WIDE_ROWS = ("wide_layernorm", "wide_gemm", "wide_dw3x3", "wide_gram_finish")
+
+
+def wide_chain_kernels(xh, bapply, wts, shape, card) -> dict:
+    """Phase 18 at a wide width: each kernel of the wide K2 / K3 chain on the
+    main path's tensors of one banded frame at ``shape`` (each step fed by
+    the kernels' own outputs): held against its twin by phase 3's rule
+    (BLOCK_ATOL / BLOCK_RTOL), timed by CUDA events beside its twin and,
+    where one PyTorch call computes the same function (F.layer_norm, one
+    bf16 torch.matmul / torch.bmm of the GEMM's shape, a depthwise
+    F.conv2d), that call; the gram through the weight-grad pass timed
+    too. -> {row: dict(err, ms, plain_ms, bound, library_ms)} summed over
+    the row's launches in one block."""
+    import torch.nn.functional as F
+
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms
+
+    b, hb, w, c = shape
+    pg, pa = (wb.wide_plan(k, b, hb, w, c, b, b * hb) for k in ("gram", "apply"))
+    wqk, bqk, dwqk, bdwqk = fb._gram_args(c, xh.device, *wts.gram_tensors())
+    apply, wv, bv, dwv, bdwv, bproj, wp1, bp1, dwf, bdwf, wp2, bp2 = fb._apply_pass_args(
+        xh, bapply, *wts.apply_tensors())
+    acc = {r: dict(err=0.0, ms=0.0, plain_ms=0.0, nbytes=0.0, tc=0.0, fp32=0.0, library_ms=0.0)
+           for r in WIDE_ROWS}
+    acc["wide_gram_finish"]["library_ms"] = None  # no one PyTorch call places and sums
+
+    def step(row, what, fn, twin, lib, **counts):
+        got, ref = fn(), twin()
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        err = 0.0
+        for a, r in pairs:
+            d = (a.float() - r.float()).abs()
+            bad = (d > BLOCK_ATOL + BLOCK_RTOL * r.float().abs()).sum().item()
+            check(bad == 0, f"phase 18: {what} disagrees with its twin ({bad} elements)")
+            err = max(err, d.max().item())
+        ms, pms = cuda_time_ms(fn, 10), cuda_time_ms(twin, 3, warmup=1)
+        lms = None if lib is None else cuda_time_ms(lib, 10)
+        bms, by = bound(**counts)
+        log(f"time wide {shape} {what}: {ms:.4f} ms (twin {pms:.4f}, bound {bms:.4f} by {by}"
+            + ("" if lms is None else f", library call {lms:.4f}") + f"), max abs err {err:.3e} "
+            f"({card})")
+        a = acc[row]
+        a["err"], a["ms"], a["plain_ms"] = max(a["err"], err), a["ms"] + ms, a["plain_ms"] + pms
+        for key, v in counts.items():
+            a[key] += v
+        if lms is not None and a["library_ms"] is not None:
+            a["library_ms"] += lms
+        return got
+
+    def ln(x, first, rows, what):
+        n = x.shape[0] * rows * w * c
+        return step("wide_layernorm", what, lambda: wb.layernorm_rows(x, first, rows),
+                    lambda: wb.layernorm_rows_plain(x, first, rows),
+                    lambda: F.layer_norm(x[:, first: first + rows], (c,)), nbytes=4.0 * n,
+                    fp32=8.0 * n)
+
+    def gemm(a, bm, bias, g, what, res=None):
+        out_bytes = (2 if res is not None else 4) * g.g * g.m * g.n
+        nbytes = (2 * g.g * g.m * g.k + 2 * (g.g if g.batched else 1) * g.k * g.n + 4 * g.n
+                  + out_bytes + (0 if res is None else 2 * g.g * g.m * g.n))
+        am = a.view(g.g, g.m, g.k) if g.batched else a.view(-1, g.k)
+        lib = (lambda: torch.bmm(am, bm)) if g.batched else (lambda: torch.matmul(am, bm))
+        return step("wide_gemm", f"{what} GEMM [{g.g * g.m}, {g.k}] @ [{g.k}, {g.n}]"
+                    + (" per image" if g.batched else ""), lambda: wb.gemm(a, bm, bias, g, res),
+                    lambda: wb.gemm_plain(a, bm, bias, g, res), lib, nbytes=float(nbytes),
+                    tc=float(g.flops))
+
+    def dw(z, taps, bias, d, what):
+        outs = d.b * d.ro * d.w * d.f
+        nbytes = 4 * d.b * d.rz * d.w * d.f + 2 * outs + 40 * d.f
+        if d.epi == "qk":
+            nbytes += 4 * d.b * d.nx * d.f
+        zc = z.permute(0, 3, 1, 2)
+        wk = taps.t().reshape(d.f, 1, 3, 3)
+        return step("wide_dw3x3", f"{what} dw3x3 ({d.epi})", lambda: wb.dw3x3(z, taps, bias, d),
+                    lambda: wb.dw3x3_plain(z, taps, bias, d),
+                    lambda: F.conv2d(zc, wk, bias, padding=1, groups=d.f),
+                    nbytes=float(nbytes), fp32=18.0 * outs)
+
+    with torch.inference_mode():
+        ((first, rows),), (gz,), (dg,) = pg.ln, pg.gemms, pg.dws
+        z = gemm(ln(xh, first, rows, "K2 LayerNorm"), wqk, bqk, gz, "K2 [q|k]")
+        q, k, part = dw(z, dwqk, bdwqk, dg, "K2")
+        del z
+        g_, kk, m, n = pg.gram
+        pair = [(q.view(g_, kk, m), k.view(g_, kk, n))]
+        gram = wgk.weight_grad(pair)[0]
+        ref = wgk.weight_grad_plain(pair)[0]
+        e_g = ((gram - ref).abs().max() / ref.abs().max()).item()
+        t_g = cuda_time_ms(lambda: wgk.weight_grad(pair), 10)
+        t_gt = cuda_time_ms(lambda: wgk.weight_grad_plain(pair), 3)
+        t_gl = cuda_time_ms(lambda: torch.bmm(pair[0][0].transpose(1, 2), pair[0][1]), 10)
+        bg, yg = bound(**weight_grad_counts([pg.gram]))
+        log(f"time wide {shape} K2 gram through the weight-grad pass {pg.gram}: {t_g:.4f} ms "
+            f"(twin {t_gt:.4f}, bf16 torch.bmm {t_gl:.4f}, bound {bg:.4f} by {yg}), max err "
+            f"relative to the twin's max {e_g:.3e} ({card})")
+        check(e_g <= 1e-3, "phase 18: the wide gram through the weight-grad pass disagrees")
+        step("wide_gram_finish", "K2 finish", lambda: wb.gram_finish(gram, part),
+             lambda: wb.gram_finish_plain(gram, part), None,
+             nbytes=4.0 * (2 * b * c * c + b * dg.nx * 2 * c + 2 * b * c))
+        del q, k, part, gram, ref
+        (f1, r1), (f2, r2) = pa.ln
+        gv, gy, gt, go = pa.gemms
+        dv, df = pa.dws
+        zv = gemm(ln(xh, f1, r1, "K3 LayerNorm 1"), wv, bv, gv, "K3 v")
+        v = dw(zv, dwv, bdwv, dv, "K3 v")
+        del zv
+        y = gemm(v, apply, bproj, gy, "K3 y = x + v @ apply", res=xh)
+        del v
+        t = gemm(ln(y, f2, r2, "K3 LayerNorm 2"), wp1, bp1, gt, "K3 FFN expand")
+        f = dw(t, dwf, bdwf, df, "K3 FFN")
+        del t
+        gemm(f, wp2, bp2, go, "K3 out = y + f @ wp2", res=y)
+    log(f"wide chain scratch at {shape}: K2 {pg.scratch_bytes() / 1e9:.3f} GB, K3 "
+        f"{pa.scratch_bytes() / 1e9:.3f} GB")
+    return {r: dict(err=a["err"], ms=a["ms"], plain_ms=a["plain_ms"],
+                    bound=bound(nbytes=a["nbytes"], tc=a["tc"], fp32=a["fp32"]),
+                    library_ms=a["library_ms"]) for r, a in acc.items()}
+
+
 def host_ms(fn, n: int = 5) -> float:
     """Host clock of one synchronised call of fn, mean over n after one."""
     fn()
@@ -3057,6 +3187,7 @@ def banded_phase(dev, card, counters) -> dict:
     from bayer_low_light_image_enhancement_tpu_torch.cli import test_cli
     from bayer_low_light_image_enhancement_tpu_torch.data.synthetic import write_sid_tree
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
     from bayer_low_light_image_enhancement_tpu_torch.models import common, get_model
     from bayer_low_light_image_enhancement_tpu_torch.models.fused_apply import (
         make_banded_forward,
@@ -3071,7 +3202,8 @@ def banded_phase(dev, card, counters) -> dict:
     gen = torch.Generator().manual_seed(BAND_SEED)
     names = ("fused_block_gram_banded", "fused_block_apply_banded")
     wide_names = ("fused_block_gram_banded_wide", "fused_block_apply_banded_wide")
-    out = {"errs": dict.fromkeys(names + wide_names, 0.0), "times": {}, "bounds": {}}
+    out = {"errs": dict.fromkeys(names + wide_names, 0.0), "times": {}, "bounds": {},
+           "library": {}}
 
     # (a) The kernels against their band twins, one frame of 8 bands a level.
     with torch.inference_mode():
@@ -3106,6 +3238,13 @@ def banded_phase(dev, card, counters) -> dict:
             del got, ref, d
             if c in fb.WIDE_WIDTHS:
                 plain_wide_kernels(x, wts, shape)
+                chain = wide_chain_kernels(xh, bapply, wts, shape, card)
+                if shape == WIDE_BAND_SHAPE:
+                    for r, v in chain.items():
+                        out["errs"][r] = v["err"]
+                        out["times"][r] = (v["ms"], v["plain_ms"])
+                        out["bounds"][r] = v["bound"]
+                        out["library"][r] = v["library_ms"]
             frame = x.reshape(1, b * hb, w, c)
             n = 10
             ka = cuda_time_ms(lambda: fb.gram_pass_banded(xh, wts, b, fh), n)
@@ -3144,17 +3283,23 @@ def banded_phase(dev, card, counters) -> dict:
           f"phase 18: the frame pads to {tuple(xp.shape[2:])} in {k} bands, not 2944x4352 in 8")
     log(f"phase 18 frame: {BAND_FRAME} zero-padded to {tuple(xp.shape[2:])}, {k} bands of "
         f"{xp.shape[2] // k} mosaic rows")
-    band_counters = counters + (fb.gram_pass_banded_wide, fb.apply_pass_banded_wide)
+    band_counters = counters + (fb.gram_pass_banded_wide, fb.apply_pass_banded_wide,
+                                *wb.WRAPPERS)
+    # What one wide K2 + K3 launches (kernels/wide_block.py): the chain's
+    # kernels and the weight-grad pass for the gram.
+    chain = {"layernorm_rows": 3, "gemm": 5, "dw3x3": 3, "gram_finish": 1, "weight_grad": 1}
 
     def hold_launches(got, n, what, wide=0):
         band = ("gram_pass_banded", "apply_pass_banded")
-        others = {kk: v for kk, v in got.items() if kk not in band and not kk.endswith("_wide")}
+        others = {kk: v for kk, v in got.items()
+                  if kk not in band and kk not in chain and not kk.endswith("_wide")}
         check(got["gram_pass_banded"] == got["apply_pass_banded"] == n and sum(others.values())
               == 0, f"phase 18: {what} did not launch K2 / K3 in band mode {n} times and no other "
               f"kernel: {got}")
-        check(got["gram_pass_banded_wide"] == got["apply_pass_banded_wide"] == wide,
-              f"phase 18: {what} did not launch K2 / K3 in band mode at C >= 384 {wide} times: "
-              f"{got}")
+        check(got["gram_pass_banded_wide"] == got["apply_pass_banded_wide"] == wide
+              and all(got[kk] == v * wide for kk, v in chain.items()),
+              f"phase 18: {what} did not launch K2 / K3 in band mode at C >= 384 {wide} times "
+              f"through the wide chain ({chain} each): {got}")
 
     def serving_bar(a, b_, what):
         d = (a.float() - b_.float()).abs()
@@ -3215,7 +3360,8 @@ def banded_phase(dev, card, counters) -> dict:
 
     # (d) RawFormer-B and -L: every block on the kernels in band mode, the
     # bottleneck at the wide widths.
-    out["wide_launches"] = dict.fromkeys(("gram_pass_banded_wide", "apply_pass_banded_wide"), 0)
+    out["wide_launches"] = dict.fromkeys(("gram_pass_banded_wide", "apply_pass_banded_wide",
+                                          *chain), 0)
     for size in ("B", "L"):
         mdl = get_model(f"rawformer_{size.lower()}", device=dev, dtype=torch.bfloat16,
                         generator=torch.Generator().manual_seed(0)).eval()
@@ -3239,9 +3385,14 @@ def banded_phase(dev, card, counters) -> dict:
             del y_b, y_m
             tb, tm = (cuda_time_ms(fn, 3, warmup=1) for fn in (lambda: fwd(xp),
                                                                  lambda: mdl(xp)))
+        hw = (xp.shape[2] // 16 // k, xp.shape[3] // 16)  # the bottleneck's band rows, width
+        wc = mdl.config.dim * 8
+        scratch = [wb.wide_plan(kind, k, hw[0], hw[1], wc, k, k * hw[0]).scratch_bytes()
+                   for kind in ("gram", "apply")]
         log(f"time RawFormer-{size} frame {tuple(xp.shape[2:])}: banded {tb:.3f} ms, monolithic "
             f"{tm:.3f} ms by CUDA events; peak {peak_b:.2f} / {peak_m:.2f} GiB above {held:.2f} "
-            f"GiB held ({card})")
+            f"GiB held; the wide chain's scratch at its [{k}, {hw[0]}, {hw[1]}, {wc}] bottleneck: "
+            f"K2 {scratch[0] / 1e9:.3f} GB, K3 {scratch[1] / 1e9:.3f} GB ({card})")
         del mdl, fwd
         torch.cuda.empty_cache()
         # Its fp32 twin path, banded (every block on the band twins) against
@@ -4216,7 +4367,8 @@ def main() -> int:
     # 18. band mode: the single-card full-frame forward --------------------------------
     torch.cuda.empty_cache()
     band = banded_phase(dev, card, counters)
-    for table, part in ((errs, "errs"), (times, "times"), (bounds, "bounds")):
+    for table, part in ((errs, "errs"), (times, "times"), (bounds, "bounds"),
+                        (library, "library")):
         table.update(band[part])
 
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
@@ -4268,10 +4420,22 @@ def main() -> int:
          TPU + "fused_block.py:406", band["launches"]["gram_pass_banded"]),
         ("fused_block_apply_banded", PKG + "csrc/fused_block_banded.cu (+ block_tiles.cuh)",
          TPU + "fused_block.py:683", band["launches"]["apply_pass_banded"]),
-        ("fused_block_gram_banded_wide", PKG + "csrc/fused_block_wide.cu (+ block_tiles.cuh)",
-         TPU + "fused_block.py:406", band["wide_launches"]["gram_pass_banded_wide"]),
-        ("fused_block_apply_banded_wide", PKG + "csrc/fused_block_wide.cu (+ block_tiles.cuh)",
-         TPU + "fused_block.py:683", band["wide_launches"]["apply_pass_banded_wide"]),
+        ("fused_block_gram_banded_wide", PKG + "kernels/wide_block.py (gram_pass_wide: "
+         "csrc/wide_block.cu, csrc/weight_grad.cu)", TPU + "fused_block.py:406",
+         band["wide_launches"]["gram_pass_banded_wide"]),
+        ("fused_block_apply_banded_wide", PKG + "kernels/wide_block.py (apply_pass_wide: "
+         "csrc/wide_block.cu)", TPU + "fused_block.py:683, " + TPU + "fused_block.py:609",
+         band["wide_launches"]["apply_pass_banded_wide"]),
+        ("wide_layernorm", PKG + "csrc/wide_block.cu (wide_ln_kernel)",
+         TPU + "fused_block.py:406, " + TPU + "fused_block.py:683",
+         band["wide_launches"]["layernorm_rows"]),
+        ("wide_gemm", PKG + "csrc/wide_block.cu (wide_gemm_kernel)",
+         TPU + "fused_block.py:406, " + TPU + "fused_block.py:683", band["wide_launches"]["gemm"]),
+        ("wide_dw3x3", PKG + "csrc/wide_block.cu (wide_dw_kernel)",
+         TPU + "fused_block.py:406, " + TPU + "fused_block.py:683",
+         band["wide_launches"]["dw3x3"]),
+        ("wide_gram_finish", PKG + "csrc/wide_block.cu (wide_gram_finish_kernel)",
+         TPU + "fused_block.py:406", band["wide_launches"]["gram_finish"]),
     ]
     log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_*, "
         "fused_attention, fused_stage_tail and the probes at [8,256,256,32] bf16 (probe_floor: "
@@ -4296,10 +4460,15 @@ def main() -> int:
         "[8,184,2176,32] bf16 (the halo'd input [8,188,2176,32]), launches from the banded "
         "RawFormer-S 2944x4352 frame (phase 18), max_abs_err K2's frame cosines / K3's output "
         "over the four band shapes of C <= 256; fused_block_gram_banded_wide / "
-        "fused_block_apply_banded_wide: the same kernels at C = 384 / 512 timed at "
+        "fused_block_apply_banded_wide: K2 / K3 at C = 384 / 512 (the wide chain) timed at "
         "[8,23,272,512] bf16 (RawFormer-L's bottleneck bands), launches from the banded "
         "RawFormer-B and -L frames (one each a frame), max_abs_err over [8,23,272,384] and "
-        "[8,23,272,512]")
+        "[8,23,272,512]; wide_layernorm / wide_gemm / wide_dw3x3 / wide_gram_finish: the wide "
+        "chain's kernels at [8,23,272,512], each row the sum over its launches in one banded "
+        "block (3 / 5 / 3 / 1) with its bound from the summed bytes and operations, launches "
+        "from the banded RawFormer-B and -L frames, max_abs_err the largest of its launches "
+        "against its twin, library_ms the sum of F.layer_norm / bf16 torch.matmul and "
+        "torch.bmm / depthwise F.conv2d on the same inputs (wide_gram_finish: null)")
     log(card)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": l,

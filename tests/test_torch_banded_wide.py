@@ -4,7 +4,8 @@ them, against the JAX package (CPU): the port's band twin against JAX
 ``fused_transformer_block(bands=)`` (Pallas in interpret mode) and against
 the port's monolithic twin, banded RawFormer-B / -L widths (dim 48 and 64)
 against the JAX monolithic forward, the blocks band mode routes to the
-kernels, and the wide plans of ``tile_config`` / ``block_plan``. The kernels
+kernels, the plans of the wide chain (``kernels/wide_block.wide_plan``) and
+the chain through its kernels' twins against the block twins. The kernels
 at these widths against their twins are in tests/test_torch_cuda.py.
 """
 
@@ -26,6 +27,8 @@ from bayer_low_light_image_enhancement_tpu_torch.compat.jax_params import (
 )
 from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
 from bayer_low_light_image_enhancement_tpu_torch.kernels import ops
+from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
+from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
 from bayer_low_light_image_enhancement_tpu_torch.models import RawFormer, RawFormerConfig, common
 from bayer_low_light_image_enhancement_tpu_torch.models.fused_apply import (
     band_halo,
@@ -234,34 +237,44 @@ def test_band_mode_fuses_every_block(wide_rawformer, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The wide plans (csrc/block_tiles.cuh GramCfg / Apply1Cfg / Apply2Cfg)
+# The wide chain's plans (kernels/wide_block.wide_plan, csrc/wide_block.cu)
 # ---------------------------------------------------------------------------
 
 SHAPES = [(1, 3, 5), (2, 19, 13), (8, 23, 272), (8, 27, 272), (1, 184, 272), (3, 11, 29)]
 
 
 @pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
-@pytest.mark.parametrize("kind", ["gram", "apply1", "apply2"])
-def test_wide_tile_configs_fit_an_h100_block(kind, c):
-    """Within 232,448 bytes of shared memory (the plans of the other widths'
-    staging would ask 314-504 KB here), one 512-thread CTA an SM, tiles of
-    whole m16 rows, the gram in 2 x 2 blocks of 192 channels at 384 and
-    4 x 4 of 128 at 512."""
-    cfg = fb.tile_config(kind, c)
-    assert cfg.smem <= fb.SMEM_PER_BLOCK < 2 * (cfg.smem + 1024)
-    assert cfg.threads == 512
-    assert (cfg.th * cfg.tw) % 16 == 0
-    assert cfg.splits == ({384: 2, 512: 4}[c] if kind == "gram" else 1)
-    want = {("gram", 384): 4, ("gram", 512): 6, ("apply1", 384): 6, ("apply1", 512): 4,
-            ("apply2", 384): 8, ("apply2", 512): 6}[kind, c]
-    assert (cfg.th, cfg.tw) == (want, 8)
+@pytest.mark.parametrize("kind", ["layernorm", "gemm", "dw3x3"])
+def test_wide_kernel_configs_fit_an_h100_block(kind, c):
+    """Within 232,448 bytes of shared memory, one 288-thread GEMM CTA an SM
+    (a ring of 4 stages of a 128 x 64 A box and tn / 64 B boxes of 64 x 64,
+    1024-byte aligned), tile widths that divide every product's N at c; the
+    LayerNorm's lanes and the dw pass's 128-channel groups cover C whole
+    (q and k split on a group boundary)."""
+    if kind == "gemm":
+        for n in (c, 2 * c):
+            tn = wb.tile_n(n)
+            assert n % tn == 0 and tn in wb.GEMM_TILE_NS
+            stage = wb.GEMM_TILE_M * wb.GEMM_K_STEP * 2 + tn // 64 * 64 * wb.GEMM_K_STEP * 2
+            smem = wb.gemm_smem(tn)
+            assert smem == 1024 + wb.GEMM_STAGES * stage + 2 * wb.GEMM_STAGES * 8
+            assert smem <= fb.SMEM_PER_BLOCK < 2 * (smem + 1024)
+            assert stage % 1024 == 0 and wb.GEMM_THREADS == 2 * 128 + 32
+        assert c % wb.GEMM_K_STEP == 0 and (2 * c) % wb.GEMM_K_STEP == 0
+    elif kind == "layernorm":
+        assert c % (32 * 4) == 0 and c // 128 <= 4  # 4-channel units a lane, <= 16 values
+    else:
+        for f in (c, 2 * c):
+            assert f % wb.DW_CHANNELS == 0
+        assert c % wb.DW_CHANNELS == 0  # q / k never share a channel group
 
 
 @pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
 def test_wide_widths_are_k2_k3_only(c):
     """A1, K3P and the other kernels keep KERNEL_WIDTHS: their plans and
-    input checks refuse the wide widths, which K2 / K3's accept."""
-    for kind in ("attn_gram", "attn_apply"):
+    input checks refuse the wide widths, which K2 / K3's accept; the tile
+    kernels' plans refuse them too (K2 / K3 run the wide chain there)."""
+    for kind in fb.BLOCK_KINDS:
         with pytest.raises(ValueError, match="no kernel"):
             fb.tile_config(kind, c)
     with pytest.raises(ValueError, match="no K3P"):
@@ -273,31 +286,182 @@ def test_wide_widths_are_k2_k3_only(c):
     assert c not in fb.KERNEL_WIDTHS and c in fb.BLOCK_WIDTHS
 
 
+def _band_rows(b, bands, hb, first, rows):
+    """[b, rows]: frame row of buffer row r of band image j, counted from
+    the band's first own row (j % bands) * hb, its buffer starting at band
+    row ``first``."""
+    return np.array([[(j % bands) * hb + first + r for r in range(rows)] for j in range(b)])
+
+
+def _check_product(g, b, rows, w, k, n):
+    """A product over b images of rows x w pixels covers every pixel once
+    in 128-row tiles and every column in tiles of tn."""
+    assert g.g * g.m == b * rows * w and (g.rows, g.w, g.k, g.n) == (rows, w, k, n)
+    mt = cdiv(g.m, wb.GEMM_TILE_M)
+    assert mt * wb.GEMM_TILE_M >= g.m > (mt - 1) * wb.GEMM_TILE_M
+    assert g.tiles == g.g * mt * (n // g.tn) and n % g.tn == 0
+    assert g.flops == 2 * b * rows * w * k * n
+
+
+def _check_dw(d, b, rz, ro, w, f, dz):
+    """A dw pass reads z rows r + dz - 1 .. r + dz + 1 for its ro rows, at
+    most one row past z's on either side (the zero pad of a whole image),
+    and its CTAs cover its output with less than one CTA to spare."""
+    assert (d.b, d.rz, d.ro, d.w, d.f, d.dz) == (b, rz, ro, w, f, dz)
+    assert -1 <= d.dz - 1 and d.ro + d.dz <= d.rz
+    nr, ncg = cdiv(ro, wb.DW_ROWS), cdiv(w, wb.DW_COLS)
+    assert d.nx == nr * ncg
+    assert nr * wb.DW_ROWS >= ro > (nr - 1) * wb.DW_ROWS
+    assert ncg * wb.DW_COLS >= w > (ncg - 1) * wb.DW_COLS
+
+
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("kind", ["gram", "apply1", "apply2"])
+@pytest.mark.parametrize("kind", ["gram", "apply", "gram_band", "apply_band"])
 @pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
 def test_wide_plans_cover_the_image_once(c, kind, shape):
-    """The tiles cover H and W with less than one tile to spare; the CTAs'
-    runs partition the tiles they walk in order, none idle; K2's workspace
-    holds one [cb, cb] block and its 2 cb sums per CTA of each (image,
-    block)."""
+    """Each pass of the chain reads the rows the next needs and covers every
+    pixel once: LayerNorm rows inside x, each product's A the previous
+    pass's output, its tiles covering M and N, the dw passes' rows and
+    CTAs, the frame masks of band mode (z zero outside the frame, y on band
+    rows -1 .. hb), the shapes handed to the weight-grad pass and the
+    scratch the wrapper allocates."""
     b, h, w = shape
-    for resident in (1, 3, H100_SMS):
-        plan = fb.block_plan(kind, b, h, w, c, resident)
-        cfg = plan.config
-        th, tw = cdiv(h, cfg.th), cdiv(w, cfg.tw)
-        assert plan.tiles == th * tw
-        assert th * cfg.th >= h > (th - 1) * cfg.th and tw * cfg.tw >= w > (tw - 1) * cfg.tw
-        walked = plan.tiles if kind == "gram" else b * plan.tiles
-        assert 1 <= plan.ctas <= walked
-        runs = [(walked * i // plan.ctas, walked * (i + 1) // plan.ctas)
-                for i in range(plan.ctas)]
-        assert all(r0 < r1 for r0, r1 in runs) and runs[-1][1] == walked
-        if kind == "gram":
-            cb = c // cfg.splits
-            assert plan.blocks == cfg.splits ** 2 and plan.launches == 2
-            assert plan.ctas == max(1, min(plan.tiles, resident // (b * plan.blocks)))
-            assert fb.gram_workspace_floats(b, h, w, c, plan) == \
-                b * plan.blocks * plan.ctas * (cb * cb + 2 * cb)
+    band = kind.endswith("band")
+    bands = b if band else 0
+    fh = max(1, b * h - 2) if band else 0
+    p = wb.wide_plan(kind.split("_")[0], b, h, w, c, bands, fh)
+    hin, dz = (h + 4, 1) if band else (h, 0)
+    assert (p.b, p.hin, p.h, p.w, p.c) == (b, hin, h, w, c)
+    for first, rows in p.ln:
+        assert 0 <= first < first + rows <= max(hin, h + 2 if band else h)
+    sizes = {name: (shape_, dt) for name, shape_, dt in p.scratch}
+    if p.kind == "gram":
+        ((first, rows),), (gz,), (d,) = p.ln, p.gemms, p.dws
+        assert (first, rows) == ((1, h + 2) if band else (0, h))
+        _check_product(gz, b, rows, w, c, 2 * c)
+        assert not gz.batched and gz.res_rows == 0
+        _check_dw(d, b, rows, h, w, 2 * c, dz)
+        assert d.epi == "qk"
+        assert p.gram == (b, h * w, c, c)
+        assert sizes["q"][0] == sizes["k"][0] == (b, h, w, c)
+        assert sizes["partials"][0] == (b, d.nx, 2 * c) and sizes["gram"][0] == (b, c, c)
+        zf, cf = gz.frame, d.frame
+        if band:
+            np.testing.assert_array_equal(zf.rows_of(b, rows).numpy(),
+                                          _band_rows(b, bands, h, -1, rows))
+            np.testing.assert_array_equal(cf.rows_of(b, h).numpy(), _band_rows(b, bands, h, 0, h))
+            assert zf.frame_h == cf.frame_h == fh
         else:
-            assert plan.ctas == min(walked, resident) and plan.launches == 1
+            assert bool(zf.mask(b, rows).all()) and bool(cf.mask(b, h).all())
+    else:
+        ((f1, r1), (f2, r2)), (gv, gy, gt, go), (dv, df) = p.ln, p.gemms, p.dws
+        ry = h + 2 if band else h
+        assert (f1, r1, f2, r2) == (0, hin, 0, ry)
+        _check_product(gv, b, hin, w, c, c)
+        _check_dw(dv, b, hin, ry, w, c, dz)
+        _check_product(gy, b, ry, w, c, c)
+        assert gy.batched and gy.g == b and (gy.res_rows, gy.res_dr) == (hin, dz)
+        _check_product(gt, b, ry, w, c, 2 * c)
+        _check_dw(df, b, ry, h, w, 2 * c, dz)
+        _check_product(go, b, h, w, 2 * c, c)
+        assert not go.batched and (go.res_rows, go.res_dr) == (ry, dz)
+        assert (dv.epi, df.epi) == ("v", "gelu") and p.gram is None
+        assert sizes["f"][0] == (b, h, w, 2 * c) and sizes["y"][0] == (b, ry, w, c)
+        if band:
+            np.testing.assert_array_equal(gv.frame.rows_of(b, hin).numpy(),
+                                          _band_rows(b, bands, h, -2, hin))
+            np.testing.assert_array_equal(gt.frame.rows_of(b, ry).numpy(),
+                                          _band_rows(b, bands, h, -1, ry))
+    f32 = {"z", "zv", "t", "partials", "gram"}
+    assert all((dt == torch.float32) == (name in f32) for name, (_, dt) in sizes.items())
+    assert p.scratch_bytes() == sum(int(np.prod(s)) * (4 if dt == torch.float32 else 2)
+                                    for s, dt in sizes.values())
+
+
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_frame_masks_are_the_twins(c):
+    """The plan's frame masks are the band twins' (``fused_block._frame_mask``)
+    and the scratch of the Sony frame's banded bottleneck is what the chain
+    moves: ~0.4 GB for K2 and ~0.67 GB for K3 at 512."""
+    b, h, w, bands, fh = 8, 5, 7, 4, 17
+    for kind in ("gram", "apply"):
+        p = wb.wide_plan(kind, b, h, w, c, bands, fh)
+        for g in p.gemms:
+            if g.frame is not None:
+                torch.testing.assert_close(
+                    g.frame.mask(b, g.rows),
+                    fb._frame_mask(b, g.rows, g.frame.first, h, bands, fh, None))
+    k2 = wb.wide_plan("gram", 8, 23, 272, c, 8, 184).scratch_bytes()
+    k3 = wb.wide_plan("apply", 8, 23, 272, c, 8, 184).scratch_bytes()
+    px = 8 * 272
+    assert k2 == px * (25 * c * (2 + 8) + 23 * c * 4) + 8 * 102 * 2 * c * 4 + 8 * c * c * 4
+    assert k3 == px * (27 * c * 6 + 25 * c * (2 * 3 + 8) + 23 * 2 * c * 2)
+    if c == 512:
+        assert 0.38e9 < k2 < 0.4e9 and 0.66e9 < k3 < 0.68e9
+
+
+def test_wide_plans_refuse_bad_calls():
+    with pytest.raises(ValueError, match="kind"):
+        wb.wide_plan("apply2", 1, 4, 4, 384)
+    with pytest.raises(ValueError, match="no wide kernel"):
+        wb.wide_plan("gram", 1, 4, 4, 256)
+    with pytest.raises(ValueError, match="band mode"):
+        wb.wide_plan("gram", 3, 4, 4, 384, bands=2, frame_h=4)
+    with pytest.raises(ValueError, match="band mode"):
+        wb.wide_plan("apply", 2, 4, 4, 512, bands=2, frame_h=9)
+    with pytest.raises(ValueError, match="no GEMM tile"):
+        wb.tile_n(320)
+
+
+# ---------------------------------------------------------------------------
+# The chain through its kernels' twins against the block twins (CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("band", [False, True], ids=["plain", "band"])
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_chain_matches_the_block_twins(c, band):
+    """``gram_pass_wide`` / ``apply_pass_wide`` on CPU tensors (each kernel's
+    twin, rounded where the kernel rounds) against the fp32 block twins on
+    the same bf16 inputs, at phase 3's bars: the gram's cosines and the sums
+    of squares within 2e-2, the block output within the bf16 bar."""
+    w = port_weights(c, seed=c + band)
+    g = torch.Generator().manual_seed(c + 3)
+    bands, fh = (3, 8) if band else (0, 0)
+    x = torch.randn(3, 3, 7, c, generator=g).bfloat16()
+    xk = band_halo(x, 2, bands) if band else x
+    gw = [fb.bf16(w.wqk), w.bqk, w.dwqk, w.bdwqk]
+    out = wb.gram_pass_wide(xk, *gw, bands=bands, frame_h=fh)
+    gram = out[:, : c * c].reshape(3, c, c)
+    qs, ks = out[:, c * c: c * c + c], out[:, c * c + c:]
+    want = (fb.gram_pass_banded_plain(xk.float(), w, bands, fh) if band
+            else fb.gram_pass_plain(xk.float(), w))
+    if band:
+        gram, qs, ks = (t.sum(0, keepdim=True) for t in (gram, qs, ks))
+        want = [t.sum(0, keepdim=True) for t in want]
+    g0, q0, k0 = want
+    cos = gram / torch.sqrt(qs[:, :, None] * ks[:, None, :])
+    cos0 = g0 / torch.sqrt(q0[:, :, None] * k0[:, None, :])
+    torch.testing.assert_close(cos, cos0, rtol=0, atol=2e-2)
+    torch.testing.assert_close(qs, q0, rtol=2e-2, atol=0)
+    torch.testing.assert_close(ks, k0, rtol=2e-2, atol=0)
+    apply = fb.finalize_attention(g0, q0, k0, w.temperature, w.wproj, 8)
+    if band:
+        apply = apply.repeat_interleave(3, 0)
+    aw = [fb.bf16(apply), fb.bf16(w.wv), w.bv, w.dwv, w.bdwv, w.bproj, fb.bf16(w.wp1), w.bp1,
+          w.dwf, w.bdwf, fb.bf16(w.wp2), w.bp2]
+    y = wb.apply_pass_wide(xk, *aw, bands=bands, frame_h=fh)
+    y0 = (fb.apply_pass_banded_plain(xk.float(), apply, w, bands, fh) if band
+          else fb.apply_pass_plain(xk.float(), apply, w))
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), y0, **BF16_TOL)
+
+
+def test_wide_chain_counts_no_launch_on_the_cpu():
+    """On CPU tensors every wrapper of the chain runs its twin and counts
+    nothing; the gram's weight-grad pass likewise."""
+    w = port_weights(384, seed=5)
+    before = [f.launches for f in wb.WRAPPERS] + [wgk.weight_grad.launches]
+    wb.gram_pass_wide(torch.randn(1, 3, 4, 384).bfloat16(), fb.bf16(w.wqk), w.bqk, w.dwqk,
+                      w.bdwqk)
+    assert [f.launches for f in wb.WRAPPERS] + [wgk.weight_grad.launches] == before

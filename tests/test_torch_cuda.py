@@ -1722,7 +1722,9 @@ def test_banded_rawformer_on_the_card(cuda, size):
 
 
 # ---------------------------------------------------------------------------
-# K2 / K3 at the wide widths, C = 384 and 512 (csrc/fused_block_wide.cu)
+# K2 / K3 at the wide widths, C = 384 and 512 (kernels/wide_block.py,
+# csrc/wide_block.cu: LayerNorm, wgmma GEMMs, dw passes, the gram through
+# the weight-grad pass)
 # ---------------------------------------------------------------------------
 
 # Ragged tiles (a sub-tile image, several tiles ragged both ways) and the
@@ -1752,15 +1754,25 @@ def test_wide_band_pass_kernels_match_twins(cuda, c, case):
     check_band_pass_kernels(x, w, bands, frame_h, frames)
 
 
+def force_gemm_ctas(monkeypatch, regime):
+    """Make every wide GEMM run on one CTA ("one"), three ("three") or one
+    CTA per tile ("per_tile") whatever the card's residency."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
+
+    monkeypatch.setattr(wb, "gemm_ctas", lambda g, d: {"one": 1, "three": min(3, g.tiles),
+                                                        "per_tile": g.tiles}[regime])
+
+
 @pytest.mark.parametrize("regime", ["one", "three", "per_tile"])
 @pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
 def test_wide_kernels_under_forced_plans(cuda, monkeypatch, c, regime):
-    """One CTA walking every tile (across images in K3, across its single
-    window buffer's reloads at C = 512), three, one a tile: plain and band
-    mode give the same function."""
+    """The GEMMs' persistent CTAs: one walking every tile (its ring's
+    barriers through many phases, the producer running ahead across
+    tiles), three, one a tile: plain and band mode give the same
+    function."""
     from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
 
-    force_block_plan(monkeypatch, regime)
+    force_gemm_ctas(monkeypatch, regime)
     w = pf.block_weights(c, c + 13, cuda)
     g = torch.Generator().manual_seed(c + 13)
     check_block_pass_kernels(torch.randn(2, 21, 18, c, generator=g).to(cuda, torch.bfloat16), w)
@@ -1823,27 +1835,166 @@ def test_wide_band_block_matches_the_monolithic_kernel_path(cuda, c):
 
 
 def test_wide_plans_match_the_library(cuda):
-    """The Python mirror of the wide plans equals the library's, each kernel
-    is resident (227 KB and 512 threads fit an SM), the gram workspace of
-    the wrapper's plan equals the library's, and the library refuses A1's
-    gram kind at these widths."""
+    """The wide GEMM's Python plan (shared memory, threads, ring stages) is
+    the library's at both tile widths and one CTA of it is resident; the
+    tile kernels' plans and workspaces are refused at the wide widths (K2 /
+    K3 run the wide chain there), as is A1's gram."""
     import ctypes
 
     from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
 
     lib = _build.library()
+    for tn in wb.GEMM_TILE_NS:
+        smem, threads, stages, per_sm = wb.gemm_info(tn)
+        assert (smem, threads, stages) == (wb.gemm_smem(tn), wb.GEMM_THREADS, wb.GEMM_STAGES)
+        assert per_sm == 1
+    info = (ctypes.c_longlong * 5)()
     for c in fb.WIDE_WIDTHS:
-        for kind in ("gram", "apply1", "apply2"):
-            cfg = fb.tile_config(kind, c)
-            th, tw, threads, smem, per_sm = fb.kernel_info(kind, c)
-            assert (th, tw, threads, smem) == (cfg.th, cfg.tw, cfg.threads, cfg.smem), (kind, c)
-            assert per_sm == 1, (kind, c)
-        for b, h, w in [(8, 23, 272), (1, 184, 272), (2, 19, 13), (8, 27, 272)]:
-            plan = fb.plan_for("gram", b, h, w, c, 0)
-            assert fb.gram_workspace_floats(b, h, w, c, plan) == \
-                lib.blle_gram_workspace_floats(b, h, w, c)
-        info = (ctypes.c_longlong * 5)()
-        assert lib.blle_block_kernel_info(3, c, info) != 0
+        for kind in range(4):
+            assert lib.blle_block_kernel_info(kind, c, info) != 0
+        assert lib.blle_gram_workspace_floats(8, 23, 272, c) == -1
+
+
+def wide_weights(c, seed, cuda):
+    """A wide block's folded weights as the chain takes them."""
+    from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
+
+    w = pf.block_weights(c, seed, cuda)
+    return w, [fb.bf16(w.wqk), fb.f32(w.bqk), fb.f32(w.dwqk), fb.f32(w.bdwqk)]
+
+
+# Plain and band-mode calls of the chain: (b, h, w, bands, frame_h); the
+# Sony frame's banded bottleneck last.
+WIDE_CHAIN_CASES = [(1, 3, 5, 0, 0), (3, 11, 29, 0, 0), (4, 1, 9, 4, 3), (8, 23, 272, 8, 184)]
+
+
+@pytest.mark.parametrize("case", WIDE_CHAIN_CASES)
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_layernorm_kernel_matches_twin(cuda, c, case):
+    """The LayerNorm pass on every row range the chain asks for, against
+    its twin (bf16 out: within one bf16 step of the output's magnitude)."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
+
+    b, h, w, bands, fh = case
+    x = torch.randn(b, h + 4, w, c, generator=torch.Generator().manual_seed(c + h)).to(
+        cuda, torch.bfloat16)
+    before = wb.layernorm_rows.launches
+    for first, rows in [(0, h + 4), (1, h + 2), (2, h)]:
+        got = wb.layernorm_rows(x, first, rows)
+        want = wb.layernorm_rows_plain(x, first, rows)
+        assert got.shape == (b, rows, w, c) and got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    assert wb.layernorm_rows.launches == before + 3
+
+
+@pytest.mark.parametrize("case", WIDE_CHAIN_CASES)
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_gemm_kernel_matches_twin(cuda, c, case):
+    """Every product of a K2 and a K3 call (z with the frame mask, the
+    batched v @ apply[b], the residual epilogues; M off the 128-row tile)
+    against torch in fp32 on the same bf16 operands: z within fp32
+    accumulation error, the bf16 outputs within one bf16 step."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
+
+    b, h, w, bands, fh = case
+    g = torch.Generator().manual_seed(c + w)
+    for kind in ("gram", "apply"):
+        for gm in wb.wide_plan(kind, b, h, w, c, bands, fh).gemms:
+            a = torch.randn(gm.g * gm.m * gm.k, generator=g).to(cuda, torch.bfloat16)
+            bshape = ((gm.g,) if gm.batched else ()) + (gm.k, gm.n)
+            bm = (torch.randn(bshape, generator=g) / 16).to(cuda, torch.bfloat16)
+            bias = torch.randn(gm.n, generator=g).to(cuda)
+            imgs = gm.g * gm.m // (gm.rows * gm.w)
+            res = (torch.randn(imgs, gm.res_rows, gm.w, gm.n, generator=g).to(cuda, torch.bfloat16)
+                   if gm.res_rows else None)
+            before = wb.gemm.launches
+            got = wb.gemm(a, bm, bias, gm, res)
+            assert wb.gemm.launches == before + 1
+            want = wb.gemm_plain(a, bm, bias, gm, res)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            if res is None:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            else:
+                torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("epi", ["qk", "v", "gelu"])
+@pytest.mark.parametrize("case", WIDE_CHAIN_CASES)
+@pytest.mark.parametrize("c", [384, 512])
+def test_wide_dw_kernel_matches_twin(cuda, c, case, epi):
+    """The dw passes of the chain (q / k with the counted-row mask and the
+    partial sums of squares, v, GELU) against their twins."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
+
+    b, h, w, bands, fh = case
+    g = torch.Generator().manual_seed(c + h + len(epi))
+    kind = "gram" if epi == "qk" else "apply"
+    for d in wb.wide_plan(kind, b, h, w, c, bands, fh).dws:
+        if d.epi != epi:
+            continue
+        z = torch.randn(d.b, d.rz, d.w, d.f, generator=g).to(cuda)
+        taps = (torch.randn(9, d.f, generator=g) / 3).to(cuda)
+        bias = torch.randn(d.f, generator=g).to(cuda)
+        before = wb.dw3x3.launches
+        got, want = wb.dw3x3(z, taps, bias, d), wb.dw3x3_plain(z, taps, bias, d)
+        assert wb.dw3x3.launches == before + 1
+        if epi != "qk":
+            got, want = (got,), (want,)
+        for a, r in zip(got, want):
+            assert a.shape == r.shape and a.dtype == r.dtype
+            torch.testing.assert_close(a.float(), r.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_gram_through_the_weight_grad_pass(cuda, c):
+    """The gram as K2 takes it: q and k [B, pixels, C] through
+    ``weight_grad`` against q^T k in fp32, then ``gram_finish`` placing it
+    and summing the dw pass's partials in order, against its twin."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
+
+    g = torch.Generator().manual_seed(c + 19)
+    q, k = (torch.randn(8, 23 * 272, c, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    before = wgk.weight_grad.launches
+    gram = wgk.weight_grad([(q, k)])[0]
+    assert wgk.weight_grad.launches == before + 1
+    want = torch.einsum("gkm,gkn->gmn", q.float(), k.float())
+    torch.testing.assert_close(gram, want, rtol=1e-4, atol=1e-2)
+    part = torch.randn(8, 102, 2 * c, generator=g).to(cuda)
+    before = wb.gram_finish.launches
+    out = wb.gram_finish(gram, part)
+    assert wb.gram_finish.launches == before + 1
+    torch.testing.assert_close(out, wb.gram_finish_plain(gram, part), rtol=1e-6, atol=1e-3)
+    assert torch.equal(out[:, : c * c], gram.reshape(8, -1))
+
+
+@pytest.mark.parametrize("c", fb.WIDE_WIDTHS)
+def test_wide_chain_launches(cuda, c):
+    """One wide K2 call launches LayerNorm, a GEMM, a dw pass, the
+    weight-grad pass and the finish once each; one K3 call LayerNorm twice,
+    four GEMMs, two dw passes; nothing else of the block kernels."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
+
+    w, _ = wide_weights(c, c + 20, cuda)
+    x = torch.randn(2, 9, 11, c, device=cuda).to(torch.bfloat16)
+    counters = (*wb.WRAPPERS, wgk.weight_grad, fb.gram_pass, fb.apply_pass)
+
+    def launched(fn):
+        before = [f.launches for f in counters]
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, {f.__name__: f.launches - b for f, b in zip(counters, before)}
+
+    (gram, qs, ks), got = launched(lambda: fb.gram_pass(x, w))
+    assert got == {"layernorm_rows": 1, "gemm": 1, "dw3x3": 1, "gram_finish": 1,
+                   "weight_grad": 1, "gram_pass": 1, "apply_pass": 0}
+    apply = fb.finalize_attention(gram, qs, ks, w.temperature, w.wproj, 8)
+    _, got = launched(lambda: fb.apply_pass(x, apply, w))
+    assert got == {"layernorm_rows": 2, "gemm": 4, "dw3x3": 2, "gram_finish": 0,
+                   "weight_grad": 0, "gram_pass": 0, "apply_pass": 1}
 
 
 @pytest.mark.parametrize("name", ["gram_pass", "apply_pass", "gram_pass_banded",
@@ -1866,28 +2017,27 @@ def test_wide_opcheck_on_the_card(cuda, c, name):
 
 
 def test_wide_kernel_failures_raise(cuda, monkeypatch):
-    """No fallback at the wide widths: a plan the library refuses (more CTAs
-    than tiles) raises, and so does a library that cannot be built, through
-    the wrappers and through a banded RawFormer-B bottleneck block."""
-    import dataclasses
-
+    """No fallback at the wide widths: a GEMM grid the library refuses (more
+    CTAs than tiles) raises, and so does a library that cannot be built,
+    through the wrappers and through a banded RawFormer-B bottleneck
+    block."""
     from bayer_low_light_image_enhancement_tpu_torch.kernels import _build
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
     from bayer_low_light_image_enhancement_tpu_torch.ops.conv import band_halo
     from bayer_low_light_image_enhancement_tpu_torch.probes import floor as pf
 
     w = pf.block_weights(384, 18, cuda)
     x = torch.randn(8, 5, 9, 384, device=cuda).to(torch.bfloat16)
     xh = band_halo(x, 2, 8)
-    real = fb.plan_for
-    monkeypatch.setattr(fb, "plan_for", lambda kind, b, h, wd, c, d: dataclasses.replace(
-        real(kind, b, h, wd, c, d), ctas=real(kind, b, h, wd, c, d).tiles * b + 1))
+    real = wb.gemm_ctas
+    monkeypatch.setattr(wb, "gemm_ctas", lambda g, d: g.tiles + 1)
     with torch.inference_mode():
         with pytest.raises(RuntimeError, match="CUDA error"):
             fb.gram_pass_banded(xh, w, 8, 40)
         apply = torch.zeros(8, 384, 384, device=cuda)
         with pytest.raises(RuntimeError, match="CUDA error"):
             fb.apply_pass_banded(xh, apply, w, 8, 40)
-    monkeypatch.setattr(fb, "plan_for", real)
+    monkeypatch.setattr(wb, "gemm_ctas", real)
 
     def no_build():
         raise RuntimeError("nvcc failed")
