@@ -253,7 +253,25 @@ Phases (any failed check raises and the script exits non-zero):
    fp32 twin paths banded against monolithic;
    the eval CLI's band route on a synthetic SID frame
    against its monolithic route at the same pad. Since the band route, the
-   eval CLI of phase 9 runs its 2832x4240 frames banded too.
+   eval CLI of phase 9 runs its 2832x4240 frames banded too;
+19. RawFormer-B and -L at crop size (dim 48 / 64, heads 8/8/8/8, FFN 2,
+   seeded random weights, fp32 params, bf16 compute): each serves 3
+   batch-8 @ 512x512 uint16 requests through ``Predictor.raw_u16`` (per
+   forward K1 once, K2 / K3 six times, no other kernel, one module-path
+   attention: the 384 / 512-wide bottleneck) against the twin path, the
+   forward timed by CUDA events, profiler device time and host clock with
+   peak memory; trains at batch 8 @ 512x512 (the first step by
+   ``held_train_step`` with phase 11's MEDIAN_YARD; per step K2 / K3 / B1 /
+   B2 six times and the weight-grad pass eight times; 20 steps lower the
+   loss with no NaN-guard skip; the step at batch 8 and 16 on the kernel
+   and the module path, peak memory, B1 + B2's share of a profiled step);
+   K2 / K3 / B1 / B2 held against their twins at RawFormer-L's three block
+   shapes and timed beside twins and bounds at B's and L's block shapes of
+   batch 8 and 16 (the weight-grad pass at the split widths beside its
+   twin, bound and a bf16 ``torch.matmul``); RawFormer-L's train CLI
+   (``--loader native``) for one epoch on a phase-9 SID tree, then
+   ``--resume``, then the eval CLI from its checkpoint on the 2832x4240
+   frames, band route against ``--no_fused``.
 
 Every kernel row carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -614,6 +632,21 @@ def counted(counters, fn):
     return out, {c.__name__: c.launches for c in counters}
 
 
+def kernel_counters() -> tuple:
+    """The launch counters of the kernels a model's path may run: K1, K2,
+    K3, K3P, the weight-grad pass, B1, B2, S1 (S1 with states too), S2, K2 /
+    K3 in band mode."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import bayer_pack as bp
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import ssm_scan as ssk
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
+
+    return (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fb.apply_pass_pipelined,
+            wgk.weight_grad, fbb.bwd1, fbb.bwd2, ssk.selective_scan_fwd, ssk.selective_scan_bwd,
+            fb.gram_pass_banded, fb.apply_pass_banded)
+
+
 @contextlib.contextmanager
 def twin_blocks():
     """Every TransformerBlock through ``fused_transformer_block_plain`` (the
@@ -627,6 +660,19 @@ def twin_blocks():
         yield
     finally:
         common.fused_transformer_block = saved
+
+
+def twin_u16_forward(model, mosaic, ratio) -> np.ndarray:
+    """The twin path of ``Predictor.raw_u16`` on device tensors (uint16
+    [B, H, W] mosaics, fp32 ratios): K1's fp32 twin, then the model's
+    prepacked forward with every TransformerBlock on its fp32 twin; ->
+    RGB [B, H, W, 3] in [0, 1]."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import bayer_pack as bp
+
+    with torch.inference_mode(), twin_blocks():
+        x4 = bp.bayer_pack_normalize_plain(mosaic, ratio, torch.float32, clamp01=True)
+        y = model(x4.permute(0, 3, 1, 2), prepacked=True).clamp(0, 1)
+    return y.permute(0, 2, 3, 1).float().cpu().numpy()
 
 
 def block_backward_leaves(x, dy, wts, run, heads: int = 8) -> dict:
@@ -674,6 +720,47 @@ def backward_against_twins(x, dy, wts, heads: int = 8):
         rel[name] = tuple((t[name].float() - r.float()).abs().max().item() / scale
                           for t in (got, noisy))
     return got, ref, rel
+
+
+def weight_grad_pairs(x, dy, wts):
+    """The (a, b) products the split regime hands the weight-grad pass at
+    x's shape: B1's and B2's operands as their twins compute them, in bf16
+    as the kernels write them."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
+
+    gram, qss, kss = fb.gram_pass_plain(x, wts)
+    apply = fb.finalize_attention(gram, qss, kss, wts.temperature, wts.wproj, 8)
+    o1 = fbb.bwd1_operands_plain(x, dy, apply, wts)
+    d_apply = wgk.weight_grad_plain(fbb.bwd1_product_pairs(
+        o1["v"], o1["dx2"], o1["yh"], o1["dt"], o1["g"], dy))[0]
+    d = fbb.finalize_backward(gram, qss, kss, wts.temperature, wts.wproj, d_apply, 8)
+    o2 = fbb.bwd2_operands_plain(x, o1["dx2"], apply, *d[:3], wts)
+    bf = lambda t: t.to(torch.bfloat16).contiguous()  # noqa: E731
+    return [fbb.bwd1_product_pairs(*(bf(o1[k]) for k in ("v", "dx2", "yh", "dt", "g")), dy),
+            fbb.bwd2_product_pairs(bf(o2["xh"]), bf(o2["dz"]))]
+
+
+def hold_backward(x, dy, wts, what) -> tuple:
+    """``backward_against_twins`` on (x, dy), held per leaf: each within
+    max(3 x the bf16 twin's error, BWD_FLOOR) of the fp32 twin's leaf max;
+    logs the worst leaf against its allowance, the median and every leaf.
+    -> (dx2's max abs error, dx's)."""
+    got, ref, rel = backward_against_twins(x, dy, wts)
+    allowed = {n: max(3 * e16, BWD_FLOOR) for n, (_, e16) in rel.items()}
+    bad = [f"{n} {rel[n][0]:.3e} (bf16 twin {rel[n][1]:.3e})" for n in rel
+           if rel[n][0] > allowed[n]]
+    worst = max(rel, key=lambda n: rel[n][0] / allowed[n])
+    e1 = (got["dx2"].float() - ref["dx2"].float()).abs().max().item()
+    e2 = (got["dx"].float() - ref["dx"].float()).abs().max().item()
+    log(f"{what}: worst leaf against its allowance {worst} rel err {rel[worst][0]:.3e} (bf16 "
+        f"twin {rel[worst][1]:.3e}, floor {BWD_FLOOR}); median leaf "
+        f"{np.median([e for e, _ in rel.values()]):.3e}; dx2 max abs err {e1:.3e}, dx {e2:.3e}")
+    log("  per leaf, kernel / bf16 twin error relative to the fp32 leaf max: "
+        + ", ".join(f"{n} {ek:.2e}/{e16:.2e}" for n, (ek, e16) in rel.items()))
+    check(not bad, f"{what}: B1/B2 disagree with their twins: {bad}")
+    return e1, e2
 
 
 def capture_blocks(model, step) -> list:
@@ -1198,18 +1285,47 @@ def fused_block_widths(model) -> list:
             for c in [m.norm1.body.weight.shape[0]] if c <= common.FUSE_CMAX]
 
 
-def zoo_kernel_times(dev, card) -> None:
+def block_kernel_times(x, dy, wts, card, what) -> dict:
     """K2, K3, B1 and B2 (the weight-grad pass inside B1 / B2 at C >= 96) as
-    whole wrapper calls at ZOO_TIME_SHAPES on a seeded log_temperature
-    block (CUDA events over 10 calls after warmup), beside their fp32 twins
-    (3 calls) and their bounds."""
+    whole wrapper calls on x [b, h, w, C] bf16 with dy (CUDA events over 10
+    calls after warmup), beside their fp32 twins (3 calls) and their bounds;
+    logs one line. -> {"gram" | "apply" | "bwd1" | "bwd2": (ms, twin ms,
+    (bound ms, bound by))}."""
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
-    from bayer_low_light_image_enhancement_tpu_torch.models import common
     from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms
 
-    gen = torch.Generator().manual_seed(14)
     names = {"gram": "K2", "apply": "K3", "bwd1": "B1", "bwd2": "B2"}
+    g0, qs0, ks0 = fb.gram_pass_plain(x, wts)
+    apply = fb.finalize_attention(g0, qs0, ks0, wts.temperature, wts.wproj, 8)
+    dx2, d_apply, _ = fbb.bwd1(x, dy, apply, wts)
+    d = fbb.finalize_backward(g0, qs0, ks0, wts.temperature, wts.wproj, d_apply, 8)
+    dx2 = dx2.to(torch.bfloat16)
+    calls = {"gram": (lambda: fb.gram_pass(x, wts), lambda: fb.gram_pass_plain(x, wts)),
+             "apply": (lambda: fb.apply_pass(x, apply, wts),
+                       lambda: fb.apply_pass_plain(x, apply, wts)),
+             "bwd1": (lambda: fbb.bwd1(x, dy, apply, wts),
+                      lambda: fbb.bwd1_plain(x, dy, apply, wts)),
+             "bwd2": (lambda: fbb.bwd2(x, dx2, apply, *d[:3], wts),
+                      lambda: fbb.bwd2_plain(x, dx2, apply, *d[:3], wts))}
+    out, parts = {}, []
+    for kind, (kern, twin) in calls.items():
+        ms, twin_ms = cuda_time_ms(kern, 10), cuda_time_ms(twin, 3, warmup=1)
+        b_ms, by = bound(**block_counts(kind, *x.shape))
+        out[kind] = (ms, twin_ms, (b_ms, by))
+        parts.append(f"{names[kind]} {ms:.4f} ms (twin {twin_ms:.3f}; bound {b_ms:.4f} by {by})")
+    log(f"time {list(x.shape)} bf16 ({what}, whole wrapper calls, CUDA events): "
+        + "; ".join(parts) + f" ({card})")
+    return out
+
+
+def zoo_kernel_times(dev, card) -> None:
+    """``block_kernel_times`` at ZOO_TIME_SHAPES on a seeded
+    log_temperature block."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+
+    gen = torch.Generator().manual_seed(14)
     with torch.no_grad():
         for shape in ZOO_TIME_SHAPES:
             blk = common.TransformerBlock(shape[-1], 8, 2, log_temperature=True, device=dev)
@@ -1217,27 +1333,8 @@ def zoo_kernel_times(dev, card) -> None:
             wts = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
             x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
             dy = (0.05 * torch.randn(shape, generator=gen)).to(dev, torch.bfloat16)
-            g0, qs0, ks0 = fb.gram_pass_plain(x, wts)
-            apply = fb.finalize_attention(g0, qs0, ks0, wts.temperature, wts.wproj, 8)
-            dx2, d_apply, _ = fbb.bwd1(x, dy, apply, wts)
-            d = fbb.finalize_backward(g0, qs0, ks0, wts.temperature, wts.wproj, d_apply, 8)
-            dx2 = dx2.to(torch.bfloat16)
-            calls = {"gram": (lambda: fb.gram_pass(x, wts), lambda: fb.gram_pass_plain(x, wts)),
-                     "apply": (lambda: fb.apply_pass(x, apply, wts),
-                               lambda: fb.apply_pass_plain(x, apply, wts)),
-                     "bwd1": (lambda: fbb.bwd1(x, dy, apply, wts),
-                              lambda: fbb.bwd1_plain(x, dy, apply, wts)),
-                     "bwd2": (lambda: fbb.bwd2(x, dx2, apply, *d[:3], wts),
-                              lambda: fbb.bwd2_plain(x, dx2, apply, *d[:3], wts))}
-            parts = []
-            for kind, (kern, twin) in calls.items():
-                ms, twin_ms = cuda_time_ms(kern, 10), cuda_time_ms(twin, 3, warmup=1)
-                b_ms, by = bound(**block_counts(kind, *shape))
-                parts.append(f"{names[kind]} {ms:.4f} ms (twin {twin_ms:.3f}; bound {b_ms:.4f} "
-                             f"by {by})")
-            log(f"time {list(shape)} bf16 (the family's block, whole wrapper calls, CUDA events): "
-                + "; ".join(parts) + f" ({card})")
-            del x, dy, apply, dx2, d, blk
+            block_kernel_times(x, dy, wts, card, "the family's block")
+            del x, dy, blk
     torch.cuda.empty_cache()
 
 
@@ -2984,9 +3081,11 @@ def band_counts(kind: str, b: int, hb: int, w: int, c: int) -> dict:
     return d
 
 
-def plain_wide_kernels(x, wts, shape) -> None:
-    """Phase 18 at a wide width: the plain K2 / K3 (no bands) on the bands
-    x [b, hb, w, C] as b images, against their twins by phase 3's rules."""
+def plain_block_kernels(x, wts, shape) -> tuple:
+    """The plain K2 / K3 (no bands) on x [b, h, w, C] against their twins by
+    phase 3's rules (phase 18 at a wide width: the bands as b images; phase
+    19 at RawFormer-L's block shapes). -> (K2's cosine error, K3's max abs
+    error)."""
     from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
 
     g, qs, ks = fb.gram_pass(x, wts)
@@ -3004,6 +3103,7 @@ def plain_wide_kernels(x, wts, shape) -> None:
         f"{d.mean().item():.3e}, {bad} elements outside atol=rtol={BLOCK_ATOL}")
     check(e_cos <= K2_COS_TOL and e_ss <= K2_COS_TOL, f"K2 disagrees with its twin at {shape}")
     check(bad == 0, f"K3 disagrees with its twin at {shape}")
+    return e_cos, d.max().item()
 
 
 def module_block_beside_kernels(x, c: int, bands: int, frame_h: int):
@@ -3167,6 +3267,45 @@ def host_ms(fn, n: int = 5) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
+# What one K2 + K3 at C = 384 / 512 launches (kernels/wide_block.py): the
+# chain's kernels and the weight-grad pass for the gram.
+WIDE_CHAIN_LAUNCHES = {"layernorm_rows": 3, "gemm": 5, "dw3x3": 3, "gram_finish": 1,
+                       "weight_grad": 1}
+
+
+def wide_counters(counters) -> tuple:
+    """``counters`` with the wide K2 / K3's and the wide chain's kernels'."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import wide_block as wb
+
+    return tuple(counters) + (fb.gram_pass_banded_wide, fb.apply_pass_banded_wide, *wb.WRAPPERS)
+
+
+def hold_launches(got, n, what, wide=0) -> None:
+    """Check the counts of band-mode forwards (``counted`` over
+    ``wide_counters``): K2 / K3 in band mode n times, ``wide`` of them at C
+    = 384 / 512 through the wide chain (WIDE_CHAIN_LAUNCHES each), no other
+    kernel."""
+    band = ("gram_pass_banded", "apply_pass_banded")
+    others = {k: v for k, v in got.items()
+              if k not in band and k not in WIDE_CHAIN_LAUNCHES and not k.endswith("_wide")}
+    check(got["gram_pass_banded"] == got["apply_pass_banded"] == n and sum(others.values()) == 0,
+          f"{what} did not launch K2 / K3 in band mode {n} times and no other kernel: {got}")
+    check(got["gram_pass_banded_wide"] == got["apply_pass_banded_wide"] == wide
+          and all(got[k] == v * wide for k, v in WIDE_CHAIN_LAUNCHES.items()),
+          f"{what} did not launch K2 / K3 in band mode at C >= 384 {wide} times through the "
+          f"wide chain ({WIDE_CHAIN_LAUNCHES} each): {got}")
+
+
+def serving_bar(a, b, what) -> None:
+    """Check two outputs (RGB in [0, 1]) against each other at the serving
+    bar, E2E_MAX_TOL / E2E_MEAN_TOL; numpy arrays or tensors."""
+    d = (torch.as_tensor(a).float() - torch.as_tensor(b).float()).abs()
+    log(f"{what}: max abs err {d.max().item():.3e} (tol {E2E_MAX_TOL}), mean "
+        f"{d.mean().item():.3e} (tol {E2E_MEAN_TOL})")
+    check(d.max().item() <= E2E_MAX_TOL and d.mean().item() <= E2E_MEAN_TOL, f"{what} disagrees")
+
+
 def banded_phase(dev, card, counters) -> dict:
     """Phase 18: K2 / K3 in band mode against their twins at the frame's
     band shapes (timed beside the frame's monolithic K2 / K3; at the wide
@@ -3237,7 +3376,7 @@ def banded_phase(dev, card, counters) -> dict:
             out["errs"][row[1]] = max(out["errs"][row[1]], d.max().item())
             del got, ref, d
             if c in fb.WIDE_WIDTHS:
-                plain_wide_kernels(x, wts, shape)
+                plain_block_kernels(x, wts, shape)
                 chain = wide_chain_kernels(xh, bapply, wts, shape, card)
                 if shape == WIDE_BAND_SHAPE:
                     for r, v in chain.items():
@@ -3283,37 +3422,14 @@ def banded_phase(dev, card, counters) -> dict:
           f"phase 18: the frame pads to {tuple(xp.shape[2:])} in {k} bands, not 2944x4352 in 8")
     log(f"phase 18 frame: {BAND_FRAME} zero-padded to {tuple(xp.shape[2:])}, {k} bands of "
         f"{xp.shape[2] // k} mosaic rows")
-    band_counters = counters + (fb.gram_pass_banded_wide, fb.apply_pass_banded_wide,
-                                *wb.WRAPPERS)
-    # What one wide K2 + K3 launches (kernels/wide_block.py): the chain's
-    # kernels and the weight-grad pass for the gram.
-    chain = {"layernorm_rows": 3, "gemm": 5, "dw3x3": 3, "gram_finish": 1, "weight_grad": 1}
-
-    def hold_launches(got, n, what, wide=0):
-        band = ("gram_pass_banded", "apply_pass_banded")
-        others = {kk: v for kk, v in got.items()
-                  if kk not in band and kk not in chain and not kk.endswith("_wide")}
-        check(got["gram_pass_banded"] == got["apply_pass_banded"] == n and sum(others.values())
-              == 0, f"phase 18: {what} did not launch K2 / K3 in band mode {n} times and no other "
-              f"kernel: {got}")
-        check(got["gram_pass_banded_wide"] == got["apply_pass_banded_wide"] == wide
-              and all(got[kk] == v * wide for kk, v in chain.items()),
-              f"phase 18: {what} did not launch K2 / K3 in band mode at C >= 384 {wide} times "
-              f"through the wide chain ({chain} each): {got}")
-
-    def serving_bar(a, b_, what):
-        d = (a.float() - b_.float()).abs()
-        log(f"{what}: max abs err {d.max().item():.3e} (tol {E2E_MAX_TOL}), mean "
-            f"{d.mean().item():.3e} (tol {E2E_MEAN_TOL})")
-        check(d.max().item() <= E2E_MAX_TOL and d.mean().item() <= E2E_MEAN_TOL,
-              f"phase 18: {what} disagrees")
+    band_counters = wide_counters(counters)
 
     model = get_model("rawformer_s", device=dev, dtype=torch.bfloat16,
                       generator=torch.Generator().manual_seed(0)).eval()
     banded = make_banded_forward(model, k)
     with torch.inference_mode():
         y_band, launches = counted(band_counters, lambda: banded(xp))
-        hold_launches(launches, 7, "the banded RawFormer-S frame")
+        hold_launches(launches, 7, "phase 18: the banded RawFormer-S frame")
         out["launches"] = launches
         y_mono, mono_launches = counted(band_counters, lambda: model(xp))
         check(mono_launches["gram_pass"] == mono_launches["apply_pass"] == 7
@@ -3321,11 +3437,11 @@ def banded_phase(dev, card, counters) -> dict:
               f"phase 18: the monolithic frame's launches {mono_launches}")
         check(y_band.shape == (1, 3, *xp.shape[2:]) and bool(torch.isfinite(y_band).all()),
               "phase 18: the banded frame is not finite of the frame's shape")
-        serving_bar(y_band, y_mono, "RawFormer-S frame, banded vs monolithic kernel path")
+        serving_bar(y_band, y_mono, "phase 18: RawFormer-S frame, banded vs monolithic kernel path")
         common.set_apply_kernel(model, "pipelined")
         y_pipe, pipe_launches = counted(band_counters, lambda: banded(xp))
         common.set_apply_kernel(model, "tiled")
-        hold_launches(pipe_launches, 7, "the banded frame with apply_kernel='pipelined'")
+        hold_launches(pipe_launches, 7, "phase 18: the banded frame with apply_kernel='pipelined'")
         check(torch.equal(y_pipe, y_band), "phase 18: the pipelined model's banded frame differs")
         del y_pipe
         t_band, t_mono = (cuda_time_ms(fn, 10, warmup=3) for fn in (lambda: banded(xp),
@@ -3361,7 +3477,7 @@ def banded_phase(dev, card, counters) -> dict:
     # (d) RawFormer-B and -L: every block on the kernels in band mode, the
     # bottleneck at the wide widths.
     out["wide_launches"] = dict.fromkeys(("gram_pass_banded_wide", "apply_pass_banded_wide",
-                                          *chain), 0)
+                                          *WIDE_CHAIN_LAUNCHES), 0)
     for size in ("B", "L"):
         mdl = get_model(f"rawformer_{size.lower()}", device=dev, dtype=torch.bfloat16,
                         generator=torch.Generator().manual_seed(0)).eval()
@@ -3372,7 +3488,7 @@ def banded_phase(dev, card, counters) -> dict:
         with torch.inference_mode():
             (y_b, got), peak_b, held = peak_memory(lambda: counted(band_counters,
                                                                    lambda: fwd(xp)))
-            hold_launches(got, 7, f"the banded RawFormer-{size} frame", wide=1)
+            hold_launches(got, 7, f"phase 18: the banded RawFormer-{size} frame", wide=1)
             check(not attn, f"phase 18: the banded RawFormer-{size} frame ran {len(attn)} "
                   f"module-path attention blocks")
             for kk in out["wide_launches"]:
@@ -3381,7 +3497,7 @@ def banded_phase(dev, card, counters) -> dict:
                 h.remove()
             y_m, peak_m, _ = peak_memory(lambda: mdl(xp))
             check(bool(torch.isfinite(y_b).all()), f"phase 18: RawFormer-{size} not finite")
-            serving_bar(y_b, y_m, f"RawFormer-{size} frame, banded vs monolithic")
+            serving_bar(y_b, y_m, f"phase 18: RawFormer-{size} frame, banded vs monolithic")
             del y_b, y_m
             tb, tm = (cuda_time_ms(fn, 3, warmup=1) for fn in (lambda: fwd(xp),
                                                                  lambda: mdl(xp)))
@@ -3419,7 +3535,7 @@ def banded_phase(dev, card, counters) -> dict:
         t_cli = time.perf_counter() - t0
         check(bl["bayer_pack_normalize"] == 1, f"phase 18: the eval CLI's launches {bl}")
         hold_launches({kk: v for kk, v in bl.items() if kk != "bayer_pack_normalize"}, 7,
-                      "the eval CLI's band route")
+                      "phase 18: the eval CLI's band route")
         route = test_cli.band_count
         test_cli.band_count = lambda *a: 1
         try:
@@ -3439,6 +3555,374 @@ def banded_phase(dev, card, counters) -> dict:
     check(dp <= EVAL_PSNR_TOL and ds <= EVAL_SSIM_TOL,
           "phase 18: the eval CLI's band route disagrees with its monolithic route")
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
+# Phase 19: RawFormer-B and -L (dim 48 / 64, heads 8/8/8/8, FFN 2, seeded
+# random weights, fp32 params, bf16 compute) served and trained at crop
+# size. Every block of width <= 256 runs the kernels (K2 / K3 serving, K2 /
+# K3 / B1 / B2 and the weight-grad pass from C = 96 on training), where the
+# JAX package runs its Pallas kernels or wider (JAX serving fuses up to
+# models/fused_apply.py's FUSE_CMAX = 256, JAX training only C <= 64,
+# kernels/fused_block_bwd.py's trainable_fusable); the 384 / 512-wide
+# bottleneck takes the module path in both, as the JAX package's does.
+# Tolerances, stated before the run: serving, kernel path vs twin path at
+# the serving bar (E2E_MAX_TOL / E2E_MEAN_TOL); the first train step by
+# ``held_train_step`` with phase 11's MEDIAN_YARD; K2 / K3 / B1 / B2 at
+# RawFormer-L's block shapes by phase 3's rules (K2_COS_TOL, BLOCK_ATOL /
+# BLOCK_RTOL, max(3 x the bf16 twin's error, BWD_FLOOR) a backward leaf);
+# RawFormer-L's eval CLI from its train CLI checkpoint, band route against
+# --no_fused, within EVAL_PSNR_TOL / EVAL_SSIM_TOL an image.
+SIZES, SIZES_SEED = ("B", "L"), 19
+SIZES_REQUESTS, SIZES_BATCH, SIZES_CROP = 3, 8, 512
+# The kernel blocks of a batch-8 @ 512^2 forward or step (levels 1-3, each
+# level twice); all timed at batch 8 and 16, L's held against the twins.
+SIZES_BLOCK_SHAPES = {"B": [(8, 256, 256, 48), (8, 128, 128, 96), (8, 64, 64, 192)],
+                      "L": [(8, 256, 256, 64), (8, 128, 128, 128), (8, 64, 64, 256)]}
+# The kernel line's rows of the phase: K2 / K3 / B1 / B2 at L's first level.
+SIZES_ROWS = {"gram": "fused_block_gram_l", "apply": "fused_block_apply_l",
+              "bwd1": "fused_block_bwd1_l", "bwd2": "fused_block_bwd2_l"}
+
+
+def seeded_block(c: int, gen, dev, log_temperature: bool = False):
+    """A TransformerBlock of width c (8 heads, FFN 2) reset from ``gen``,
+    its LN affines and temperatures moved off their init by U(-0.3, 0.3)."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+
+    blk = common.TransformerBlock(c, 8, 2, log_temperature=log_temperature, device=dev)
+    common.reset_parameters_(blk, gen)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if "norm" in name or "temperature" in name:
+                p.add_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen).to(dev))
+    return blk
+
+
+def size_model(size: str, dev, dtype=torch.bfloat16):
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+
+    return get_model(f"rawformer_{size.lower()}", device=dev, dtype=dtype,
+                     generator=torch.Generator().manual_seed(SIZES_SEED))
+
+
+def module_attention_widths(model, fn):
+    """fn() with a hook on every ChannelAttention of ``model``: -> (its
+    result, the widths of the module-path attentions it ran, in order)."""
+    from bayer_low_light_image_enhancement_tpu_torch.models import common
+
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append(i[0].shape[1]))
+             for m in model.modules() if isinstance(m, common.ChannelAttention)]
+    try:
+        return fn(), seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def sizes_kernels(dev, card) -> dict:
+    """Phase 19 (c): K2, K3, B1 and B2 (the weight-grad pass inside B1 / B2
+    at C >= 96) at RawFormer-L's three block shapes against their twins by
+    phase 3's rules; the four as whole wrapper calls at B's and L's block
+    shapes of batch 8 and 16 beside their twins and bounds
+    (``block_kernel_times``), and at the split widths the weight-grad pass
+    on B1's three products and B2's one beside its twin, its bound and one
+    bf16 ``torch.matmul`` of B2's product. -> the rows SIZES_ROWS (L at
+    [8,256,256,64]; max_abs_err over L's three shapes)."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block as fb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import weight_grad as wgk
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms
+
+    gen = torch.Generator().manual_seed(SIZES_SEED)
+    out = {"errs": dict.fromkeys(SIZES_ROWS.values(), 0.0), "times": {}, "bounds": {},
+           "library": {}}
+    errs = out["errs"]
+    with torch.no_grad():  # not inference mode: the twins differentiate with autograd
+        for size in SIZES:
+            for first in SIZES_BLOCK_SHAPES[size]:
+                c = first[-1]
+                blk = seeded_block(c, gen, dev)
+                wts = fb.fold_block_params({k: v.detach() for k, v in blk.named_parameters()})
+                for b in (8, 16):
+                    shape = (b,) + first[1:]
+                    x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                    dy = (0.05 * torch.randn(shape, generator=gen)).to(dev, torch.bfloat16)
+                    if size == "L" and b == 8:
+                        e_cos, e_k3 = plain_block_kernels(x, wts, shape)
+                        e1, e2 = hold_backward(x, dy, wts,
+                                               f"phase 19: B1/B2 {shape} (RawFormer-L's block)")
+                        for kind, e in zip(SIZES_ROWS, (e_cos, e_k3, e1, e2)):
+                            errs[SIZES_ROWS[kind]] = max(errs[SIZES_ROWS[kind]], e)
+                    what = f"RawFormer-{size}'s block"
+                    times = block_kernel_times(x, dy, wts, card, what)
+                    if size == "L" and shape == SIZES_BLOCK_SHAPES["L"][0]:
+                        for kind, (ms, twin_ms, bnd) in times.items():
+                            out["times"][SIZES_ROWS[kind]] = (ms, twin_ms)
+                            out["bounds"][SIZES_ROWS[kind]] = bnd
+                    if fbb.weight_grad_regime(c) == "split":
+                        p1, p2 = weight_grad_pairs(x, dy, wts)
+                        w1 = cuda_time_ms(lambda: wgk.weight_grad(p1), 20)
+                        w2 = cuda_time_ms(lambda: wgk.weight_grad(p2), 20)
+                        pw2 = cuda_time_ms(lambda: wgk.weight_grad_plain(p2), 3, warmup=1)
+                        (a2, b2), = p2
+                        lw2 = cuda_time_ms(lambda: torch.matmul(a2.mT, b2), 20)
+                        (bw1, yw1), (bw2, yw2) = (bound(**weight_grad_counts(
+                            [(a.shape[0], a.shape[1], a.shape[2], bb.shape[2]) for a, bb in ps]))
+                            for ps in (p1, p2))
+                        log(f"time weight-grad pass {shape} ({what}): B1's products {w1:.4f} ms "
+                            f"(bound {bw1:.4f} by {yw1}), B2's {w2:.4f} ms (twin {pw2:.3f}, "
+                            f"torch.matmul bf16 {lw2:.4f}, bound {bw2:.4f} by {yw2}); products "
+                            f"{[tuple(a.shape) + (bb.shape[2],) for a, bb in p1 + p2]} ({card})")
+                        del p1, p2, a2, b2
+                    del x, dy
+                del blk
+            torch.cuda.empty_cache()
+    return out
+
+
+def sizes_serving(dev, card, counters) -> dict:
+    """Phase 19 (a): RawFormer-B and -L answer SIZES_REQUESTS batch-8 @
+    512^2 uint16 requests through ``Predictor.raw_u16``: per forward K1
+    once, K2 / K3 six times, no other kernel and one module-path attention
+    (the bottleneck); the first request against the twin path (K1's and
+    the blocks' fp32 twins) at the serving bar; the forward timed by CUDA
+    events, the profiler's device time and the host clock, with the
+    kernels' and the twin path's times and the peak memory. -> each size's
+    launches."""
+    from bayer_low_light_image_enhancement_tpu_torch.serving import Predictor
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms, profile
+
+    rng = np.random.default_rng(SIZES_SEED)
+    launches = {}
+    for size in SIZES:
+        model = size_model(size, dev)
+        d = model.config.dim
+        pred = Predictor(model, device=dev)
+        requests = [(mosaics(rng, (SIZES_BATCH, SIZES_CROP, SIZES_CROP)),
+                     rng.uniform(50.0, 300.0, SIZES_BATCH).astype(np.float32))
+                    for _ in range(SIZES_REQUESTS)]
+        t0 = time.perf_counter()
+        (outs, got), attn = module_attention_widths(model, lambda: counted(
+            counters, lambda: [pred.raw_u16(m, r) for m, r in requests]))
+        serve_s = time.perf_counter() - t0
+        what = (f"phase 19: RawFormer-{size} serving {SIZES_REQUESTS} x {SIZES_BATCH} x "
+                f"{SIZES_CROP}^2 u16 requests")
+        n = SIZES_REQUESTS
+        want = dict.fromkeys(got, 0)
+        want.update(bayer_pack_normalize=n, gram_pass=6 * n, apply_pass=6 * n)
+        log(f"{what} in {serve_s:.2f} s; launches {got}; module-path attention widths {attn}")
+        check(got == want, f"{what}: launches {got}, expected {want}")
+        check(attn == [8 * d] * n, f"{what}: module-path attentions {attn}, expected one at "
+              f"{8 * d} a forward")
+        for (m, _), y in zip(requests, outs):
+            check(y.shape == m.shape + (3,) and bool(np.isfinite(y).all()) and y.min() >= 0.0
+                  and y.max() <= 1.0, f"{what}: output not finite in [0, 1] of shape {m.shape}")
+        launches[size] = got
+        md, rd = u16_to_device(requests[0][0]), torch.from_numpy(requests[0][1]).to(dev)
+        serving_bar(outs[0], twin_u16_forward(model, md, rd),
+                    f"phase 19: RawFormer-{size} kernel path vs twin path, "
+                    f"{SIZES_BATCH} x {SIZES_CROP}^2")
+        with torch.inference_mode():
+            fwd = lambda: pred._u16_forward(md, rd)  # noqa: E731
+            ms = cuda_time_ms(fwd, 10, warmup=3)
+            h_ms = host_ms(fwd)
+            prof = profile(fwd, steps=3, warmup=1)
+            _, peak, held = peak_memory(fwd)
+            with twin_blocks():
+                twin_ms = cuda_time_ms(fwd, 3, warmup=1)
+        k23 = sum(t for k, t, _ in prof["kernels"] if re.search(r"gram|apply[12]_kernel", k))
+        mp = SIZES_BATCH * SIZES_CROP ** 2 / 1e6
+        log(f"time RawFormer-{size} u16 forward, batch {SIZES_BATCH} @ {SIZES_CROP}^2: {ms:.3f} "
+            f"ms by CUDA events ({mp / ms * 1e3:.1f} MP/s), {h_ms:.3f} ms host clock, "
+            f"{prof['device_ms']:.3f} ms device ({prof['busy']:.0%} busy, K2 + K3 {k23:.3f} ms); "
+            f"twin blocks {twin_ms:.3f} ms; peak {peak:.2f} GiB ({peak - held:.2f} above the "
+            f"{held:.2f} held) ({torch.cuda.get_device_name(0)}; nvidia-smi: {card})")
+        log(f"  RawFormer-{size} forward's kernels by device time: " + ", ".join(
+            f"{k[:60]} {t:.3f} ms x{c:g}" for k, t, c in prof["kernels"][:8]))
+        del pred, model, outs, md, rd
+        torch.cuda.empty_cache()
+    return launches
+
+
+def sizes_training(dev, card, counters, train_cfg) -> dict:
+    """Phase 19 (b): RawFormer-B and -L train through ``Trainer`` on
+    synthetic batch-8 @ 512^2 crops: the first step by ``held_train_step``
+    (phase 11's MEDIAN_YARD; the bottleneck's attention leaves logged), per
+    step K2 / K3 / B1 / B2 six times and the weight-grad pass eight times
+    (twice a block of width >= 96), nothing else; 20 steps on one batch
+    lower the loss with no NaN-guard skip; the step at batch 8 and 16 on the
+    kernel and the module path (CUDA events, peak memory; one profiled
+    kernel-path step at batch 8: B1 + B2's and the weight-grad pass's
+    device time). -> each size's launches of a step."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_block_bwd as fbb
+    from bayer_low_light_image_enhancement_tpu_torch.train import Trainer
+    from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import cuda_time_ms, profile
+
+    batch = synthetic_batch(dev, SIZES_BATCH, SIZES_CROP)
+    launches = {}
+    for size in SIZES:
+        t0 = time.perf_counter()
+        model = size_model(size, dev)
+        widths, d = fused_block_widths(model), model.config.dim
+        del model
+        want = {c.__name__: 0 for c in counters}
+        want.update(gram_pass=len(widths), apply_pass=len(widths), bwd1=len(widths),
+                    bwd2=len(widths),
+                    weight_grad=2 * sum(fbb.weight_grad_regime(c) == "split" for c in widths))
+        what = f"phase 19: RawFormer-{size} train step, batch {SIZES_BATCH} @ {SIZES_CROP}^2"
+        kern, losses, got = held_train_step(
+            lambda: size_model(size, dev), train_cfg, batch, counters, what,
+            show=lambda n: n.startswith("conv_tran4.Transformer.attn."), median_yard=MEDIAN_YARD)
+        log(f"{what}: launches {got} (kernel blocks at widths {widths})")
+        check(widths == [d, 2 * d, 4 * d, 4 * d, 2 * d, d] and got == want,
+              f"{what}: launches {got}, expected {want}")
+        launches[size] = got
+        for _ in range(18):
+            losses.append(float(kern.train_step(batch)))
+        log(f"RawFormer-{size} 20 steps on one batch: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+            f"{kern.step - kern.applied} of {kern.step} steps skipped by the NaN guard")
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"{what}: 20 steps on one batch did not lower its loss")
+        check(kern.applied == kern.step == 20, f"{what}: the NaN guard skipped a step")
+        del kern
+        torch.cuda.empty_cache()
+        for bs in (8, 16):
+            b = batch if bs == SIZES_BATCH else tuple(torch.cat([t] * (bs // SIZES_BATCH))
+                                                       for t in batch)
+            for path in ("kernel", "module"):
+                tr = Trainer(size_model(size, dev),
+                             dataclasses.replace(train_cfg, fused_blocks=path == "kernel"))
+                tr.train_step(b)
+                ms, peak, held = peak_memory(lambda: cuda_time_ms(lambda: tr.train_step(b), 5,
+                                                                  warmup=2))
+                split = ""
+                if path == "kernel" and bs == SIZES_BATCH:
+                    r = profile(lambda: tr.train_step(b), 1, warmup=0)
+                    bwd = sum(t for k, t, _ in r["kernels"]
+                              if re.search(r"bwd[12]_kernel|sum_partials_kernel", k))
+                    wg = sum(t for k, t, _ in r["kernels"] if "weight_grad_kernel" in k)
+                    split = (f"; one profiled step: {r['device_ms']:.3f} ms of device time in "
+                             f"{r['host_ms']:.3f} ms of host clock ({100 * r['busy']:.1f}% busy), "
+                             f"B1 + B2 {bwd:.3f} ms ({bwd / r['device_ms']:.1%} of the device "
+                             f"time), the weight-grad pass {wg:.3f} ms")
+                log(f"time RawFormer-{size} train step, batch {bs} @ {SIZES_CROP}^2, {path} path "
+                    f"(CUDA events, after warmup): {ms:.3f} ms, "
+                    f"{bs * SIZES_CROP ** 2 / 1e6 / ms * 1e3:.1f} MP/s, peak memory {peak:.2f} "
+                    f"GiB, {peak - held:.2f} above the {held:.2f} held before{split} "
+                    f"({torch.cuda.get_device_name(0)}; nvidia-smi: {card})")
+                del tr
+                torch.cuda.empty_cache()
+        log(f"RawFormer-{size} training: {time.perf_counter() - t0:.1f} s")
+    del batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sizes_cli(card, counters) -> None:
+    """Phase 19 (d): the user's workflow for RawFormer-L on a phase-9 SID
+    tree (8 training pairs at REAL_TRAIN_FRAME, 2 test pairs at
+    REAL_TEST_FRAME): the train CLI with ``--model_size L --loader native``
+    for one epoch (K2 / K3 six times a step and a validation forward, B1 /
+    B2 six and the weight-grad pass eight times a step, K1 never), then
+    ``--resume`` for one more; the eval CLI from its checkpoint on the
+    2832x4240 frames, whose band route runs K2 / K3 in band mode (7 an
+    image, one of them at the 512-wide bottleneck through the wide chain)
+    and K1 once an image, against ``--no_fused`` (the module path, K1 only)
+    within EVAL_PSNR_TOL / EVAL_SSIM_TOL an image, one CSV row an image."""
+    import tempfile
+
+    from bayer_low_light_image_enhancement_tpu_torch.cli import test_cli, train_cli
+    from bayer_low_light_image_enhancement_tpu_torch.data.synthetic import write_sid_tree
+
+    def run(what, fn):
+        t0 = time.perf_counter()
+        out, got = counted(counters, fn)
+        log(f"{what}: {time.perf_counter() - t0:.2f} s; launches {got} ({card})")
+        return out, got
+
+    rng = np.random.default_rng(SIZES_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sizes_") as tmp:
+        root, save = f"{tmp}/sid", f"{tmp}/run"
+        write_sid_tree(root, f"{root}/cache",
+                       {"train": [REAL_TRAIN_FRAME] * 8, "test": [REAL_TEST_FRAME] * 2}, rng)
+        data = ["--dataset", "SID", "--data_root", root, "--cache_dir", f"{root}/cache",
+                "--model_size", "L"]
+        train = data + ["--loader", "native", "--batch_size", "8", "--patch_size", "512",
+                        "--save_dir", save]
+        for epochs, resume in ((0, []), (1, ["--resume"])):
+            _, tl = run(f"phase 19: train CLI, RawFormer-L, SID, native loader, batch 8 @ "
+                        f"512^2, --epochs {epochs} {' '.join(resume)}",
+                        lambda: train_cli.main(train + ["--epochs", str(epochs)] + resume))
+            want = dict.fromkeys(tl, 0)
+            # One step and one validation forward (both test frames) an epoch.
+            want.update(gram_pass=12, apply_pass=12, bwd1=6, bwd2=6, weight_grad=8)
+            check(tl == want, f"phase 19: the train CLI's launches {tl}, expected {want}")
+        with open(f"{save}/SID/log.txt") as f:
+            text = f.read()
+        check("Epoch 0/0" in text and "Epoch 1/1" in text,
+              "phase 19: the train CLI did not log epoch 0 and, resumed, epoch 1")
+        saved = sorted(f for f in os.listdir(f"{save}/SID/weights") if f.endswith(".pt"))
+        check(saved == ["0.pt", "1.pt"], f"phase 19: the train CLI saved {saved}")
+        runs = {}
+        for name, extra in (("band route", []), ("--no_fused", ["--no_fused"])):
+            out, el = run(f"phase 19: eval CLI, RawFormer-L from the train CLI's checkpoint, "
+                          f"2 x {REAL_TEST_FRAME}, {name}", lambda: test_cli.main(
+                              data + ["--ckpt", f"{save}/SID/weights", "--save_dir",
+                                      f"{tmp}/eval_{len(runs)}"] + extra))
+            check(el["bayer_pack_normalize"] == 2, f"phase 19: eval CLI ({name}) ran K1 "
+                  f"{el['bayer_pack_normalize']} times for 2 images")
+            rest = {k: v for k, v in el.items() if k != "bayer_pack_normalize"}
+            if extra:
+                no_kernel(rest, f"phase 19: the eval CLI with {name}")
+            else:
+                hold_launches(rest, 14, f"phase 19: the eval CLI's band route", wide=2)
+            with open(f"{tmp}/eval_{len(runs)}/SID/csv/test_metrics.csv") as f:
+                rows = f.read().splitlines()
+            check(len(rows) == 2 and all(np.isfinite(out["psnr"])),
+                  f"phase 19: eval CLI ({name}) wrote {len(rows)} CSV rows, PSNR {out['psnr']}")
+            log(f"eval CLI ({name}): PSNR {out['psnr']}, SSIM {out['ssim']}, host seconds per "
+                f"image {[round(t, 3) for t in out['seconds']]} ({card})")
+            runs[name] = out
+    dp = np.abs(np.subtract(*(r["psnr"] for r in runs.values()))).max()
+    ds = np.abs(np.subtract(*(r["ssim"] for r in runs.values()))).max()
+    log(f"phase 19: RawFormer-L eval CLI, band route vs --no_fused: max PSNR difference "
+        f"{dp:.4f} dB (tol {EVAL_PSNR_TOL}), max SSIM difference {ds:.2e} (tol {EVAL_SSIM_TOL})")
+    check(dp <= EVAL_PSNR_TOL and ds <= EVAL_SSIM_TOL,
+          "phase 19: RawFormer-L's band route disagrees with --no_fused")
+
+
+def sizes_counters(counters) -> tuple:
+    """``wide_counters(counters)`` with A1's and T1's: phase 19 holds that
+    no kernel of theirs runs."""
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_attention as fa
+    from bayer_low_light_image_enhancement_tpu_torch.kernels import fused_stage as fs
+
+    return wide_counters(counters) + (fa.fused_channel_attention, fs.fused_stage_tail)
+
+
+def sizes_phase(dev, card, counters, train_cfg) -> dict:
+    """Phase 19: RawFormer-B and -L at crop size (serving, training, the
+    kernels at their block shapes, RawFormer-L's train -> eval CLI
+    workflow). -> the kernel line's rows SIZES_ROWS ("errs", "times",
+    "bounds", "library") and "launches" ({row: launches}: K2 / K3 of
+    RawFormer-L's serving, B1 / B2 of its train step)."""
+    t_phase = time.perf_counter()
+    counters = sizes_counters(counters)
+    serve = sizes_serving(dev, card, counters)
+    log(f"phase 19 serving: {time.perf_counter() - t_phase:.1f} s")
+    steps = sizes_training(dev, card, counters, train_cfg)
+    log(f"phase 19 training: {time.perf_counter() - t_phase:.1f} s")
+    out = sizes_kernels(dev, card)
+    log(f"phase 19 kernels: {time.perf_counter() - t_phase:.1f} s")
+    sizes_cli(card, counters)
+    out["launches"] = {SIZES_ROWS["gram"]: serve["L"]["gram_pass"],
+                       SIZES_ROWS["apply"]: serve["L"]["apply_pass"],
+                       SIZES_ROWS["bwd1"]: steps["L"]["bwd1"],
+                       SIZES_ROWS["bwd2"]: steps["L"]["bwd2"]}
+    log("phase 19 launches, serving (3 requests) / a train step: "
+        + json.dumps({"serving": serve, "train step": steps}))
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s ({card})")
     return out
 
 
@@ -3563,13 +4047,7 @@ def main() -> int:
                                                   compute_dtype=torch.bfloat16)
                 common.reset_parameters_(tails[c], tail_gen)
             if c not in blocks:
-                blk = common.TransformerBlock(c, 8, 2, device=dev)
-                common.reset_parameters_(blk, gen)
-                with torch.no_grad():  # non-trivial LN affines and temperatures
-                    for name, p in blk.named_parameters():
-                        if "norm" in name or "temperature" in name:
-                            p.add_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen).to(dev))
-                blocks[c] = blk
+                blocks[c] = seeded_block(c, gen, dev)
             params = dict(blocks[c].named_parameters())
             wts = fb.fold_block_params(params)
             x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
@@ -3593,13 +4071,7 @@ def main() -> int:
     # store log_temperature (BayerTORGB's), with non-trivial LN affines.
     with torch.inference_mode():
         for shape in ZOO_BLOCK_SHAPES:
-            c = shape[-1]
-            blk = common.TransformerBlock(c, 8, 2, log_temperature=True, device=dev)
-            common.reset_parameters_(blk, gen)
-            with torch.no_grad():
-                for name, p in blk.named_parameters():
-                    if "norm" in name or "temperature" in name:
-                        p.add_(torch.empty(p.shape).uniform_(-0.3, 0.3, generator=gen).to(dev))
+            blk = seeded_block(shape[-1], gen, dev, log_temperature=True)
             params = dict(blk.named_parameters())
             x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
             check_gram_apply(shape, x, params, fb.fold_block_params(params), ", log_temperature")
@@ -3635,21 +4107,6 @@ def main() -> int:
             f"(rtol {FINALIZE_RTOL}, atol {FINALIZE_ATOL})")
         del x, q, k, gram, sums
 
-    def weight_grad_pairs(x, dy, wts):
-        """The (a, b) products the split regime hands the weight-grad pass at
-        x's shape: B1's and B2's operands as their twins compute them, in
-        bf16 as the kernels write them."""
-        gram, qss, kss = fb.gram_pass_plain(x, wts)
-        apply = fb.finalize_attention(gram, qss, kss, wts.temperature, wts.wproj, 8)
-        o1 = fbb.bwd1_operands_plain(x, dy, apply, wts)
-        d_apply = wgk.weight_grad_plain(fbb.bwd1_product_pairs(
-            o1["v"], o1["dx2"], o1["yh"], o1["dt"], o1["g"], dy))[0]
-        d = fbb.finalize_backward(gram, qss, kss, wts.temperature, wts.wproj, d_apply, 8)
-        o2 = fbb.bwd2_operands_plain(x, o1["dx2"], apply, *d[:3], wts)
-        bf = lambda t: t.to(torch.bfloat16).contiguous()  # noqa: E731
-        return [fbb.bwd1_product_pairs(*(bf(o1[k]) for k in ("v", "dx2", "yh", "dt", "g")), dy),
-                fbb.bwd2_product_pairs(bf(o2["xh"]), bf(o2["dz"]))]
-
     bwd_inputs, wg_inputs = {}, {}
     with torch.no_grad():
         for shape in BATCH_SHAPES:
@@ -3658,20 +4115,9 @@ def main() -> int:
             x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
             dy = (0.05 * torch.randn(shape, generator=gen)).to(dev, torch.bfloat16)
             bwd_inputs[shape] = (x, dy, wts)
-            got, ref, rel = backward_against_twins(x, dy, wts)
-            bad = [f"{n} {ek:.3e} (bf16 twin {e16:.3e})" for n, (ek, e16) in rel.items()
-                   if ek > max(3 * e16, BWD_FLOOR)]
-            worst = max(rel, key=lambda n: rel[n][0])
-            e1 = (got["dx2"].float() - ref["dx2"].float()).abs().max().item()
-            e2 = (got["dx"].float() - ref["dx"].float()).abs().max().item()
-            log(f"B1/B2 {shape}: worst leaf {worst} rel err {rel[worst][0]:.3e} (bf16 twin "
-                f"{rel[worst][1]:.3e}, floor {BWD_FLOOR}); dx2 max abs err {e1:.3e}, dx {e2:.3e}")
-            log("  per leaf, kernel / bf16 twin error relative to the fp32 leaf max: "
-                + ", ".join(f"{n} {ek:.2e}/{e16:.2e}" for n, (ek, e16) in rel.items()))
-            check(not bad, f"B1/B2 disagree with their twins at {shape}: {bad}")
+            e1, e2 = hold_backward(x, dy, wts, f"B1/B2 {shape}")
             errs["fused_block_bwd1"] = max(errs["fused_block_bwd1"], e1)
             errs["fused_block_bwd2"] = max(errs["fused_block_bwd2"], e2)
-            del got, ref
             if fbb.weight_grad_regime(c) == "split":
                 # The weight-grad pass on the operands B1 and B2 write here.
                 pairs = weight_grad_pairs(x, dy, wts)
@@ -3697,10 +4143,7 @@ def main() -> int:
     for hw in ((2832, 4240), (1000, 1500)):
         raw = mosaics(rng, hw).astype(np.float32)
         frames.append(np.clip((raw - 512.0) / (16383.0 - 512.0), 0.0, None) * 100.0)
-    counters = (bp.bayer_pack_normalize, fb.gram_pass, fb.apply_pass, fb.apply_pass_pipelined,
-                wgk.weight_grad,
-                fbb.bwd1, fbb.bwd2, ssk.selective_scan_fwd, ssk.selective_scan_bwd,
-                fb.gram_pass_banded, fb.apply_pass_banded)
+    counters = kernel_counters()
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
@@ -3726,11 +4169,7 @@ def main() -> int:
               "output not finite in [0, 1]")
 
     m0, r0 = requests[0]
-    md, rd = u16_to_device(m0), torch.from_numpy(r0).to(dev)
-    with torch.inference_mode(), twin_blocks():
-        x4 = bp.bayer_pack_normalize_plain(md, rd, torch.float32, clamp01=True)
-        twin = model(x4.permute(0, 3, 1, 2), prepacked=True).clamp(0, 1)
-    twin = twin.permute(0, 2, 3, 1).float().cpu().numpy()
+    twin = twin_u16_forward(model, u16_to_device(m0), torch.from_numpy(r0).to(dev))
     d = np.abs(outs[0] - twin)
     log(f"kernel path vs twin path, 8 x 512^2: max abs err {d.max():.3e} (tol {E2E_MAX_TOL}), "
         f"mean {d.mean():.3e} (tol {E2E_MEAN_TOL})")
@@ -4371,6 +4810,13 @@ def main() -> int:
                         (library, "library")):
         table.update(band[part])
 
+    # 19. RawFormer-B and -L at crop size ------------------------------------------------
+    torch.cuda.empty_cache()
+    sizes = sizes_phase(dev, card, counters, train_cfg)
+    for table, part in ((errs, "errs"), (times, "times"), (bounds, "bounds"),
+                        (library, "library")):
+        table.update(sizes[part])
+
     for name, kind in (("fused_block_gram", "gram"), ("fused_block_apply", "apply"),
                        ("fused_block_bwd1", "bwd1"), ("fused_block_bwd2", "bwd2"),
                        ("fused_block_apply_pipelined", "apply")):
@@ -4436,6 +4882,11 @@ def main() -> int:
          band["wide_launches"]["dw3x3"]),
         ("wide_gram_finish", PKG + "csrc/wide_block.cu (wide_gram_finish_kernel)",
          TPU + "fused_block.py:406", band["wide_launches"]["gram_finish"]),
+        *((SIZES_ROWS[kind], PKG + src, TPU + at, sizes["launches"][SIZES_ROWS[kind]])
+          for kind, src, at in (("gram", "csrc/block_tiles.cuh", "fused_block.py:406"),
+                                ("apply", "csrc/block_tiles.cuh", "fused_block.py:683"),
+                                ("bwd1", "csrc/fused_block_bwd.cu", "fused_block_bwd.py:194"),
+                                ("bwd2", "csrc/fused_block_bwd.cu", "fused_block_bwd.py:318"))),
     ]
     log("kernel table: times and bounds of bayer_pack at [8,512,512] u16, fused_block_*, "
         "fused_attention, fused_stage_tail and the probes at [8,256,256,32] bf16 (probe_floor: "
@@ -4468,7 +4919,11 @@ def main() -> int:
         "block (3 / 5 / 3 / 1) with its bound from the summed bytes and operations, launches "
         "from the banded RawFormer-B and -L frames, max_abs_err the largest of its launches "
         "against its twin, library_ms the sum of F.layer_norm / bf16 torch.matmul and "
-        "torch.bmm / depthwise F.conv2d on the same inputs (wide_gram_finish: null)")
+        "torch.bmm / depthwise F.conv2d on the same inputs (wide_gram_finish: null); "
+        "fused_block_*_l: K2 / K3 / B1 / B2 at RawFormer-L's first-level block [8,256,256,64] "
+        "bf16 (phase 19), launches of K2 / K3 from its 3 batch-8 @ 512^2 u16 requests and of "
+        "B1 / B2 from its batch-8 @ 512^2 train step, max_abs_err over L's three block shapes "
+        "(K2: cosines, K3: output, B1 / B2: dx2 / dx)")
     log(card)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": l,

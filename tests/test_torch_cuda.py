@@ -1721,6 +1721,73 @@ def test_banded_rawformer_on_the_card(cuda, size):
     assert got.shape == mono.shape and d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
 
 
+@pytest.mark.parametrize("size", ["B", "L"])
+def test_rawformer_sizes_serve_crops_on_the_kernels(cuda, size):
+    """RawFormer-B / -L (``chip_smoke.py`` phase 19's seeded model, bf16
+    compute) on 2 uint16 64^2 mosaics through ``Predictor.raw_u16``: K1 once,
+    K2 / K3 six times (the blocks of width <= 256), no other kernel and one
+    module-path attention (the 8 dim-wide bottleneck); against the twin path
+    (K1's and the blocks' fp32 twins) at the serving bar (max 5e-2, mean
+    5e-3)."""
+    from chip_smoke import (
+        counted,
+        kernel_counters,
+        module_attention_widths,
+        serving_bar,
+        size_model,
+        sizes_counters,
+        twin_u16_forward,
+    )
+
+    model = size_model(size, cuda)
+    pred = Predictor(model, device=cuda)
+    g = np.random.default_rng(24)
+    m = g.integers(0, 17000, (2, 64, 64), dtype=np.uint16)
+    ratio = g.uniform(50.0, 300.0, 2).astype(np.float32)
+    (got, launched), attn = module_attention_widths(model, lambda: counted(
+        sizes_counters(kernel_counters()), lambda: pred.raw_u16(m, ratio)))
+    want = dict.fromkeys(launched, 0)
+    want.update(bayer_pack_normalize=1, gram_pass=6, apply_pass=6)
+    assert launched == want
+    assert attn == [8 * model.config.dim]
+    assert got.shape == (2, 64, 64, 3) and np.isfinite(got).all()
+    serving_bar(got, twin_u16_forward(model, u16(m, cuda), torch.from_numpy(ratio).to(cuda)),
+                f"RawFormer-{size} kernel path vs twin path")
+
+
+@pytest.mark.parametrize("size", ["B", "L"])
+def test_rawformer_sizes_train_step_on_the_kernels(cuda, size):
+    """A bf16 train step of RawFormer-B / -L (phase 19's seeded model) on a
+    synthetic batch 2 @ 64^2 through K2 / K3 + B1 / B2 and the weight-grad
+    pass against the same step with the blocks on their fp32 twins, by
+    ``chip_smoke.held_train_step`` with phase 11's MEDIAN_YARD (the loss
+    within 2e-2 relative; every first-step grad leaf within max(3 x the
+    nudged twin's change, 3 x the bf16 twin's error, 2e-2) of the twin's
+    leaf max, the median within max(2e-2, 1.5 x the bf16 twin's); the params
+    after two Adam steps within 5e-4); per step K2 / K3 / B1 / B2 six times
+    and the weight-grad pass eight times (twice a block of width >= 96),
+    nothing else (the bottleneck on the module path)."""
+    from bayer_low_light_image_enhancement_tpu_torch.train import TrainConfig
+    from chip_smoke import (
+        MEDIAN_YARD,
+        held_train_step,
+        kernel_counters,
+        size_model,
+        sizes_counters,
+        synthetic_batch,
+    )
+
+    batch = synthetic_batch(cuda, 2, 64)
+    _, losses, got = held_train_step(lambda: size_model(size, cuda),
+                                     TrainConfig(warmup_epochs=1, steps_per_epoch=1), batch,
+                                     sizes_counters(kernel_counters()), f"RawFormer-{size}",
+                                     median_yard=MEDIAN_YARD)
+    want = dict.fromkeys(got, 0)
+    want.update(gram_pass=6, apply_pass=6, bwd1=6, bwd2=6, weight_grad=8)
+    assert got == want
+    assert np.isfinite(losses).all()
+
+
 # ---------------------------------------------------------------------------
 # K2 / K3 at the wide widths, C = 384 and 512 (kernels/wide_block.py,
 # csrc/wide_block.cu: LayerNorm, wgmma GEMMs, dw passes, the gram through
