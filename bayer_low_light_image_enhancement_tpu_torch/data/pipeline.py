@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from bayer_low_light_image_enhancement_tpu_torch.core.mesh import row_range
+from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import span
 
 
 class Loader:
@@ -145,28 +146,33 @@ def prefetch_to_device(iterator: Iterable, device="cuda", size: int = 2
     """Yield each numpy batch of ``iterator`` as a tuple of tensors on
     ``device``, with up to ``size`` batches in flight. On a CUDA device the
     copies run from pinned memory on a side stream; on the CPU the arrays
-    are only wrapped."""
+    are only wrapped. Each batch's staging (on CUDA: taking it from
+    ``iterator``, pinning, issuing the copies) runs under the span
+    ``lle.loader.stage`` (``utils.profiling.span``)."""
     device = torch.device(device)
     if device.type != "cuda":
         for batch in iterator:
-            yield tuple(to_tensor(a) for a in batch)
+            with span("lle.loader.stage"):
+                out = tuple(to_tensor(a) for a in batch)
+            yield out
         return
     copy_stream = torch.cuda.Stream(device)
     staged: "collections.deque" = collections.deque()
     it = iter(iterator)
 
     def stage() -> bool:
-        try:
-            batch = next(it)
-        except StopIteration:
-            return False
-        host = [_pinned(to_tensor(a)) for a in batch]
-        with torch.cuda.stream(copy_stream):
-            dev = [_copy(h, device) for h in host]
-            done = torch.cuda.Event()
-            done.record(copy_stream)
-        staged.append((dev, host, done))  # host buffers live until the copy is consumed
-        return True
+        with span("lle.loader.stage"):
+            try:
+                batch = next(it)
+            except StopIteration:
+                return False
+            host = [_pinned(to_tensor(a)) for a in batch]
+            with torch.cuda.stream(copy_stream):
+                dev = [_copy(h, device) for h in host]
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            staged.append((dev, host, done))  # host buffers live until the copy is consumed
+            return True
 
     for _ in range(max(1, size)):
         if not stage():

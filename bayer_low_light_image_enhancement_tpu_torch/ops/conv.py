@@ -33,6 +33,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import span
+
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
@@ -122,26 +124,28 @@ def band_halo(x: torch.Tensor, r: int, bands: int, nchw: bool = False) -> torch.
     bottom, the monolithic frame's zero pad: [B, hb + 2r, ...] (NCHW
     channels-last with ``nchw``); a halo deeper than a band (a deep level's
     bands can be one row tall) takes rows from the bands beyond. Each row
-    is copied once. The JAX package's ``models/fused_apply._band_halo``."""
+    is copied once. The JAX package's ``models/fused_apply._band_halo``.
+    The copies run under the span ``lle.bands.halo``, once a call."""
     if nchw:
         return band_halo(x.permute(0, 2, 3, 1), r, bands).permute(0, 3, 1, 2)
     b, h, rest = x.shape[0], x.shape[1], tuple(x.shape[2:])
     if b % bands:
         raise ValueError(f"batch {b} not divisible by bands {bands}")
-    xb = x.reshape(b // bands, bands, h, *rest)
-    out = x.new_empty((b // bands, bands, h + 2 * r) + rest)
-    out[:, :, r: r + h] = xb
-    for d in range(1, -(-r // h) + 1):
-        # Halo rows from the band d away: the top's [lo, hi), the bottom's
-        # [blo, bhi); the bands with none d away (all but n) get zeros.
-        lo, hi = max(0, r - d * h), r - (d - 1) * h
-        blo, bhi = r + d * h, min(r + (d + 1) * h, h + 2 * r)
-        n = max(bands - d, 0)
-        out[:, bands - n:, lo:hi] = xb[:, :n, h - (hi - lo):]
-        out[:, :bands - n, lo:hi] = 0
-        out[:, :n, blo:bhi] = xb[:, bands - n:, :bhi - blo]
-        out[:, n:, blo:bhi] = 0
-    return out.reshape(b, h + 2 * r, *rest)
+    with span("lle.bands.halo"):
+        xb = x.reshape(b // bands, bands, h, *rest)
+        out = x.new_empty((b // bands, bands, h + 2 * r) + rest)
+        out[:, :, r: r + h] = xb
+        for d in range(1, -(-r // h) + 1):
+            # Halo rows from the band d away: the top's [lo, hi), the bottom's
+            # [blo, bhi); the bands with none d away (all but n) get zeros.
+            lo, hi = max(0, r - d * h), r - (d - 1) * h
+            blo, bhi = r + d * h, min(r + (d + 1) * h, h + 2 * r)
+            n = max(bands - d, 0)
+            out[:, bands - n:, lo:hi] = xb[:, :n, h - (hi - lo):]
+            out[:, :bands - n, lo:hi] = 0
+            out[:, :n, blo:bhi] = xb[:, bands - n:, :bhi - blo]
+            out[:, n:, blo:bhi] = 0
+        return out.reshape(b, h + 2 * r, *rest)
 
 
 def _format_of(x: torch.Tensor) -> torch.memory_format:

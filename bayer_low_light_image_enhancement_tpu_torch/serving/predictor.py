@@ -28,6 +28,12 @@ the fused kernels (``models/common.TransformerBlock``), with the apply pass
 ``apply_kernel``
 selects ("tiled": K3; "pipelined": K3P at the power-of-two widths), and
 every Mamba scan the kernel S1.
+
+Each entry point's request runs under ``utils.profiling.span`` phases, seen
+only while a ``torch.profiler`` records: ``lle.predictor.request`` around
+``lle.predictor.h2d`` (numpy -> tensor, the copy to the device, the pad),
+``lle.predictor.forward`` (the decode and the model's launches) and
+``lle.predictor.finish`` (crop, clamp, cast, the copy to the host).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from bayer_low_light_image_enhancement_tpu_torch.kernels.bayer_pack import (
 )
 from bayer_low_light_image_enhancement_tpu_torch.models.common import set_apply_kernel
 from bayer_low_light_image_enhancement_tpu_torch.ops.bayer import normalize_mcr, normalize_sid
+from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import span
 
 
 class Predictor:
@@ -97,8 +104,9 @@ class Predictor:
 
     @staticmethod
     def _finish(y: torch.Tensor, h: int, w: int, squeeze: bool) -> np.ndarray:
-        y = y[:, :, :h, :w].permute(0, 2, 3, 1).clamp(0.0, 1.0)
-        y = y.float().cpu().numpy()
+        with span("lle.predictor.finish"):
+            y = y[:, :, :h, :w].permute(0, 2, 3, 1).clamp(0.0, 1.0)
+            y = y.float().cpu().numpy()
         return y[0] if squeeze else y
 
     @staticmethod
@@ -118,12 +126,14 @@ class Predictor:
 
     def __call__(self, raw: np.ndarray) -> np.ndarray:
         """RAW mosaic in [0,1]*ratio -> RGB in [0,1]; shape-preserving."""
-        x, squeeze = self._frames(np.asarray(raw, np.float32))
-        h, w = x.shape[1:3]
-        x = self._padded(torch.from_numpy(x).to(self.device))
-        with torch.inference_mode():
-            y = self.model(x)
-        return self._finish(y, h, w, squeeze)
+        with span("lle.predictor.request"):
+            x, squeeze = self._frames(np.asarray(raw, np.float32))
+            h, w = x.shape[1:3]
+            with span("lle.predictor.h2d"):
+                x = self._padded(torch.from_numpy(x).to(self.device))
+            with torch.inference_mode(), span("lle.predictor.forward"):
+                y = self.model(x)
+            return self._finish(y, h, w, squeeze)
 
     def codes(self, codes: np.ndarray, scale, decode: str = "sid") -> np.ndarray:
         """Integer sensor codes in ``__call__``'s frame shapes + per-image
@@ -144,17 +154,20 @@ class Predictor:
         if decode == "sid" and self._prepacked:
             return self._packed_forward(x[..., 0], scale, squeeze)
         b, h, w = x.shape[:3]
-        s = torch.as_tensor(np.asarray(scale, np.float32).reshape(-1)).to(self.device)
-        s = s.expand(b).reshape(b, 1, 1, 1)
-        with torch.inference_mode():
-            if decode == "sid":
+        with span("lle.predictor.request"):
+            with span("lle.predictor.h2d"):
+                s = torch.as_tensor(np.asarray(scale, np.float32).reshape(-1)).to(self.device)
+                s = s.expand(b).reshape(b, 1, 1, 1)
                 # uint16 tensors support few ops: move and pad the codes as int16 bits.
-                t = self._padded(torch.from_numpy(x.view(np.int16)).to(self.device))
-                x = normalize_sid(t.to(torch.int32) & 0xFFFF, s)
-            else:
-                x = normalize_mcr(self._padded(torch.from_numpy(x).to(self.device)), s)
-            y = self.model(x)
-        return self._finish(y, h, w, squeeze)
+                t = x.view(np.int16) if decode == "sid" else x
+                t = self._padded(torch.from_numpy(t).to(self.device))
+            with torch.inference_mode(), span("lle.predictor.forward"):
+                if decode == "sid":
+                    x = normalize_sid(t.to(torch.int32) & 0xFFFF, s)
+                else:
+                    x = normalize_mcr(t, s)
+                y = self.model(x)
+            return self._finish(y, h, w, squeeze)
 
     def raw_u16(self, mosaic: np.ndarray, ratio) -> np.ndarray:
         """uint16 RGGB mosaic [H,W] or [B,H,W] + exposure ratio (scalar or
@@ -180,12 +193,14 @@ class Predictor:
         """uint16 [B,H,W] + ratio -> RGB through the pack kernel and the
         prepacked model."""
         b, h, w = m.shape
-        r = torch.as_tensor(np.asarray(ratio, np.float32).reshape(-1)).to(self.device)
-        r = r.expand(b).contiguous() if r.numel() == 1 else r
-        # uint16 tensors support few ops: move and pad the codes as int16 bits.
-        m16 = torch.from_numpy(np.ascontiguousarray(m).view(np.int16)).to(self.device)
-        ph, pw = self._pads(h, w)
-        m16 = F.pad(m16, (0, pw, 0, ph)).contiguous()
-        with torch.inference_mode():
-            y = self._u16_forward(m16.view(torch.uint16), r)
-        return self._finish(y, h, w, squeeze)
+        with span("lle.predictor.request"):
+            with span("lle.predictor.h2d"):
+                r = torch.as_tensor(np.asarray(ratio, np.float32).reshape(-1)).to(self.device)
+                r = r.expand(b).contiguous() if r.numel() == 1 else r
+                # uint16 tensors support few ops: move and pad the codes as int16 bits.
+                m16 = torch.from_numpy(np.ascontiguousarray(m).view(np.int16)).to(self.device)
+                ph, pw = self._pads(h, w)
+                m16 = F.pad(m16, (0, pw, 0, ph)).contiguous()
+            with torch.inference_mode(), span("lle.predictor.forward"):
+                y = self._u16_forward(m16.view(torch.uint16), r)
+            return self._finish(y, h, w, squeeze)

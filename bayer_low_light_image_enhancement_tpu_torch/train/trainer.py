@@ -36,6 +36,7 @@ mosaic, target [B, H, W, 3]; the model itself is NCHW.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -54,6 +55,7 @@ from bayer_low_light_image_enhancement_tpu_torch.ops.rep_conv import set_batchno
 from bayer_low_light_image_enhancement_tpu_torch.train.losses import get_loss
 from bayer_low_light_image_enhancement_tpu_torch.train.metrics import psnr_uint8
 from bayer_low_light_image_enhancement_tpu_torch.train.schedule import warmup_cosine_schedule
+from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,34 +239,46 @@ class Trainer:
     def train_step(self, batch: Sequence[torch.Tensor]) -> torch.Tensor:
         """One step on a batch already on the model's device (this rank's
         rows under a mesh); returns the loss (0-dim fp32 tensor; the global
-        batch's mean under a mesh)."""
-        inp, gt = decode_batch(batch)
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        # the reference clamps before the loss
-        pred = self._forward(inp, self._run).clamp(0.0, 1.0)
-        loss = self.loss_fn(pred, gt)
-        loss.backward()
-        loss = loss.detach()
-        if self.data_group is not None:
-            dist.all_reduce(loss, group=self.data_group)
-            loss = loss / self.data_size
-        pg = [(p, p.grad) for p in self.model.parameters() if p.grad is not None]
-        grads = [g for _, g in pg]
-        ok = True
-        if self.cfg.nan_guard or self.cfg.grad_clip is not None:
-            norm = self._grad_norm(pg)
-        if self.cfg.nan_guard:
-            ok = bool(torch.isfinite(loss) & torch.isfinite(norm))
-        if ok:
-            if self.cfg.grad_clip is not None:
-                clip_by_global_norm_(grads, self.cfg.grad_clip, norm)
-            for group in self.optimizer.param_groups:
-                group["lr"] = self.lr
-            self.optimizer.step()
-            self.applied += 1
-        self.step += 1
-        return loss
+        batch's mean under a mesh).
+
+        Its phases are ``utils.profiling.span`` ranges under
+        ``lle.trainer.step``: decode, forward (zero_grad, forward, clamp,
+        loss), backward, guard (the loss's all-reduce, the global norm and
+        the NaN guard's blocking read; only where the guard or the clip
+        runs) and update (clip, lr, Adam)."""
+        with span("lle.trainer.step"):
+            with span("lle.trainer.decode"):
+                inp, gt = decode_batch(batch)
+            with span("lle.trainer.forward"):
+                self.model.train()
+                self.optimizer.zero_grad(set_to_none=True)
+                # the reference clamps before the loss
+                pred = self._forward(inp, self._run).clamp(0.0, 1.0)
+                loss = self.loss_fn(pred, gt)
+            with span("lle.trainer.backward"):
+                loss.backward()
+            loss = loss.detach()
+            pg = [(p, p.grad) for p in self.model.parameters() if p.grad is not None]
+            ok = True
+            guarded = self.cfg.nan_guard or self.cfg.grad_clip is not None
+            with span("lle.trainer.guard") if guarded else contextlib.nullcontext():
+                if self.data_group is not None:
+                    dist.all_reduce(loss, group=self.data_group)
+                    loss = loss / self.data_size
+                if guarded:
+                    norm = self._grad_norm(pg)
+                if self.cfg.nan_guard:
+                    ok = bool(torch.isfinite(loss) & torch.isfinite(norm))
+            if ok:
+                with span("lle.trainer.update"):
+                    if self.cfg.grad_clip is not None:
+                        clip_by_global_norm_([g for _, g in pg], self.cfg.grad_clip, norm)
+                    for group in self.optimizer.param_groups:
+                        group["lr"] = self.lr
+                    self.optimizer.step()
+                self.applied += 1
+            self.step += 1
+            return loss
 
     @torch.inference_mode()
     def eval_step(self, batch: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -3,6 +3,11 @@
 The counterpart of ``bayer_low_light_image_enhancement_tpu/utils/profiling.py``
 for the port:
 
+* ``span(name)``: the port's named phases (``lle.predictor.*``,
+  ``lle.trainer.*``, ``lle.loader.stage``, ``lle.bands.halo``) as
+  ``record_function`` ranges while a ``torch.profiler`` records, so that
+  they land in its trace on the device's clock; a shared null context,
+  a flag read, when none does;
 * ``trace(log_dir)``: a ``torch.profiler`` trace of the block, written
   where TensorBoard or Perfetto opens it;
 * ``AverageMeter`` (the reference's running mean) and ``StepTimer`` (host
@@ -14,9 +19,11 @@ for the port:
   (``torch.utils.flop_counter.FlopCounterMode``), where JAX reads XLA's;
 * ``profile`` runs a callable after warmup under ``torch.profiler`` and
   returns the host-clock time per call, the device time per call (the sum
-  of every kernel's self time), the device's busy share and the kernels by
-  device time (``cuda_time_ms`` times a callable with CUDA events); the
-  CLI prints them for a registry model at random weights:
+  of every kernel's time), the device's busy share (the union of the
+  kernels' intervals over every stream, over the host time), the kernels
+  by device time and the ``lle.`` spans by host time (``cuda_time_ms``
+  times a callable with CUDA events); the CLI prints them for a registry
+  model at random weights:
 
     python -m bayer_low_light_image_enhancement_tpu_torch.utils.profiling \\
         --model rawformer_wfb --batch 2 --size 512 --mode forward
@@ -37,6 +44,19 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import torch
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
+
+SPAN_PREFIX = "lle."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named phase of the port (``name`` starts with ``lle.``): a
+    ``record_function`` range while a profiler records, nested in the
+    thread's open ranges; else the shared null context, at the cost of one
+    flag read."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -142,9 +162,23 @@ def cuda_time_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float
     return start.elapsed_time(end) / iters
 
 
+def covered_us(intervals: Sequence[Tuple[float, float]]) -> float:
+    """Length of the union of ``intervals`` (overlaps, as kernels on two
+    streams, count once)."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def profile(fn: Callable[[], object], steps: int = 5, warmup: int = 3) -> Dict[str, object]:
     """Profile ``steps`` calls of ``fn`` after ``warmup``: -> {"host_ms",
-    "device_ms", "busy", "kernels": [(name, ms per call, calls per call)]}."""
+    "device_ms" (kernel time summed), "busy" (the union of the kernels'
+    intervals over the host time), "kernels": [(name, ms per call, calls
+    per call)], "spans": [(``lle.`` span, host ms per call, calls per
+    call)]}."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -158,16 +192,24 @@ def profile(fn: Callable[[], object], steps: int = 5, warmup: int = 3) -> Dict[s
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
     per_kernel: Dict[str, List[float]] = collections.defaultdict(lambda: [0.0, 0])
+    per_span: Dict[str, List[float]] = collections.defaultdict(lambda: [0.0, 0])
+    intervals = []
     for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3 / steps
         # GPU-side user annotations (Optimizer.step, ...) span kernels already counted.
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
-            per_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / steps
+            per_kernel[e.name][0] += ms
             per_kernel[e.name][1] += 1 / steps
+            intervals.append((e.time_range.start, e.time_range.end))
+        elif e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(SPAN_PREFIX):
+            per_span[e.name][0] += ms
+            per_span[e.name][1] += 1 / steps
     kernels: List[Tuple[str, float, float]] = sorted(
         ((k, v[0], v[1]) for k, v in per_kernel.items()), key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in kernels)
-    return {"host_ms": host_ms, "device_ms": device_ms, "busy": device_ms / host_ms,
-            "kernels": kernels}
+    spans = sorted(((k, v[0], v[1]) for k, v in per_span.items()), key=lambda r: -r[1])
+    busy_ms = covered_us(intervals) / 1e3 / steps
+    return {"host_ms": host_ms, "device_ms": sum(r[1] for r in kernels),
+            "busy": busy_ms / host_ms, "kernels": kernels, "spans": spans}
 
 
 def main(argv=None) -> None:
@@ -207,6 +249,9 @@ def main(argv=None) -> None:
           f"(busy {100 * r['busy']:.1f}%) in {sum(c for _, _, c in r['kernels']):.0f} kernels")
     for name, ms, calls in r["kernels"][: args.top]:
         print(f"  {ms:9.3f} ms {calls:7.1f}x  {name[:110]}")
+    print("spans (host ms per call):")
+    for name, ms, calls in r["spans"]:
+        print(f"  {ms:9.3f} ms {calls:7.1f}x  {name}")
 
 
 if __name__ == "__main__":
