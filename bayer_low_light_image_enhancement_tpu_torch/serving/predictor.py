@@ -22,7 +22,18 @@ Port of ``bayer_low_light_image_enhancement_tpu/serving/predictor.py``:
   luma-MHSA params, or RawFormer-WFB and WavKAN params and batch_stats).
 
 The model runs on ``device``, the card unless the caller asks for the CPU.
-Inputs and outputs are numpy arrays (outputs NHWC fp32). On CUDA every
+Inputs and outputs are numpy arrays; every answer is a C-contiguous NHWC
+fp32 array that only its caller holds. On CUDA the answer is cropped,
+clamped and laid out NHWC on the card, then written by one device -> host
+copy into page-locked host memory from torch's caching host allocator (a
+block of exactly the answer's shape, rounded up by the allocator to a power
+of two: 256 MiB for a 2848x4256 frame's 145 MB). The array keeps its block
+alive; the block goes back to the allocator, and serves a later answer,
+only once the caller has dropped every view of the array. So a caller that
+keeps N answers holds N page-locked blocks: drop answers promptly. On the
+CPU (any device without CUDA) the answer lands in plain memory.
+``Predictor.pinned_answers`` / ``pageable_answers`` count the answers
+returned each way, over every Predictor of the process. On CUDA every
 TransformerBlock with C <= 256 (in band mode, every TransformerBlock) runs
 the fused kernels (``models/common.TransformerBlock``), with the apply pass
 ``apply_kernel``
@@ -33,7 +44,7 @@ Each entry point's request runs under ``utils.profiling.span`` phases, seen
 only while a ``torch.profiler`` records: ``lle.predictor.request`` around
 ``lle.predictor.h2d`` (numpy -> tensor, the copy to the device, the pad),
 ``lle.predictor.forward`` (the decode and the model's launches) and
-``lle.predictor.finish`` (crop, clamp, cast, the copy to the host).
+``lle.predictor.finish`` (crop, clamp, NHWC, the copy to the host).
 """
 
 from __future__ import annotations
@@ -55,6 +66,11 @@ from bayer_low_light_image_enhancement_tpu_torch.utils.profiling import span
 
 
 class Predictor:
+    # Answers returned through page-locked host memory (CUDA) and through
+    # plain memory (every other device), as the kernels' ``.launches``.
+    pinned_answers = 0
+    pageable_answers = 0
+
     def __init__(
         self,
         model: nn.Module,
@@ -104,10 +120,23 @@ class Predictor:
 
     @staticmethod
     def _finish(y: torch.Tensor, h: int, w: int, squeeze: bool) -> np.ndarray:
+        """[B,3,H',W'] model output -> the caller's C-contiguous [B,h,w,3]
+        fp32 answer ([h,w,3] squeezed): crop, NHWC and clamp in one pass on
+        the output's device; on CUDA one DMA into a page-locked block of the
+        caching host allocator, synchronised, else a plain host copy."""
         with span("lle.predictor.finish"):
-            y = y[:, :, :h, :w].permute(0, 2, 3, 1).clamp(0.0, 1.0)
-            y = y.float().cpu().numpy()
-        return y[0] if squeeze else y
+            y = y[:, :, :h, :w].permute(0, 2, 3, 1).float()
+            nhwc = torch.empty_like(y, memory_format=torch.contiguous_format)
+            torch.clamp(y, 0.0, 1.0, out=nhwc)
+            if nhwc.is_cuda:
+                host = torch.empty_like(nhwc, device="cpu", pin_memory=True)
+                host.copy_(nhwc)  # blocking: returns once the copy has landed
+                Predictor.pinned_answers += 1
+            else:
+                host = nhwc.cpu()
+                Predictor.pageable_answers += 1
+            a = host.numpy()  # holds ``host``, and with it the block
+        return a[0] if squeeze else a
 
     @staticmethod
     def _frames(a: np.ndarray):

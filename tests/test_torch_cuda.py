@@ -642,6 +642,89 @@ def test_raw_u16_serving_matches_cpu_twin_path(cuda):
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
 
 
+# A frame that the benchmark's route serves banded: padded to 512 x 768, four
+# bands of 128 rows.
+ANSWER_FRAME = (500, 700)
+
+
+def banded_s_predictor(cuda):
+    from bayer_low_light_image_enhancement_tpu_torch.models import get_model
+    from bayer_low_light_image_enhancement_tpu_torch.models.fused_apply import make_banded_forward
+
+    model = get_model("rawformer_s", device=cuda, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(28)).eval()
+    return Predictor(make_banded_forward(model, 4), device=cuda, pad_to=128)
+
+
+def answer_owner(a: np.ndarray) -> torch.Tensor:
+    """The tensor whose memory a Predictor answer views."""
+    while not isinstance(a, torch.Tensor):
+        a = a.base
+    return a
+
+
+def host_allocations():
+    """Blocks the caching host allocator has made, where the build says."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return None
+    s = stats()
+    return s.get("num_host_alloc", s.get("allocations.allocated"))
+
+
+def test_answer_lands_in_page_locked_memory_bitwise_as_before(cuda):
+    """A banded RawFormer-S frame through ``raw_u16``: the answer holds, bit
+    for bit, what the plain expression (crop, NHWC view, clamp, fp32,
+    ``.cpu()``) makes of the same forward's output, as one C-contiguous
+    array in page-locked memory, counted as pinned."""
+    pred = banded_s_predictor(cuda)
+    m = np.random.default_rng(28).integers(0, 17000, ANSWER_FRAME, dtype=np.uint16)
+    outs = []
+    hook = pred.model.register_forward_hook(lambda mod, args, out: outs.append(out))
+    before = (Predictor.pinned_answers, Predictor.pageable_answers)
+    try:
+        got = pred.raw_u16(m, 120.0)
+    finally:
+        hook.remove()
+    assert (Predictor.pinned_answers, Predictor.pageable_answers) == (before[0] + 1, before[1])
+    (y,) = outs
+    h, w = ANSWER_FRAME
+    want = y[:, :, :h, :w].permute(0, 2, 3, 1).clamp(0.0, 1.0).float().cpu().numpy()[0]
+    assert got.shape == (h, w, 3) and got.dtype == np.float32 and got.flags.c_contiguous
+    assert np.array_equal(got, want)
+    assert answer_owner(got).is_pinned()
+
+
+def test_held_answer_survives_the_next_request(cuda):
+    """An answer the caller still holds is never written again: the next
+    request, on another capture, lands in another block."""
+    pred = banded_s_predictor(cuda)
+    g = np.random.default_rng(29)
+    m1, m2 = (g.integers(0, 17000, ANSWER_FRAME, dtype=np.uint16) for _ in range(2))
+    a = pred.raw_u16(m1, 120.0)
+    kept = a.copy()
+    b = pred.raw_u16(m2, 120.0)
+    torch.cuda.synchronize()
+    assert np.array_equal(a, kept) and not np.array_equal(a, b)
+    assert answer_owner(a).data_ptr() != answer_owner(b).data_ptr()
+
+
+def test_dropped_answers_recycle_their_blocks(cuda):
+    """Eight requests whose answers are dropped: eight pinned answers, and
+    after the first two at most two new blocks from the host allocator."""
+    pred = banded_s_predictor(cuda)
+    m = np.random.default_rng(30).integers(0, 17000, ANSWER_FRAME, dtype=np.uint16)
+    before = Predictor.pinned_answers
+    for _ in range(2):
+        pred.raw_u16(m, 120.0)
+    made = host_allocations()
+    for _ in range(6):
+        pred.raw_u16(m, 120.0)
+    assert Predictor.pinned_answers == before + 8
+    if made is not None:
+        assert host_allocations() - made <= 2
+
+
 def held_grads(kern, twin, nudged, bf16, floor=2e-2):
     """Per-leaf first-step grad error of the kernel path, relative to the
     twin path's leaf max, against its yardsticks: the twin path's own change
